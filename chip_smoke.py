@@ -1,0 +1,441 @@
+"""Run the PyTorch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit and no result line):
+
+1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   with nvcc, one process per source, all started together;
+2. hold each kernel against its plain PyTorch version on the card, at the
+   serve shapes, the sweep shapes, a ragged cache and fully masked rows
+   (max-abs error <= 1e-4 in float32, <= 2e-2 in bfloat16);
+3. engine parity at the served width: a ``PolicyEngine`` on the kernel and
+   one on the plain version answer the same windows (ring wrap, episode
+   restarts, one ``invalidate_all``) with equal actions and Q within 1e-4;
+4. the main path: 16 Catch clients, each an ``EnvironmentLoop`` with a
+   ``WindowedInferenceClientActor``, served by one
+   ``TransformerInferenceServer`` over a 64-slot KV-cache pool, for 5
+   episodes each; launch counts are zeroed just before and read just
+   after, and every decode batch must have launched the kernel once per
+   layer;
+5. time each kernel, its plain version and one PyTorch library call for
+   the same function, at the main path's shapes, beside the least time the
+   card could take: CUDA events over 200 calls, median of 5, both replayed
+   from a CUDA graph (device time: ``ms``) and called eagerly (with the
+   host's per-call cost: ``eager_ms``).
+
+The last three lines are the card's name and power limit (from nvidia-smi),
+a JSON ``kernels`` line, and ``{"ok": true, "device": {...}}``.
+
+It imports nothing of JAX or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores.  The kernels here run f32 arithmetic on CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+# The served policy: fig17's top size (benchmarks/fig17_transformer_serving.py)
+# on Catch (10 x 5 boards, 3 actions).
+POLICY = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+              head_dim=64, d_ff=512, window=8, cache_slots=64)
+OBS_SHAPE = (10, 5)
+NUM_ACTIONS = 3
+CLIENTS = 16
+EPISODES = 5
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(condition, message):
+    if not condition:
+        raise SmokeFailure(message)
+
+
+def log(message):
+    print(message, flush=True)
+
+
+def card_line():
+    result = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return result.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ timing
+def time_ms(fn, warmup=20, launches=200, repeats=5, graph=True):
+    """Median over ``repeats`` of the mean time of ``launches`` back-to-back
+    calls, by CUDA events.
+
+    ``graph=True`` captures the calls in a CUDA graph and times its replay:
+    the device time, without the host's per-call cost.  ``graph=False``
+    times eager calls, which the host's enqueue rate bounds when the device
+    work is shorter than the call's Python cost.
+    """
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if graph:
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            for _ in range(launches):
+                fn()
+
+        def batch():
+            cuda_graph.replay()
+    else:
+        def batch():
+            for _ in range(launches):
+                fn()
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        batch()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / launches)
+    return statistics.median(samples)
+
+
+# ---------------------------------------------------------- decode attention
+def decode_inputs(b, h, kv, s, d, lengths, dtype, rng):
+    import torch
+    q = torch.as_tensor(rng.randn(b, h, d).astype(np.float32))
+    k = torch.as_tensor(rng.randn(b, s, kv, d).astype(np.float32))
+    v = torch.as_tensor(rng.randn(b, s, kv, d).astype(np.float32))
+    return (q.to("cuda", dtype), k.to("cuda", dtype), v.to("cuda", dtype),
+            torch.as_tensor(np.asarray(lengths, np.int32)).cuda())
+
+
+def serve_lengths(b, s, rng):
+    """Mixed lengths as the serve step emits them: full rings, mid-prefix
+    rows and length-1 pad/restart rows."""
+    lengths = np.full((b,), s, np.int32)
+    lengths[1::3] = rng.randint(2, s, len(lengths[1::3]))
+    lengths[2::3] = 1
+    return lengths
+
+
+def decode_cases(rng):
+    """(label, b, h, kv, s, d, lengths) for phase 2."""
+    cases = []
+    for b in (1, 8, 64):
+        cases.append(("serve", b, 4, 2, 8, 64, serve_lengths(b, 8, rng)))
+    for b, h, s, d in ((1, 1, 512, 64), (2, 4, 1024, 64), (1, 8, 512, 128),
+                       (4, 2, 2048, 32)):
+        cases.append(("sweep", b, h, h, s, d, rng.randint(1, s + 1, b)))
+    cases.append(("ragged", 4, 4, 2, 1000, 64, rng.randint(1, 1001, 4)))
+    cases.append(("masked", 4, 4, 2, 64, 64, np.asarray([0, 64, 0, 10])))
+    cases.append(("head_dim", 2, 8, 2, 300, 16, rng.randint(1, 301, 2)))
+    cases.append(("head_dim", 2, 8, 2, 700, 256, rng.randint(1, 701, 2)))
+    return cases
+
+
+def decode_bound(b, h, kv, s, d, lengths, itemsize):
+    """Least time (ms) for these inputs: q and out once, the K and V rows
+    each row attends to once (the valid prefix; all s keys when none is
+    valid), lengths once; two multiply-adds per key, head and channel."""
+    keys = sum(min(int(n), s) if n >= 1 else s for n in lengths)
+    nbytes = itemsize * (2 * b * h * d + 2 * keys * kv * d) + 4 * b
+    flops = 4 * keys * h * d
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
+def check_decode_attention(kernel, ref, torch):
+    rng = np.random.RandomState(SEED)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for label, b, h, kv, s, d, lengths in decode_cases(rng):
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v, lens = decode_inputs(b, h, kv, s, d, lengths, dtype, rng)
+            out = kernel(q, k, v, lens)
+            torch.cuda.synchronize()
+            expected = ref.decode_attention_ref(q, k, v, lens)
+            check(out.shape == expected.shape and out.dtype == q.dtype,
+                  f"decode_attention {label}: shape/dtype mismatch")
+            check(bool(torch.isfinite(out).all()),
+                  f"decode_attention {label}: non-finite output")
+            err = (out.float() - expected.float()).abs().max().item()
+            worst[name] = max(worst[name], err)
+            log(f"  decode_attention {label:8s} b={b:<3d} h={h} kv={kv} "
+                f"s={s:<5d} d={d:<3d} {name:8s} max_abs_err={err:.3e}")
+            check(err <= TOL[name], f"decode_attention {label} {name}: "
+                  f"max_abs_err {err} > {TOL[name]}")
+    return worst
+
+
+def time_decode_attention(kernel, ref, torch, b, s, lengths_value):
+    """Kernel, plain version and scaled_dot_product_attention (the library
+    yardstick, never called by the port) at the served head layout."""
+    import torch.nn.functional as F
+    h, kv, d = POLICY["num_heads"], POLICY["num_kv_heads"], POLICY["head_dim"]
+    rng = np.random.RandomState(SEED + 1)
+    lengths = np.full((b,), lengths_value, np.int32)
+    q, k, v, lens = decode_inputs(b, h, kv, s, d, lengths, torch.float32, rng)
+    err = (kernel(q, k, v, lens) - ref.decode_attention_ref(q, k, v, lens)
+           ).abs().max().item()
+    # the library call's own layout, prepared outside the timed region
+    q4 = q[:, :, None, :]
+    k4, v4 = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+    bound, bound_by = decode_bound(b, h, kv, s, d, lengths, 4)
+    calls = {
+        "": lambda: kernel(q, k, v, lens),
+        "plain_": lambda: ref.decode_attention_ref(q, k, v, lens),
+        "library_": lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True),
+    }
+    timed = {"shape": {"b": b, "h": h, "kv": kv, "s": s, "d": d,
+                       "lengths": int(lengths_value), "dtype": "float32"},
+             "max_abs_err_timed": err, "bound_ms": bound,
+             "bound_by": bound_by}
+    for prefix, fn in calls.items():
+        timed[f"{prefix}ms"] = time_ms(fn, graph=True)
+        timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
+    return timed
+
+
+# ------------------------------------------------------------ engine parity
+def engine_parity(torch, policy_cfg):
+    from repro_torch.policies import PolicyEngine, network
+    from repro_torch.policies.actors import _WindowBuffer
+
+    arch = network.make_arch(policy_cfg, NUM_ACTIONS)
+    params = network.init(torch.Generator().manual_seed(SEED), arch,
+                          int(np.prod(OBS_SHAPE)), NUM_ACTIONS, device="cuda")
+    engines = [PolicyEngine(arch, OBS_SHAPE, NUM_ACTIONS, num_slots=8,
+                            epsilon=0.0, backend=backend, device="cuda")
+               for backend in ("kernel", "ref")]
+    rng = np.random.RandomState(SEED + 2)
+    window = policy_cfg.window
+    bufs = [_WindowBuffer(window, OBS_SHAPE) for _ in range(8)]
+    keys = [f"row{i}" for i in range(8)]
+    worst = 0.0
+    for t in range(3 * window):
+        if t == 5:
+            bufs[1].reset()
+            bufs[3].reset()
+        if t == 13:
+            bufs[6].reset()
+        if t == 10:
+            for engine in engines:
+                engine.pool.invalidate_all()
+        for buf in bufs:
+            buf.push((rng.rand(*OBS_SHAPE) < 0.2).astype(np.float32))
+        windows = np.stack([buf.window_array() for buf in bufs])
+        positions = [buf.t for buf in bufs]
+        (a0, q0), (a1, q1) = (e.select_with_q(params, keys, windows,
+                                              positions) for e in engines)
+        check(np.array_equal(a0, a1), f"engine parity: actions differ at "
+              f"step {t}: {a0} vs {a1}")
+        worst = max(worst, float(np.abs(q0 - q1).max()))
+        check(worst <= 1e-4, f"engine parity: Q differs by {worst} at {t}")
+    stats = engines[0].stats()
+    check(stats["decode_rows"] > 0 and stats["stale_reprefills"] > 0,
+          f"engine parity: paths not exercised {stats}")
+    log(f"  engine parity: {3 * window} steps x 8 rows, actions equal, "
+        f"max |dQ| = {worst:.3e}, decode_rows={stats['decode_rows']}, "
+        f"prefill_rows={stats['prefill_rows']}")
+    return worst
+
+
+# --------------------------------------------------------------- main path
+def main_path(torch, policy_cfg, kernels):
+    from repro_torch.core import EnvironmentLoop, VariableSource
+    from repro_torch.envs import Catch
+    from repro_torch.policies import (TransformerInferenceServer,
+                                      TransformerPolicy, network)
+    from repro_torch.policies.actors import WindowedInferenceClientActor
+    from repro_torch.telemetry import registry as telemetry
+
+    arch = network.make_arch(policy_cfg, NUM_ACTIONS)
+    params = network.init(torch.Generator().manual_seed(SEED), arch,
+                          int(np.prod(OBS_SHAPE)), NUM_ACTIONS, device="cuda")
+
+    class StaticSource(VariableSource):
+        def get_variables(self, names=()):
+            return [params for _ in names]
+
+    telemetry.configure(enabled=True, node="chip_smoke")
+    policy = TransformerPolicy(arch, OBS_SHAPE, NUM_ACTIONS,
+                               epsilon=policy_cfg.epsilon,
+                               backend=policy_cfg.backend,
+                               cache_slots=policy_cfg.cache_slots,
+                               slot_timeout_s=policy_cfg.slot_timeout_s)
+    engine = policy.make_engine(num_slots=policy_cfg.cache_slots)
+    server = TransformerInferenceServer(engine, StaticSource(),
+                                        max_batch_size=64, max_wait_ms=2)
+    results, errors = [], []
+
+    def client(i):
+        try:
+            loop = EnvironmentLoop(Catch(seed=i),
+                                   WindowedInferenceClientActor(server))
+            results.extend(loop.run(num_episodes=EPISODES))
+        except Exception as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(CLIENTS)]
+    try:
+        for kernel in kernels:
+            kernel["wrapper"].launches = 0
+        t0 = time.monotonic()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=600)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    finally:
+        server.stop()
+        snap = telemetry.snapshot()
+        telemetry.unconfigure()
+    check(not any(thread.is_alive() for thread in threads),
+          "main path: a client did not finish")
+    if errors:
+        raise errors[0]
+    stats = server.stats()
+    returns = [r["episode_return"] for r in results]
+    steps = sum(r["episode_length"] for r in results)
+    decode_ms = snap.get("inference/engine/decode_ms", {})
+    log(f"  episodes={len(returns)} mean_return={np.mean(returns):.3f} "
+        f"env_steps={steps} seconds={seconds:.3f} "
+        f"steps_per_s={steps / seconds:.1f}")
+    log(f"  batches={stats['batches']} avg_rows_per_batch="
+        f"{stats['avg_rows_per_batch']:.3f} decode_batches="
+        f"{stats['decode_batches']} decode_rows={stats['decode_rows']} "
+        f"prefill_batches={stats['prefill_batches']} prefill_rows="
+        f"{stats['prefill_rows']} launches={launches}")
+    log(f"  decode batch host time (ms): p50={decode_ms.get('p50', 0):.3f} "
+        f"p95={decode_ms.get('p95', 0):.3f} count={decode_ms.get('count')}")
+    check(len(returns) == CLIENTS * EPISODES,
+          f"main path: {len(returns)} episodes, expected "
+          f"{CLIENTS * EPISODES}")
+    check(all(r in (-1.0, 1.0) for r in returns),
+          f"main path: returns not +-1: {sorted(set(returns))}")
+    check(stats["decode_rows"] > 0, "main path: no decode rows")
+    check(stats["prefill_rows"] >= CLIENTS, "main path: too few prefills")
+    check(stats["avg_rows_per_batch"] > 1, "main path: no batching")
+    check(launches["decode_attention"]
+          == stats["decode_batches"] * arch.num_layers,
+          f"main path: decode_attention launched "
+          f"{launches['decode_attention']} times, expected "
+          f"{stats['decode_batches']} x {arch.num_layers}")
+    for name, count in launches.items():
+        check(count > 0, f"main path: kernel {name} never launched")
+    return {"launches": launches, "stats": stats, "steps_per_s":
+            steps / seconds, "decode_ms_p50": decode_ms.get("p50")}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
+              "from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import decode_attention as decode_module
+    from repro_torch.policies import TransformerPolicyConfig
+    from repro_torch.policies.engine import _bucket
+
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    kernels = [{"name": decode_module.DecodeAttention.name,
+                "wrapper": decode_module.decode_attention,
+                "source": decode_module.SOURCE,
+                "replaces": decode_module.REPLACES}]
+
+    log("phase 1: build")
+    t0 = time.monotonic()
+    report = build.build([k["name"] for k in kernels])
+    log(f"  built {len(report)} kernel libraries in "
+        f"{time.monotonic() - t0:.2f} s")
+    for name, entry in report.items():
+        usage = [line.strip() for line in entry["log"].splitlines()
+                 if "registers" in line or "spill" in line]
+        log(f"  {name}: nvcc {entry['seconds']:.2f} s; ptxas: "
+            f"{'; '.join(sorted(set(usage)))}")
+
+    log("phase 2: kernels against their plain versions")
+    decode = decode_module.decode_attention
+    worst = check_decode_attention(decode, ref, torch)
+
+    policy_cfg = TransformerPolicyConfig(
+        **POLICY, epsilon=0.1, backend="auto")
+    log("phase 3: engine parity (kernel vs plain) at the served width")
+    engine_parity(torch, TransformerPolicyConfig(**POLICY, epsilon=0.0))
+
+    log(f"phase 4: main path — {CLIENTS} Catch clients x {EPISODES} "
+        f"episodes through TransformerInferenceServer")
+    path = main_path(torch, policy_cfg, kernels)
+
+    log("phase 5: timing at the main path's shapes")
+    stats = path["stats"]
+    rows = _bucket(math.ceil(stats["decode_rows"] / stats["decode_batches"]))
+    timed = time_decode_attention(decode, ref, torch, rows,
+                                  POLICY["window"], POLICY["window"])
+    log(f"  decode_attention {json.dumps(timed)}")
+    long_cache = time_decode_attention(decode, ref, torch, 64, 2048, 2048)
+    log(f"  decode_attention, long cache (not on the main path) "
+        f"{json.dumps(long_cache)}")
+
+    kernel_lines = [{
+        "name": "decode_attention", "route": "cuda",
+        "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
+        "launches": path["launches"]["decode_attention"],
+        "max_abs_err": max(worst["float32"], timed["max_abs_err_timed"]),
+        "max_abs_err_bf16": worst["bfloat16"],
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "library_ms": timed["library_ms"], "eager_ms": timed["eager_ms"],
+        "eager_plain_ms": timed["eager_plain_ms"],
+        "eager_library_ms": timed["eager_library_ms"],
+        "shape": timed["shape"],
+    }]
+    log(card_line())
+    log(json.dumps({"kernels": kernel_lines}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

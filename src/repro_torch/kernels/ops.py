@@ -1,0 +1,17 @@
+"""Public kernel entry points, dispatched on the device of their inputs.
+
+A CUDA tensor goes to the hand-written kernel, which launches or raises; a
+CPU tensor goes to the kernel's plain version in ``ref.py``.  There is no
+fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention as _decode
+
+
+def decode_attention(q, k, v, lengths):
+    """q: (b, h, d); k, v: (b, s, kv, d); lengths: (b,) int32."""
+    if q.device.type == "cuda":
+        return _decode(q, k, v, lengths)
+    return ref.decode_attention_ref(q, k, v, lengths)
