@@ -6,23 +6,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with nvcc, one process per source, all started together;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   serve shapes, the sweep shapes, a ragged cache and fully masked rows
-   (max-abs error <= 1e-4 in float32, <= 2e-2 in bfloat16);
+2. hold each kernel against its plain PyTorch version on the card: decode
+   attention at the serve shapes, the sweep shapes, a ragged cache and
+   fully masked rows; V-trace at the learner's shape, the sweep shapes, a
+   ragged batch, (1, 5) and (100, 16384), with ratios below and above the
+   clips and discounts with zeros (max-abs error <= 1e-4 in float32,
+   <= 2e-2 in bfloat16);
 3. engine parity at the served width: a ``PolicyEngine`` on the kernel and
    one on the plain version answer the same windows (ring wrap, episode
    restarts, one ``invalidate_all``) with equal actions and Q within 1e-4;
-4. the main path: 16 Catch clients, each an ``EnvironmentLoop`` with a
+4. the serving path: 16 Catch clients, each an ``EnvironmentLoop`` with a
    ``WindowedInferenceClientActor``, served by one
    ``TransformerInferenceServer`` over a 64-slot KV-cache pool, for 5
    episodes each; launch counts are zeroed just before and read just
    after, and every decode batch must have launched the kernel once per
    layer;
-5. time each kernel, its plain version and one PyTorch library call for
-   the same function, at the main path's shapes, beside the least time the
-   card could take: CUDA events over 200 calls, median of 5, both replayed
-   from a CUDA graph (device time: ``ms``) and called eagerly (with the
-   host's per-call cost: ``eager_ms``).
+5. time each kernel, its plain version and, where one exists, one PyTorch
+   library call for the same function, at the main paths' shapes, beside
+   the least time the card could take: CUDA events over 200 calls, median
+   of 5, both replayed from a CUDA graph (device time: ``ms``) and called
+   eagerly (with the host's per-call cost: ``eager_ms``);
+6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
+   the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
+   actor over a ``VectorEnv`` of 16 Catch envs in a
+   ``VectorizedEnvironmentLoop``, for 512 episodes (about 30 learner
+   steps); launch counts are zeroed just before and read just after, and
+   every learner step must have launched V-trace once;
+7. learner parity: two IMPALA learners from the same params take the same
+   10 batches, one with V-trace on the kernel and one with it held on the
+   plain version; params and Adam moments agree within 1e-5, and each of
+   the kernel learner's steps syncs with the device once, for its metrics;
+8. the reference's IMPALA learning acceptance on the card
+   (``tests/test_agents_learning.py``): Catch(seed=2), T 5, B 4, lr 3e-3,
+   entropy 0.02, builder seed 1, 600 episodes; the mean return of the last
+   50 beats the first 50 by more than 0.3.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line, and ``{"ok": true, "device": {...}}``.
@@ -38,6 +55,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +67,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Adam moments and params of two learners that differ only in V-trace's
+# rounding (FMA contraction in the kernel), after 10 steps.
+LEARNER_TOL = 1e-5
 
 # The served policy: fig17's top size (benchmarks/fig17_transformer_serving.py)
 # on Catch (10 x 5 boards, 3 actions).
@@ -58,6 +79,18 @@ OBS_SHAPE = (10, 5)
 NUM_ACTIONS = 3
 CLIENTS = 16
 EPISODES = 5
+
+# IMPALA: the reference's IMPALAConfig() (src/repro/agents/impala.py:29-40)
+# over 16 Catch envs.  Catch episodes last 9 steps and the 16 envs end
+# together, so each round of 16 episodes inserts one padded sequence per
+# env: one learner step (B = 16) per round once 320 observations are in.
+IMPALA_ENVS = 16
+IMPALA_EPISODES = 512
+IMPALA_MIN_LEARNER_STEPS = 20
+VTRACE_SHAPES = [("learner", 20, 16), ("sweep", 16, 128), ("sweep", 64, 256),
+                 ("sweep", 100, 128), ("ragged", 20, 37), ("tiny", 1, 5),
+                 ("large", 100, 16384)]
+VTRACE_TIMED = [(20, 16), (100, 256), (100, 16384)]
 
 
 class SmokeFailure(RuntimeError):
@@ -221,6 +254,70 @@ def time_decode_attention(kernel, ref, torch, b, s, lengths_value):
     return timed
 
 
+# ------------------------------------------------------------------ V-trace
+def vtrace_inputs(T, B, rng):
+    """Time-major (T, B) f32 on the card: ratios below and above the clips,
+    discounts with zeros (episode ends)."""
+    import torch
+    discounts = rng.rand(T, B) * 0.99
+    discounts[rng.rand(T, B) < 0.1] = 0.0
+    arrays = (rng.randn(T, B), rng.randn(T, B), rng.randn(T, B), discounts,
+              np.abs(rng.randn(T, B)) + 0.1)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                 for a in arrays)
+
+
+def vtrace_bound(T, B):
+    """Least time (ms): five f32 inputs read once and two outputs written
+    once; about 12 f32 operations per element."""
+    by_bytes = 28 * T * B / HBM_BYTES_PER_S * 1e3
+    by_ops = 12 * T * B / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
+def vtrace_error(kernel, ref, inputs, clip_rho=1.0, clip_c=1.0):
+    out = kernel(*inputs, clip_rho, clip_c)
+    expected = ref.vtrace_ref(*inputs, clip_rho=clip_rho, clip_c=clip_c)
+    return max((a - e).abs().max().item() for a, e in zip(out, expected)), \
+        out
+
+
+def check_vtrace(kernel, ref, torch):
+    rng = np.random.RandomState(SEED + 3)
+    worst = 0.0
+    for label, T, B in VTRACE_SHAPES:
+        inputs = vtrace_inputs(T, B, rng)
+        for clips in ((1.0, 1.0), (0.8, 1.5)):
+            err, out = vtrace_error(kernel, ref, inputs, *clips)
+            torch.cuda.synchronize()
+            check(all(o.shape == (T, B) and bool(torch.isfinite(o).all())
+                      for o in out), f"vtrace {label}: bad output")
+            worst = max(worst, err)
+            log(f"  vtrace {label:8s} T={T:<3d} B={B:<5d} clips={clips} "
+                f"max_abs_err={err:.3e}")
+            check(err <= TOL["float32"], f"vtrace {label}: max_abs_err "
+                  f"{err} > {TOL['float32']}")
+    return worst
+
+
+def time_vtrace(kernel, ref, T, B):
+    """Kernel and plain version; no single PyTorch call computes a reverse
+    linear recurrence, so there is no library yardstick."""
+    inputs = vtrace_inputs(T, B, np.random.RandomState(SEED + 4))
+    err, _ = vtrace_error(kernel, ref, inputs)
+    bound, bound_by = vtrace_bound(T, B)
+    timed = {"shape": {"T": T, "B": B, "dtype": "float32"},
+             "max_abs_err_timed": err, "bound_ms": bound,
+             "bound_by": bound_by, "library_ms": None}
+    calls = {"": lambda: kernel(*inputs),
+             "plain_": lambda: ref.vtrace_ref(*inputs)}
+    for prefix, fn in calls.items():
+        timed[f"{prefix}ms"] = time_ms(fn, graph=True)
+        timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
+    return timed
+
+
 # ------------------------------------------------------------ engine parity
 def engine_parity(torch, policy_cfg):
     from repro_torch.policies import PolicyEngine, network
@@ -266,7 +363,7 @@ def engine_parity(torch, policy_cfg):
 
 
 # --------------------------------------------------------------- main path
-def main_path(torch, policy_cfg, kernels):
+def serving_path(torch, policy_cfg, kernels):
     from repro_torch.core import EnvironmentLoop, VariableSource
     from repro_torch.envs import Catch
     from repro_torch.policies import (TransformerInferenceServer,
@@ -349,10 +446,180 @@ def main_path(torch, policy_cfg, kernels):
           f"main path: decode_attention launched "
           f"{launches['decode_attention']} times, expected "
           f"{stats['decode_batches']} x {arch.num_layers}")
-    for name, count in launches.items():
-        check(count > 0, f"main path: kernel {name} never launched")
+    check(launches["decode_attention"] > 0,
+          "main path: kernel decode_attention never launched")
     return {"launches": launches, "stats": stats, "steps_per_s":
             steps / seconds, "decode_ms_p50": decode_ms.get("p50")}
+
+
+# ------------------------------------------------------------------- IMPALA
+def impala_path(torch, kernels):
+    from repro_torch import tree
+    from repro_torch.agents import make_agent
+    from repro_torch.agents.impala import IMPALABuilder, IMPALAConfig
+    from repro_torch.core import (VectorizedEnvironmentLoop,
+                                  make_environment_spec)
+    from repro_torch.envs import Catch, VectorEnv
+    from repro_torch.telemetry import registry as telemetry
+
+    env = VectorEnv(lambda seed: Catch(seed=seed), IMPALA_ENVS, seed=SEED)
+    agent = make_agent(IMPALABuilder(make_environment_spec(env),
+                                     IMPALAConfig(), seed=SEED),
+                       num_envs=IMPALA_ENVS, telemetry=True)
+    loop = VectorizedEnvironmentLoop(env, agent)
+    try:
+        for kernel in kernels:
+            kernel["wrapper"].launches = 0
+        t0 = time.monotonic()
+        results = loop.run(num_episodes=IMPALA_EPISODES)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+        snap = telemetry.snapshot()
+    finally:
+        telemetry.unconfigure()
+    learner = agent.learner
+    steps = int(learner.state.steps)
+    env_steps = sum(r["episode_length"] for r in results)
+    step_ms = snap.get("learner/step_ms", {})
+    metrics = learner.metrics
+    log(f"  episodes={len(results)} env_steps={env_steps} "
+        f"seconds={seconds:.3f} env_steps_per_s={env_steps / seconds:.1f} "
+        f"learner_steps={steps} learner_steps_per_s={steps / seconds:.2f} "
+        f"learner_walltime_s={learner.learner_walltime:.3f}")
+    log(f"  learner step host time (ms): p50={step_ms.get('p50', 0):.3f} "
+        f"p95={step_ms.get('p95', 0):.3f} count={step_ms.get('count')} "
+        f"launches={launches} last metrics={json.dumps(metrics)}")
+    check(len(results) >= IMPALA_EPISODES, "IMPALA path: too few episodes")
+    check(steps >= IMPALA_MIN_LEARNER_STEPS,
+          f"IMPALA path: {steps} learner steps < {IMPALA_MIN_LEARNER_STEPS}")
+    check(launches["vtrace"] == steps, f"IMPALA path: vtrace launched "
+          f"{launches['vtrace']} times for {steps} learner steps")
+    check(step_ms.get("count") == steps,
+          f"IMPALA path: {step_ms.get('count')} step times for {steps}")
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"IMPALA path: non-finite metrics {metrics}")
+    check(all(bool(torch.isfinite(x).all()) for x in
+              tree.leaves(learner.state.params)),
+          "IMPALA path: non-finite params")
+    return {"launches": launches, "learner_steps": steps,
+            "env_steps_per_s": env_steps / seconds,
+            "learner_steps_per_s": steps / seconds,
+            "learner_step_ms_p50": step_ms.get("p50"),
+            "learner_step_ms_p95": step_ms.get("p95")}
+
+
+def impala_batch(cfg, seed):
+    """A (B, T) batch as the FIFO queue serves it: Catch-like boards,
+    episode ends and zero-padded tails."""
+    from repro_torch.replay import ReplaySample, SampleInfo
+    B, T = cfg.batch_size, cfg.sequence_length
+    rng = np.random.RandomState(seed)
+    obs = np.zeros((B, T, *OBS_SHAPE), np.float32)
+    rows, cols = np.arange(B)[:, None], np.arange(T)[None]
+    obs[rows, cols, rng.randint(0, 10, (B, T)), rng.randint(0, 5, (B, T))] = 1
+    obs[rows, cols, 9, rng.randint(0, 5, (B, T))] = 1
+    lengths = rng.randint(1, T + 1, B)
+    mask = (cols < lengths[:, None]).astype(np.float32)
+    discount = (rng.rand(B, T) > 0.1).astype(np.float32) * mask
+    data = {"observation": obs * mask[..., None, None],
+            "action": (rng.randint(0, NUM_ACTIONS, (B, T)) * mask
+                       ).astype(np.int32),
+            "reward": (rng.randint(-1, 2, (B, T)) * (discount == 0)
+                       ).astype(np.float32),
+            "discount": discount,
+            "behavior_logits": (rng.randn(B, T, NUM_ACTIONS)
+                                * mask[..., None]).astype(np.float32),
+            "mask": mask}
+    return ReplaySample(SampleInfo(np.arange(B), np.ones(B)), data)
+
+
+def sync_count(torch, fn):
+    """How many times ``fn()`` made the host wait for the device, as
+    PyTorch's sync debug mode reports it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA" in str(w.message) for w in caught)
+
+
+def learner_parity(torch, vtrace_kernel):
+    """Same params, same 10 batches: V-trace on the kernel vs on the plain
+    version (the plain version swapped in for the second learner only)."""
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.agents import impala
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+    from repro_torch.kernels import ops, ref
+
+    cfg = impala.IMPALAConfig()
+    spec = make_environment_spec(Catch())
+    batches = [impala_batch(cfg, SEED + i) for i in range(10)]
+    learners = [impala.make_learner(spec, cfg, iter(batches),
+                                    torch.Generator().manual_seed(SEED),
+                                    device="cuda") for _ in range(2)]
+    before = vtrace_kernel.launches
+    syncs = []
+    for _ in batches:
+        syncs.append(sync_count(torch, learners[0].step))
+        with mock.patch.object(ops, "vtrace", ref.vtrace_ref):
+            learners[1].step()
+    check(vtrace_kernel.launches - before == len(batches),
+          "learner parity: the kernel learner did not launch V-trace once "
+          "per step, or the plain learner launched it")
+    log(f"  device syncs per learner step: {syncs}")
+    check(all(n == 1 for n in syncs), f"learner parity: a step synced "
+          f"{syncs} times; its metrics copy should be its only sync")
+    kernel_state, plain_state = (lr.state for lr in learners)
+    worst = {}
+    for name, a, b in (
+            ("params", kernel_state.params, plain_state.params),
+            ("mu", kernel_state.opt_state.mu, plain_state.opt_state.mu),
+            ("nu", kernel_state.opt_state.nu, plain_state.opt_state.nu)):
+        worst[name] = max((x - y).abs().max().item() for x, y in
+                          zip(tree.leaves(a), tree.leaves(b)))
+    log(f"  learner parity over {len(batches)} steps: max |d| {worst}; "
+        f"loss {learners[0].metrics['loss']:.6f} vs "
+        f"{learners[1].metrics['loss']:.6f}")
+    check(max(worst.values()) <= LEARNER_TOL,
+          f"learner parity: {worst} > {LEARNER_TOL}")
+    check(int(kernel_state.opt_state.step) == len(batches),
+          "learner parity: Adam step count")
+    return worst
+
+
+def learning(torch, vtrace_kernel):
+    from repro_torch.agents import make_agent
+    from repro_torch.agents.impala import IMPALABuilder, IMPALAConfig
+    from repro_torch.core import EnvironmentLoop, make_environment_spec
+    from repro_torch.envs import Catch
+
+    env = Catch(seed=2)
+    cfg = IMPALAConfig(sequence_length=5, batch_size=4, learning_rate=3e-3,
+                       entropy_cost=0.02)
+    agent = make_agent(IMPALABuilder(make_environment_spec(env), cfg, seed=1))
+    loop = EnvironmentLoop(env, agent)
+    before = vtrace_kernel.launches
+    t0 = time.monotonic()
+    rets = [loop.run_episode()["episode_return"] for _ in range(600)]
+    seconds = time.monotonic() - t0
+    steps = int(agent.learner.state.steps)
+    first, last = float(np.mean(rets[:50])), float(np.mean(rets[-50:]))
+    log(f"  600 episodes in {seconds:.2f} s, learner_steps={steps}, "
+        f"vtrace launches={vtrace_kernel.launches - before}; mean return "
+        f"first 50 {first:.3f}, last 50 {last:.3f}")
+    check(vtrace_kernel.launches - before == steps > 0,
+          "learning: V-trace not launched once per learner step")
+    check(last > first + 0.3, f"learning: last 50 mean {last} does not "
+          f"beat first 50 mean {first} by 0.3")
+    return {"first50": first, "last50": last, "learner_steps": steps}
 
 
 def main() -> int:
@@ -371,16 +638,18 @@ def main() -> int:
 
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as decode_module
+    from repro_torch.kernels import vtrace as vtrace_module
     from repro_torch.policies import TransformerPolicyConfig
     from repro_torch.policies.engine import _bucket
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
-    kernels = [{"name": decode_module.DecodeAttention.name,
-                "wrapper": decode_module.decode_attention,
-                "source": decode_module.SOURCE,
-                "replaces": decode_module.REPLACES}]
+    kernels = [{"name": wrapper.name, "wrapper": wrapper,
+                "source": module.SOURCE, "replaces": module.REPLACES}
+               for module, wrapper in (
+                   (decode_module, decode_module.decode_attention),
+                   (vtrace_module, vtrace_module.vtrace))]
 
     log("phase 1: build")
     t0 = time.monotonic()
@@ -395,18 +664,20 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     decode = decode_module.decode_attention
+    vtrace = vtrace_module.vtrace
     worst = check_decode_attention(decode, ref, torch)
+    worst_vtrace = check_vtrace(vtrace, ref, torch)
 
     policy_cfg = TransformerPolicyConfig(
         **POLICY, epsilon=0.1, backend="auto")
     log("phase 3: engine parity (kernel vs plain) at the served width")
     engine_parity(torch, TransformerPolicyConfig(**POLICY, epsilon=0.0))
 
-    log(f"phase 4: main path — {CLIENTS} Catch clients x {EPISODES} "
+    log(f"phase 4: serving path — {CLIENTS} Catch clients x {EPISODES} "
         f"episodes through TransformerInferenceServer")
-    path = main_path(torch, policy_cfg, kernels)
+    path = serving_path(torch, policy_cfg, kernels)
 
-    log("phase 5: timing at the main path's shapes")
+    log("phase 5: timing at the main paths' shapes")
     stats = path["stats"]
     rows = _bucket(math.ceil(stats["decode_rows"] / stats["decode_batches"]))
     timed = time_decode_attention(decode, ref, torch, rows,
@@ -415,7 +686,22 @@ def main() -> int:
     long_cache = time_decode_attention(decode, ref, torch, 64, 2048, 2048)
     log(f"  decode_attention, long cache (not on the main path) "
         f"{json.dumps(long_cache)}")
+    vtrace_timed = {}
+    for T, B in VTRACE_TIMED:
+        vtrace_timed[(T, B)] = time_vtrace(vtrace, ref, T, B)
+        log(f"  vtrace {json.dumps(vtrace_timed[(T, B)])}")
 
+    log(f"phase 6: IMPALA path — make_agent(IMPALABuilder) over "
+        f"{IMPALA_ENVS} Catch envs, {IMPALA_EPISODES} episodes")
+    impala = impala_path(torch, kernels)
+
+    log("phase 7: IMPALA learner parity (V-trace kernel vs plain)")
+    learner_parity(torch, vtrace)
+
+    log("phase 8: IMPALA learns Catch (the reference's acceptance)")
+    learning(torch, vtrace)
+
+    vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
         "name": "decode_attention", "route": "cuda",
         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
@@ -428,6 +714,18 @@ def main() -> int:
         "eager_plain_ms": timed["eager_plain_ms"],
         "eager_library_ms": timed["eager_library_ms"],
         "shape": timed["shape"],
+    }, {
+        "name": "vtrace", "route": "cuda",
+        "source": kernels[1]["source"], "replaces": kernels[1]["replaces"],
+        "launches": impala["launches"]["vtrace"],
+        "max_abs_err": max([worst_vtrace] + [
+            t["max_abs_err_timed"] for t in vtrace_timed.values()]),
+        "ms": vtrace_main["ms"], "plain_ms": vtrace_main["plain_ms"],
+        "bound_ms": vtrace_main["bound_ms"],
+        "bound_by": vtrace_main["bound_by"], "library_ms": None,
+        "eager_ms": vtrace_main["eager_ms"],
+        "eager_plain_ms": vtrace_main["eager_plain_ms"],
+        "shape": vtrace_main["shape"],
     }]
     log(card_line())
     log(json.dumps({"kernels": kernel_lines}))

@@ -9,5 +9,8 @@ and default to ``"cuda"``; the CPU is used only when a caller asks for it.
 Ported so far: transformer-policy serving on Catch — specs, Catch, the
 environment loop, the variable client, the telemetry registry, the dense
 transformer stack, the KV-cache pool, the policy engine, the windowed actors
-and the batching inference server, with decode attention as a CUDA kernel.
+and the batching inference server, with decode attention as a CUDA kernel;
+and the IMPALA learner on Catch — vectorized envs and acting, replay and
+adders, the functional optimizers, the agent and its builder, with V-trace
+as a CUDA kernel.  ``repro_torch.tree`` walks trees in JAX's leaf order.
 """

@@ -1,7 +1,12 @@
-"""Acme's core: specs, interfaces, the environment loop, variable flow and
-the batching server (the parts the policy-serving slice needs)."""
+"""Acme's core: actors, learners, agents, environment loops, variable flow
+and the batching server (the parts the ported slices need)."""
+from repro_torch.builders import AgentBuilder, BuilderOptions  # noqa: F401
+from repro_torch.core.actors import (  # noqa: F401
+    BatchedFeedForwardActor, FeedForwardActor)
+from repro_torch.core.agent import Agent  # noqa: F401
 from repro_torch.core.interfaces import Actor, Learner, VariableSource, Worker  # noqa: F401
-from repro_torch.core.loop import Counter, EnvironmentLoop  # noqa: F401
+from repro_torch.core.loop import (  # noqa: F401
+    Counter, EnvironmentLoop, VectorizedEnvironmentLoop)
 from repro_torch.core.types import (  # noqa: F401
     ArraySpec, BoundedArraySpec, DiscreteArraySpec, Environment,
     EnvironmentSpec, StepType, TimeStep, Transition, make_environment_spec,

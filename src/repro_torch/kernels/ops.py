@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode
+from repro_torch.kernels.vtrace import vtrace as _vtrace
 
 
 def decode_attention(q, k, v, lengths):
@@ -15,3 +16,13 @@ def decode_attention(q, k, v, lengths):
     if q.device.type == "cuda":
         return _decode(q, k, v, lengths)
     return ref.decode_attention_ref(q, k, v, lengths)
+
+
+def vtrace(values, next_values, rewards, discounts, rhos, *,
+           clip_rho: float = 1.0, clip_c: float = 1.0):
+    """Time-major (T, B) float32 inputs.  Returns (vs, pg_advantages)."""
+    if values.device.type == "cuda":
+        return _vtrace(values, next_values, rewards, discounts, rhos,
+                       clip_rho, clip_c)
+    return ref.vtrace_ref(values, next_values, rewards, discounts, rhos,
+                          clip_rho=clip_rho, clip_c=clip_c)

@@ -27,3 +27,26 @@ def decode_attention_ref(q, k, v, lengths):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngs,bsnd->bngd", p, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def vtrace_ref(values, next_values, rewards, discounts, rhos,
+               clip_rho: float = 1.0, clip_c: float = 1.0):
+    """V-trace targets (Espeholt et al. 2018), time-major (T, B) f32 inputs.
+
+    vs_t = V_t + delta_t + gamma_t * c_t * (vs_{t+1} - V_{t+1}),
+    delta_t = clipped_rho_t * (r_t + gamma_t * V_{t+1} - V_t);
+    pg_adv_t = clipped_rho_t * (r_t + gamma_t * vs_{t+1} - V_t), with
+    vs_T taken from next_values[T-1].  Returns (vs, pg_adv)."""
+    rho_c = torch.clamp(rhos, max=clip_rho)
+    cs = torch.clamp(rhos, max=clip_c)
+    deltas = rho_c * (rewards + discounts * next_values - values)
+    acc = torch.zeros_like(values[0])
+    diffs = []
+    for t in reversed(range(values.shape[0])):
+        acc = deltas[t] + discounts[t] * cs[t] * acc
+        diffs.append(acc)
+    vs = values + torch.stack(diffs[::-1])
+    # policy-gradient advantages use vs_{t+1}
+    vs_next = torch.cat([vs[1:], next_values[-1:]], dim=0)
+    pg_adv = rho_c * (rewards + discounts * vs_next - values)
+    return vs, pg_adv

@@ -1,0 +1,1 @@
+from repro_torch.networks.mlp import MLP, flatten_obs, mlp_apply, mlp_init  # noqa: F401

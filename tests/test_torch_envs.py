@@ -1,6 +1,6 @@
 """The port's host-side spine against the reference: Catch streams, the
-environment loop, the variable client and the telemetry registry behave
-identically."""
+vectorized env, the environment loops, the variable client and the
+telemetry registry behave identically."""
 import numpy as np
 import pytest
 import torch
@@ -8,9 +8,10 @@ import torch
 from repro.core import loop as jax_loop
 from repro.core import variable as jax_variable
 from repro.envs import Catch as JaxCatch
+from repro.envs import vector as jax_vector
 from repro.telemetry import registry as jax_registry
 from repro_torch.core import loop, variable
-from repro_torch.envs import Catch
+from repro_torch.envs import Catch, VectorEnv, split_timestep
 from repro_torch.telemetry import registry
 
 
@@ -65,6 +66,92 @@ class _FixedActor:
 
     def update(self, wait=False):
         self.updates += 1
+
+
+def _assert_timesteps_equal(a, b):
+    np.testing.assert_array_equal(a.step_type, b.step_type)
+    np.testing.assert_array_equal(a.reward, b.reward)
+    np.testing.assert_array_equal(a.discount, b.discount)
+    np.testing.assert_array_equal(a.observation, b.observation)
+    assert a.reward.dtype == b.reward.dtype
+    assert a.observation.dtype == b.observation.dtype
+
+
+@pytest.mark.parametrize("num_envs", [1, 4])
+def test_vector_env_streams_match_reference(num_envs):
+    """Stacked timesteps with auto-reset (a LAST slot is reset, not
+    stepped, on the next call), the per-env split views, and a state
+    round trip mid-episode."""
+    ours = VectorEnv(lambda s: Catch(seed=s), num_envs, seed=5)
+    theirs = jax_vector.VectorEnv(lambda s: JaxCatch(seed=s), num_envs,
+                                  seed=5)
+    _assert_timesteps_equal(ours.reset(), theirs.reset())
+    rng = np.random.RandomState(num_envs)
+    saw_reset = False
+    for _ in range(25):
+        actions = rng.randint(0, 3, num_envs)
+        a, b = ours.step(actions), theirs.step(actions)
+        _assert_timesteps_equal(a, b)
+        for i in range(num_envs):
+            x, y = split_timestep(a, i), jax_vector.split_timestep(b, i)
+            assert (x.step_type, x.reward, x.discount) == \
+                (y.step_type, y.reward, y.discount)
+        saw_reset |= bool((a.step_type == 0).any())
+    assert saw_reset                         # an auto-reset slot was seen
+    state = ours.get_state()
+    actions = rng.randint(0, 3, (12, num_envs))
+    first = [ours.step(x) for x in actions]
+    ours.set_state(state)
+    for x, expected in zip(actions, first):
+        _assert_timesteps_equal(ours.step(x), expected)
+    with pytest.raises(ValueError):
+        ours.step(np.zeros(num_envs + 1, np.int64))
+    assert ours.observation_spec().shape == (10, 5)
+
+
+class _FixedBatchedActor:
+    """Per-env recording actor with numpy-drawn actions."""
+
+    def __init__(self, num_envs, seed):
+        self._rng = np.random.RandomState(seed)
+        self._n = num_envs
+        self.events = []
+        self.updates = 0
+
+    def select_action(self, observation):
+        assert observation.shape[0] == self._n
+        return self._rng.randint(0, 3, self._n)
+
+    def observe_first(self, timestep, env_id=0):
+        self.events.append(("first", env_id,
+                            timestep.observation.tobytes()))
+
+    def observe(self, action, next_timestep, env_id=0):
+        self.events.append(("add", env_id, int(action), next_timestep.reward,
+                            next_timestep.discount,
+                            int(next_timestep.step_type)))
+
+    def update(self, wait=False):
+        self.updates += 1
+
+
+def test_vectorized_loop_matches_reference():
+    """The same per-env observe_first/observe stream, results and counters
+    as the reference's VectorizedEnvironmentLoop, over resumed runs."""
+    runs = []
+    for loop_mod, vec_mod, catch in ((loop, None, Catch),
+                                     (jax_loop, jax_vector, JaxCatch)):
+        make_vec = VectorEnv if vec_mod is None else vec_mod.VectorEnv
+        actor = _FixedBatchedActor(3, seed=4)
+        vloop = loop_mod.VectorizedEnvironmentLoop(
+            make_vec(lambda s, c=catch: c(seed=s), 3), actor, update_period=2)
+        results = vloop.run(num_episodes=4) + vloop.run(num_steps=20)
+        keys = ("episode_return", "episode_length", "env_id",
+                "environment_loop_episodes", "environment_loop_steps")
+        runs.append(([[r[k] for k in keys] for r in results], actor.events,
+                     actor.updates, vloop.state_dict()))
+    assert runs[0] == runs[1]
+    assert len(runs[0][0]) >= 4
 
 
 def test_environment_loop_matches_reference():

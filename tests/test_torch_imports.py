@@ -31,8 +31,22 @@ def test_import_loads_neither_jax_nor_repro():
                             capture_output=True, text=True, timeout=120,
                             check=True)
     count, bad = result.stdout.split(maxsplit=1)
-    assert int(count) >= 20           # every submodule was imported
+    assert int(count) >= 40           # every submodule was imported
     assert bad.strip() == "[]"
+
+
+def test_learner_slice_imports_neither_jax_nor_repro():
+    """The IMPALA slice's modules on their own, as a user imports them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys\n"
+            "import repro_torch.agents.impala, repro_torch.replay, "
+            "repro_torch.adders, repro_torch.optim\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
 
 
 def _imported_roots(path: pathlib.Path):

@@ -151,3 +151,72 @@ def test_decode_backend_kernel_on_cpu_raises():
         attention._decode_backend("jnp", torch.device("cpu"))
     assert (attention._decode_backend("auto", torch.device("cuda"))
             == "kernel")
+
+
+# ======================================================== V-trace, plain version
+VTRACE_TOL = 1e-5      # f32 sums over T <= 100 terms, each of order 1
+
+
+def _vtrace_inputs(T, B, seed):
+    """Time-major (T, B) f32 inputs with rhos both below and above the clip
+    and discounts that include zeros (episode ends)."""
+    rng = np.random.RandomState(seed)
+    values = rng.randn(T, B).astype(np.float32)
+    next_values = rng.randn(T, B).astype(np.float32)
+    rewards = rng.randn(T, B).astype(np.float32)
+    discounts = (rng.rand(T, B) * 0.99).astype(np.float32)
+    discounts[rng.rand(T, B) < 0.1] = 0.0
+    rhos = (np.abs(rng.randn(T, B)) + 0.1).astype(np.float32)
+    return values, next_values, rewards, discounts, rhos
+
+
+def _assert_vtrace_close(out, expected):
+    for a, e in zip(out, expected):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(e),
+                                   atol=VTRACE_TOL, rtol=VTRACE_TOL)
+
+
+@pytest.mark.parametrize("T,B", [(16, 128), (64, 256), (100, 128), (20, 16)])
+@pytest.mark.parametrize("clips", [(1.0, 1.0), (0.8, 1.5)])
+def test_vtrace_ref_matches_jax_oracle_and_pallas_kernel(T, B, clips):
+    """At the shapes of test_kernels.py::test_vtrace_sweep and the IMPALA
+    learner's (T 20, B 16): against the JAX oracle and against the Pallas
+    kernel itself in interpret mode."""
+    clip_rho, clip_c = clips
+    arrays = _vtrace_inputs(T, B, seed=T * 1000 + B)
+    out = ref.vtrace_ref(*map(torch.as_tensor, arrays), clip_rho=clip_rho,
+                         clip_c=clip_c)
+    jax_args = tuple(map(jnp.asarray, arrays))
+    _assert_vtrace_close(out, jax_ref.vtrace_ref(
+        *jax_args, clip_rho=clip_rho, clip_c=clip_c))
+    _assert_vtrace_close(out, jax_ops.vtrace(
+        *jax_args, clip_rho=clip_rho, clip_c=clip_c, block_b=min(128, B),
+        interpret=True))
+
+
+@pytest.mark.parametrize("T,B", [(20, 37), (1, 5), (7, 1)])
+def test_vtrace_ref_ragged_batch_matches_jax_oracle(T, B):
+    """Any B and T >= 1 (the Pallas kernel asserts B % block_b == 0, so a
+    ragged B is held against the JAX oracle alone)."""
+    arrays = _vtrace_inputs(T, B, seed=B)
+    out = ref.vtrace_ref(*map(torch.as_tensor, arrays))
+    _assert_vtrace_close(out, jax_ref.vtrace_ref(*map(jnp.asarray, arrays)))
+
+
+def test_vtrace_cpu_tensors_take_the_plain_version_without_launching():
+    from repro_torch.kernels.vtrace import vtrace as vtrace_kernel
+    tensors = tuple(map(torch.as_tensor, _vtrace_inputs(20, 16, seed=3)))
+    before = vtrace_kernel.launches
+    vs, adv = ops.vtrace(*tensors, clip_rho=0.9, clip_c=0.7)
+    vs_ref, adv_ref = ref.vtrace_ref(*tensors, clip_rho=0.9, clip_c=0.7)
+    np.testing.assert_array_equal(vs.numpy(), vs_ref.numpy())
+    np.testing.assert_array_equal(adv.numpy(), adv_ref.numpy())
+    assert vtrace_kernel.launches == before
+
+
+def test_vtrace_kernel_wrapper_raises_on_cpu_tensors():
+    from repro_torch.kernels.vtrace import VTrace
+    kernel = VTrace()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*map(torch.as_tensor, _vtrace_inputs(4, 3, seed=0)))
+    assert kernel.launches == 0
