@@ -11,7 +11,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    fully masked rows; V-trace at the learner's shape, the sweep shapes, a
    ragged batch, (1, 5) and (100, 16384), with ratios below and above the
    clips and discounts with zeros (max-abs error <= 1e-4 in float32,
-   <= 2e-2 in bfloat16);
+   <= 2e-2 in bfloat16); flash attention at the sweep shapes of
+   ``tests/test_kernels.py`` in both dtypes with the three mask cases, a
+   ragged length, rows past the last key and GQA, and at one shared-
+   attention site of the Zamba2 path (b 4, h 32, s 2048, d 64, causal,
+   float32) (the same tolerances);
+   the SSD scan at the sweep shapes, d_state 128 and the Zamba2 path's
+   shape, the final state included (error over the output's largest
+   magnitude <= 1e-5, and <= 1e-4 at the path's shape, where the chunk's
+   cumulative decay reaches ~1e3 and one f32 ulp of it is ~1e-4: the plain
+   version's f32 cumulative sum carries that into the decay weights);
 3. engine parity at the served width: a ``PolicyEngine`` on the kernel and
    one on the plain version answer the same windows (ring wrap, episode
    restarts, one ``invalidate_all``) with equal actions and Q within 1e-4;
@@ -24,8 +33,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. time each kernel, its plain version and, where one exists, one PyTorch
    library call for the same function, at the main paths' shapes, beside
    the least time the card could take: CUDA events over 200 calls, median
-   of 5, both replayed from a CUDA graph (device time: ``ms``) and called
-   eagerly (with the host's per-call cost: ``eager_ms``);
+   of 5 (20 calls for flash attention and the SSD scan at the Zamba2
+   path's shapes, with the layout copy the model makes around flash
+   attention timed too), both replayed from a CUDA graph (device time:
+   ``ms``) and called eagerly (with the host's per-call cost:
+   ``eager_ms``);
 6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
    the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
    actor over a ``VectorEnv`` of 16 Catch envs in a
@@ -40,6 +52,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``tests/test_agents_learning.py``): Catch(seed=2), T 5, B 4, lr 3e-3,
    entropy 0.02, builder seed 1, 600 episodes; the mean return of the last
    50 beats the first 50 by more than 0.3.
+9. the Zamba2-1.2B scoring path: ``make_prefill_step`` over
+   ``transformer.init`` of ``configs.get_arch("zamba2-1.2b")`` at full width
+   and depth (38 Mamba2 layers, the shared attention block at 6 sites,
+   1.2 B parameters in float32 from seed 0), 3 batches of 4 requests x 2048
+   tokens from ``numpy.random.RandomState(0)``; launch counts are zeroed
+   just before and read just after those 3, and each step must launch
+   flash attention 6 times and the SSD scan 38 times; then the same
+   batches in turn up to 20 timed steps, for requests/s, tokens/s and the
+   step time's min, p50, p95 and max; peak device memory and a profile of
+   one more step;
+10. the scoring path's kernel route against its plain route: the first
+   batch again with ``ops.flash_attention`` and ``ops.ssd_scan`` patched to
+   their plain versions (last logits within 1e-4 of the largest plain
+   |logit|; equal greedy actions wherever the plain top-2 margin exceeds
+   twice that), and, by the same rule, a reduced Zamba2 with a tail on the
+   card's kernels against the same weights on the CPU's plain versions.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line, and ``{"ok": true, "device": {...}}``.
@@ -91,6 +119,38 @@ VTRACE_SHAPES = [("learner", 20, 16), ("sweep", 16, 128), ("sweep", 64, 256),
                  ("sweep", 100, 128), ("ragged", 20, 37), ("tiny", 1, 5),
                  ("large", 100, 16384)]
 VTRACE_TIMED = [(20, 16), (100, 256), (100, 16384)]
+
+# Zamba2-1.2B scoring (src/repro_torch/configs/zamba2_1_2b.py), full width
+# and depth, float32, random weights from SEED.
+ZAMBA = "zamba2-1.2b"
+ZAMBA_BATCHES = 3
+ZAMBA_BATCH = 4
+ZAMBA_SEQ = 2048
+# step times: the 3 counted batches, then the same batches in turn
+ZAMBA_TIMED_STEPS = 20
+# Kernel route vs plain route: |d last_logits| <= this x the largest plain
+# |logit| (f32 sums in other orders through 38 Mamba2 layers and 6
+# attention sites; greedy actions must agree where the plain top-2 margin
+# exceeds twice the tolerance).
+ZAMBA_LOGIT_REL_TOL = 1e-4
+REDUCED_TOL = 1e-4        # the same rule: reduced Zamba2, card vs CPU
+# flash attention, phase 2: (label, b, h, kv, sq, sk, d) x masks x dtypes
+FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
+               ("sweep", 2, 2, 2, 256, 256, 64),
+               ("sweep", 1, 4, 4, 256, 512, 128),
+               ("sweep", 2, 1, 1, 512, 512, 32),
+               ("ragged", 2, 4, 4, 100, 100, 64),
+               ("past_keys", 1, 2, 2, 300, 100, 64),
+               ("gqa", 2, 8, 2, 256, 256, 64)]
+FLASH_MASKS = [(True, None), (True, 64), (False, None)]
+# SSD scan, phase 2: (label, b, s, h, p, n, chunk)
+SSD_CASES = [("sweep", 1, 256, 2, 32, 16, 64),
+             ("sweep", 2, 512, 4, 64, 32, 128),
+             ("sweep", 1, 512, 2, 64, 64, 256),
+             ("mamba2_n128", 2, 512, 8, 64, 128, 256),
+             ("ragged_chunk", 1, 300, 3, 16, 24, 100)]
+SSD_TOL = 1e-5            # of the output's largest magnitude
+SSD_PATH_TOL = 1e-4       # at the path's shape (see phase 2 above)
 
 
 class SmokeFailure(RuntimeError):
@@ -315,6 +375,215 @@ def time_vtrace(kernel, ref, T, B):
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
+    return timed
+
+
+# ---------------------------------------------------------- flash attention
+def flash_inputs(b, h, kv, sq, sk, d, dtype, rng):
+    import torch
+    return tuple(torch.as_tensor(rng.randn(*shape).astype(np.float32)
+                                 ).to("cuda", dtype)
+                 for shape in ((b, h, sq, d), (b, kv, sk, d), (b, kv, sk, d)))
+
+
+def flash_pairs(sq, sk, causal, window):
+    """(query, key) pairs the masks keep; a row that keeps none weighs all
+    sk keys (the mean of V)."""
+    if not causal:
+        return sq * sk
+    rows = np.arange(sq)
+    last = np.minimum(rows, sk - 1)
+    first = np.zeros_like(rows) if window is None else \
+        np.maximum(rows - window + 1, 0)
+    kept = np.maximum(last - first + 1, 0)
+    return int(np.where(kept > 0, kept, sk).sum())
+
+
+def flash_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
+    """Least time (ms): q, K, V and out once; two multiply-adds (q.k and
+    p.v) per kept (query, key) pair and channel, per head."""
+    nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kv * sk)
+    flops = 4 * d * b * h * flash_pairs(sq, sk, causal, window)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
+def check_flash(kernel, ref, torch, cfg):
+    """FLASH_CASES with every mask and dtype, then one shared-attention
+    site of the scoring path with its own mask and dtype."""
+    rng = np.random.RandomState(SEED + 5)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    path = ("zamba2_path", ZAMBA_BATCH, cfg.num_heads, cfg.num_kv_heads,
+            ZAMBA_SEQ, ZAMBA_SEQ, cfg.head_dim)
+    for label, b, h, kv, sq, sk, d in FLASH_CASES + [path]:
+        on_path = label == "zamba2_path"
+        masks = [(True, cfg.sliding_window)] if on_path else FLASH_MASKS
+        dtypes = [("float32", torch.float32)] + (
+            [] if on_path else [("bfloat16", torch.bfloat16)])
+        for causal, window in masks:
+            for name, dtype in dtypes:
+                q, k, v = flash_inputs(b, h, kv, sq, sk, d, dtype, rng)
+                out = kernel(q, k, v, causal, window)
+                torch.cuda.synchronize()
+                expected = ref.flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window)
+                check(out.shape == expected.shape and out.dtype == q.dtype,
+                      f"flash_attention {label}: shape/dtype mismatch")
+                check(bool(torch.isfinite(out).all()),
+                      f"flash_attention {label}: non-finite output")
+                err = (out.float() - expected.float()).abs().max().item()
+                worst[name] = max(worst[name], err)
+                log(f"  flash_attention {label:11s} b={b} h={h} kv={kv} "
+                    f"sq={sq:<3d} sk={sk:<3d} d={d:<3d} causal={causal:d} "
+                    f"window={window} {name:8s} max_abs_err={err:.3e}")
+                check(err <= TOL[name], f"flash_attention {label} {name}: "
+                      f"max_abs_err {err} > {TOL[name]}")
+    return worst
+
+
+def time_flash(kernel, ref, torch, cfg):
+    """At the shape of one shared-attention site of the scoring path: the
+    kernel, its plain version, scaled_dot_product_attention (the library
+    yardstick, never called by the port), and the copies the model makes
+    into the kernel's (b, heads, s, head_dim) layout."""
+    import torch.nn.functional as F
+    b, h, kv, s, d = (ZAMBA_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                      ZAMBA_SEQ, cfg.head_dim)
+    window = cfg.sliding_window
+    q, k, v = flash_inputs(b, h, kv, s, s, d, torch.float32,
+                           np.random.RandomState(SEED + 6))
+    err = (kernel(q, k, v, True, window)
+           - ref.flash_attention_ref(q, k, v, causal=True, window=window)
+           ).abs().max().item()
+    check(err <= TOL["float32"], f"flash_attention at the scoring shape: "
+          f"max_abs_err {err} > {TOL['float32']}")
+    bound, bound_by = flash_bound(b, h, kv, s, s, d, True, window, 4)
+    model_layout = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    timed = {"shape": {"b": b, "h": h, "kv": kv, "sq": s, "sk": s, "d": d,
+                       "causal": True, "window": window, "dtype": "float32"},
+             "max_abs_err_timed": err, "bound_ms": bound,
+             "bound_by": bound_by}
+    calls = {
+        "": lambda: kernel(q, k, v, True, window),
+        "plain_": lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                  window=window),
+        "library_": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+        # q, k and v from the model's (b, s, heads, head_dim) into the
+        # kernel's layout, as models/attention.py does before each call
+        "layout_copy_": lambda: [t.transpose(1, 2).contiguous()
+                                 for t in model_layout],
+    }
+    for prefix, fn in calls.items():
+        timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20, graph=True)
+        timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3, launches=20,
+                                             graph=False)
+    return timed
+
+
+# ------------------------------------------------------------------ SSD scan
+def ssd_inputs(b, s, h, p, n, rng, model_like=False):
+    """The sweep's inputs (dt in 0.01..0.4, A in -0.5..-3), or, with
+    ``model_like``, Zamba2's: dt = softplus(N(0, 1) + dt_bias) with the
+    init's dt_bias, A = -(1..h)."""
+    import torch
+    x = rng.randn(b, s, h, p)
+    if model_like:
+        bias = np.log(np.expm1(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                                  h))))
+        dt = np.logaddexp(rng.randn(b, s, h) + bias, 0.0)
+        A = -np.arange(1, h + 1, dtype=np.float64)
+    else:
+        dt = np.abs(rng.randn(b, s, h)) * 0.1 + 0.01
+        A = -(np.abs(rng.randn(h)) + 0.5)
+    arrays = (x, dt, A, rng.randn(b, s, n), rng.randn(b, s, n))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                 for a in arrays)
+
+
+def ssd_bound(b, s, h, p, n, chunk):
+    """Least time (ms): x, dt, B, C read once, y and the final state
+    written once.  Multiply-adds per chunk: C.B^T over the kept (i, j)
+    pairs once per batch row (B and C are shared by the heads), then per
+    head M.x over the pairs, C.state and the state update (Q n p each)."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + h
+                  + b * h * n * p)
+    flops = 2 * b * nc * (pairs * n + h * (pairs * p + 2 * chunk * n * p))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
+def ssd_errors(kernel, ref, inputs, chunk, h0=None):
+    """(scaled error of y, of the final state, absolute error of y)."""
+    y, final = kernel(*inputs, chunk, h0)
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk, h0=h0)
+
+    def scaled(a, e):
+        return ((a - e).abs().max() / (e.abs().max() + 1.0)).item()
+    return scaled(y, y_ref), scaled(final, final_ref), \
+        (y - y_ref).abs().max().item(), (y, final)
+
+
+def check_ssd(kernel, ref, torch, cfg):
+    rng = np.random.RandomState(SEED + 7)
+    s_cfg = cfg.ssm
+    path = ("zamba2_path", ZAMBA_BATCH, ZAMBA_SEQ,
+            s_cfg.num_heads(cfg.d_model), s_cfg.head_dim, s_cfg.d_state,
+            s_cfg.chunk_size)
+    worst = 0.0
+    for label, b, s, h, p, n, chunk in SSD_CASES + [path]:
+        on_path = label == "zamba2_path"
+        inputs = ssd_inputs(b, s, h, p, n, rng, model_like=on_path)
+        h0s = [None] if on_path else [
+            None, torch.as_tensor(rng.randn(b, h, n, p), dtype=torch.float32,
+                                  device="cuda")]
+        for h0 in h0s:
+            err_y, err_state, _, (y, final) = ssd_errors(kernel, ref, inputs,
+                                                         chunk, h0)
+            torch.cuda.synchronize()
+            check(y.shape == (b, s, h, p) and final.shape == (b, h, n, p)
+                  and bool(torch.isfinite(y).all())
+                  and bool(torch.isfinite(final).all()),
+                  f"ssd_scan {label}: bad output")
+            tol = SSD_PATH_TOL if on_path else SSD_TOL
+            log(f"  ssd_scan {label:12s} b={b} s={s:<4d} h={h:<2d} p={p:<2d} "
+                f"n={n:<3d} chunk={chunk:<3d} h0={h0 is not None:d} scaled "
+                f"err y={err_y:.3e} state={err_state:.3e} (tol {tol})")
+            check(max(err_y, err_state) <= tol, f"ssd_scan {label}: scaled "
+                  f"error {max(err_y, err_state)} > {tol}")
+            worst = max(worst, err_y, err_state)
+    return worst
+
+
+def time_ssd(kernel, ref, torch, cfg):
+    """At the shape of one Mamba2 layer of the scoring path: the kernel and
+    its plain version; no single PyTorch call computes the SSD scan, so
+    there is no library yardstick."""
+    s_cfg = cfg.ssm
+    b, s, h, p, n, chunk = (ZAMBA_BATCH, ZAMBA_SEQ,
+                            s_cfg.num_heads(cfg.d_model), s_cfg.head_dim,
+                            s_cfg.d_state, s_cfg.chunk_size)
+    inputs = ssd_inputs(b, s, h, p, n, np.random.RandomState(SEED + 8),
+                        model_like=True)
+    err_y, err_state, abs_err, _ = ssd_errors(kernel, ref, inputs, chunk)
+    bound, bound_by = ssd_bound(b, s, h, p, n, chunk)
+    timed = {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
+                       "chunk": chunk, "dtype": "float32"},
+             "max_abs_err_timed": abs_err,
+             "max_scaled_err_timed": max(err_y, err_state),
+             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    calls = {"": lambda: kernel(*inputs, chunk),
+             "plain_": lambda: ref.ssd_scan_ref(*inputs, chunk)}
+    for prefix, fn in calls.items():
+        timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20, graph=True)
+        timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3, launches=20,
+                                             graph=False)
     return timed
 
 
@@ -622,6 +891,219 @@ def learning(torch, vtrace_kernel):
     return {"first50": first, "last50": last, "learner_steps": steps}
 
 
+# ------------------------------------------------------- Zamba2 scoring
+def zamba2_batches(cfg):
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(0, cfg.vocab_size, (ZAMBA_BATCH, ZAMBA_SEQ))
+            for _ in range(ZAMBA_BATCHES)]
+
+
+def profile_step(torch, step, params, tokens):
+    """Device time by kernel over one scoring step, from torch.profiler,
+    and the device's idle share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    # device-side entries (kernels, copies); an operator's own entry
+    # repeats the device time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    if device_ms == 0:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+    log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
+        f"{device_ms:.1f} ms, idle share {1 - device_ms / wall_ms:.3f}")
+    for e in top:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / wall_ms,
+            "top": [(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                    for e in top]}
+
+
+def zamba2_path(torch, kernels, cfg):
+    """make_prefill_step over the full model: one unmeasured step first
+    (cuBLAS plans, the allocator's pool), then the counted run of
+    ZAMBA_BATCHES batches, then more steps over the same batches in turn,
+    ZAMBA_TIMED_STEPS timed steps in all, for the step-time distribution."""
+    batches, batch, seq = ZAMBA_BATCHES, ZAMBA_BATCH, ZAMBA_SEQ
+    from repro_torch import tree
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    t0 = time.monotonic()
+    params = transformer.init(torch.Generator().manual_seed(SEED), cfg,
+                              device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    sites = cfg.num_layers // cfg.hybrid_attn_every
+    log(f"  {cfg.name}: {n_params} parameters (float32) initialized from "
+        f"seed {SEED} in {init_s:.2f} s; {cfg.num_layers} Mamba2 layers, "
+        f"{sites} shared-attention sites")
+    step = make_prefill_step(cfg)
+    tokens = zamba2_batches(cfg)
+    step(params, {"tokens": tokens[0]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for kernel in kernels:
+        kernel["wrapper"].launches = 0
+    times, outs = [], []
+    for i in range(ZAMBA_TIMED_STEPS):
+        t0 = time.monotonic()
+        out = step(params, {"tokens": tokens[i % batches]})
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+        if i < batches:
+            outs.append(out)
+        if i == batches - 1:
+            launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = len(times)
+    seconds = sum(times) / 1e3
+    p50 = float(np.percentile(times, 50))
+    p95 = float(np.percentile(times, 95))
+    log(f"  {batches} counted batches of {batch} requests x {seq} tokens, "
+        f"launches={launches}; {steps} timed steps in {seconds:.3f} s: "
+        f"{steps * batch / seconds:.3f} requests/s, "
+        f"{steps * batch * seq / seconds:.1f} tokens/s; step ms min="
+        f"{min(times):.3f} p50={p50:.3f} p95={p95:.3f} max={max(times):.3f}"
+        f"; peak device memory {peak / 2 ** 30:.3f} GiB")
+    check(launches["flash_attention"] == sites * batches,
+          f"scoring path: flash_attention launched "
+          f"{launches['flash_attention']} times, expected {sites} x "
+          f"{batches}")
+    check(launches["ssd_scan"] == cfg.num_layers * batches,
+          f"scoring path: ssd_scan launched {launches['ssd_scan']} times, "
+          f"expected {cfg.num_layers} x {batches}")
+    check(launches["decode_attention"] == launches["vtrace"] == 0,
+          f"scoring path launched another slice's kernel: {launches}")
+    for out in outs:
+        actions, logits = out["actions"], out["last_logits"]
+        check(actions.shape == (batch, seq) and actions.dtype == torch.int32,
+              f"scoring path: actions {tuple(actions.shape)} {actions.dtype}")
+        check(int(actions.min()) >= 0
+              and int(actions.max()) < cfg.vocab_size,
+              "scoring path: an action outside the vocabulary")
+        check(logits.shape == (batch, cfg.padded_vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              "scoring path: bad last_logits")
+    profile = profile_step(torch, step, params, tokens[0])
+    return {"launches": launches, "params": params, "step": step,
+            "tokens": tokens, "outs": outs, "init_s": init_s,
+            "n_params": n_params, "step_ms": times, "step_ms_p50": p50,
+            "step_ms_p95": p95, "requests_per_s": steps * batch / seconds,
+            "tokens_per_s": steps * batch * seq / seconds,
+            "peak_bytes": peak, "profile": profile}
+
+
+def plain_scoring(torch, step, params, tokens):
+    """The step with flash attention and the SSD scan on their plain
+    versions; also returns the features, for the top-2 margins."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+
+    captured = {}
+    features = transformer.forward_features
+
+    def capture(*args, **kwargs):
+        captured["feats"] = features(*args, **kwargs)[0]
+        return captured["feats"], {}
+
+    with mock.patch.object(ops, "flash_attention",
+                           ref.flash_attention_ref), \
+            mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref), \
+            mock.patch.object(transformer, "forward_features", capture):
+        out = step(params, {"tokens": tokens})
+    return out, captured["feats"]
+
+
+def compare_scoring(torch, cfg, params, out, plain, plain_feats, rel_tol,
+                    what):
+    """Last logits within tol = ``rel_tol`` x the largest plain |logit| (of
+    the real vocabulary); greedy actions equal wherever the plain route's
+    top-2 margin exceeds 2 tol.  Returns the max |d|, tol and counts."""
+    from repro_torch.models import layers, transformer
+
+    tol = rel_tol * plain["last_logits"][:, :cfg.vocab_size].abs().max(
+        ).item()
+    err = (out["last_logits"].float().cpu()
+           - plain["last_logits"].float().cpu()).abs().max().item()
+    check(err <= tol, f"{what}: last_logits differ by {err} > {tol}")
+    table = transformer.unembed_table(params, cfg).to(plain_feats.device)
+    margins = []
+    for i in range(0, plain_feats.shape[1], 1024):
+        logits = transformer.mask_pad_logits(
+            layers.unembed(table, plain_feats[:, i:i + 1024]), cfg)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margins.append(top2[..., 0] - top2[..., 1])
+    margins = torch.cat(margins, dim=1).cpu()
+    decided = margins > 2 * tol
+    same = out["actions"].cpu() == plain["actions"].cpu()
+    check(bool(same[decided].all()), f"{what}: greedy actions differ at "
+          f"{int((~same & decided).sum())} positions with a plain top-2 "
+          f"margin above {2 * tol}")
+    return {"max_abs_err": err, "tol": tol, "positions": same.numel(),
+            "decided": int(decided.sum()), "equal": int(same.sum())}
+
+
+def zamba2_parity(torch, cfg, path):
+    """The first batch on the plain route at full size, and a reduced
+    Zamba2 with a tail on the card's kernels against the CPU's plain
+    versions with the same weights."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    plain, feats = plain_scoring(torch, path["step"], path["params"],
+                                 path["tokens"][0])
+    full = compare_scoring(torch, cfg, path["params"], path["outs"][0],
+                           plain, feats, ZAMBA_LOGIT_REL_TOL,
+                           "scoring parity")
+    log(f"  full size, first batch: max |d last_logits| = "
+        f"{full['max_abs_err']:.3e} (tol {full['tol']:.3e} = "
+        f"{ZAMBA_LOGIT_REL_TOL} x max |logit|); actions equal at "
+        f"{full['equal']} of "
+        f"{full['positions']} positions, {full['decided']} of them with a "
+        f"top-2 margin above 2 tol, all of which agree")
+
+    small = dataclasses.replace(configs.reduced(cfg), num_layers=3,
+                                hybrid_attn_every=2)
+    params = transformer.init(torch.Generator().manual_seed(SEED), small,
+                              device="cpu")
+    params_card = tree.map(lambda t: t.to("cuda"), params)
+    tokens = np.random.RandomState(SEED).randint(0, small.vocab_size,
+                                                 (2, 64))
+    step = make_prefill_step(small)
+    out = step(params_card, {"tokens": tokens})
+    cpu, cpu_feats = plain_scoring(torch, step, params, tokens)
+    reduced = compare_scoring(torch, small, params, out, cpu, cpu_feats,
+                              REDUCED_TOL, "reduced parity")
+    log(f"  reduced Zamba2 (3 Mamba2 layers in a group of 2 and a tail, "
+        f"d_model {small.d_model}), card kernels vs CPU plain route: max "
+        f"|d last_logits| = {reduced['max_abs_err']:.3e} (tol "
+        f"{reduced['tol']:.3e} = {REDUCED_TOL} x max |logit|); actions "
+        f"equal at {reduced['equal']} of {reduced['positions']}, "
+        f"{reduced['decided']} with a top-2 margin above 2 tol")
+    return full, reduced
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -636,8 +1118,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch import configs
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as decode_module
+    from repro_torch.kernels import flash_attention as flash_module
+    from repro_torch.kernels import ssd_scan as ssd_module
     from repro_torch.kernels import vtrace as vtrace_module
     from repro_torch.policies import TransformerPolicyConfig
     from repro_torch.policies.engine import _bucket
@@ -649,7 +1134,10 @@ def main() -> int:
                 "source": module.SOURCE, "replaces": module.REPLACES}
                for module, wrapper in (
                    (decode_module, decode_module.decode_attention),
-                   (vtrace_module, vtrace_module.vtrace))]
+                   (vtrace_module, vtrace_module.vtrace),
+                   (flash_module, flash_module.flash_attention),
+                   (ssd_module, ssd_module.ssd_scan))]
+    zamba = configs.get_arch(ZAMBA)
 
     log("phase 1: build")
     t0 = time.monotonic()
@@ -667,6 +1155,10 @@ def main() -> int:
     vtrace = vtrace_module.vtrace
     worst = check_decode_attention(decode, ref, torch)
     worst_vtrace = check_vtrace(vtrace, ref, torch)
+    flash = flash_module.flash_attention
+    ssd = ssd_module.ssd_scan
+    worst_flash = check_flash(flash, ref, torch, zamba)
+    worst_ssd = check_ssd(ssd, ref, torch, zamba)
 
     policy_cfg = TransformerPolicyConfig(
         **POLICY, epsilon=0.1, backend="auto")
@@ -690,6 +1182,10 @@ def main() -> int:
     for T, B in VTRACE_TIMED:
         vtrace_timed[(T, B)] = time_vtrace(vtrace, ref, T, B)
         log(f"  vtrace {json.dumps(vtrace_timed[(T, B)])}")
+    flash_timed = time_flash(flash, ref, torch, zamba)
+    log(f"  flash_attention {json.dumps(flash_timed)}")
+    ssd_timed = time_ssd(ssd, ref, torch, zamba)
+    log(f"  ssd_scan {json.dumps(ssd_timed)}")
 
     log(f"phase 6: IMPALA path — make_agent(IMPALABuilder) over "
         f"{IMPALA_ENVS} Catch envs, {IMPALA_EPISODES} episodes")
@@ -700,6 +1196,14 @@ def main() -> int:
 
     log("phase 8: IMPALA learns Catch (the reference's acceptance)")
     learning(torch, vtrace)
+
+    log(f"phase 9: scoring path — make_prefill_step({ZAMBA}) at full width "
+        f"and depth, {ZAMBA_BATCHES} batches of {ZAMBA_BATCH} x {ZAMBA_SEQ} "
+        f"tokens")
+    scoring = zamba2_path(torch, kernels, zamba)
+
+    log("phase 10: scoring path, kernel route vs plain route")
+    zamba2_parity(torch, zamba, scoring)
 
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
@@ -726,6 +1230,33 @@ def main() -> int:
         "eager_ms": vtrace_main["eager_ms"],
         "eager_plain_ms": vtrace_main["eager_plain_ms"],
         "shape": vtrace_main["shape"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": kernels[2]["source"], "replaces": kernels[2]["replaces"],
+        "launches": scoring["launches"]["flash_attention"],
+        "max_abs_err": max(worst_flash["float32"],
+                           flash_timed["max_abs_err_timed"]),
+        "max_abs_err_bf16": worst_flash["bfloat16"],
+        "ms": flash_timed["ms"], "plain_ms": flash_timed["plain_ms"],
+        "bound_ms": flash_timed["bound_ms"],
+        "bound_by": flash_timed["bound_by"],
+        "library_ms": flash_timed["library_ms"],
+        "eager_ms": flash_timed["eager_ms"],
+        "eager_plain_ms": flash_timed["eager_plain_ms"],
+        "eager_library_ms": flash_timed["eager_library_ms"],
+        "layout_copy_ms": flash_timed["layout_copy_ms"],
+        "shape": flash_timed["shape"],
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": kernels[3]["source"], "replaces": kernels[3]["replaces"],
+        "launches": scoring["launches"]["ssd_scan"],
+        "max_abs_err": ssd_timed["max_abs_err_timed"],
+        "max_scaled_err": max(worst_ssd, ssd_timed["max_scaled_err_timed"]),
+        "ms": ssd_timed["ms"], "plain_ms": ssd_timed["plain_ms"],
+        "bound_ms": ssd_timed["bound_ms"], "bound_by": ssd_timed["bound_by"],
+        "library_ms": None, "eager_ms": ssd_timed["eager_ms"],
+        "eager_plain_ms": ssd_timed["eager_plain_ms"],
+        "shape": ssd_timed["shape"],
     }]
     log(card_line())
     log(json.dumps({"kernels": kernel_lines}))

@@ -6,7 +6,7 @@ contract; the execution schedule comes from their frozen
 ``BuilderOptions``.  Only the single-process path with one replay table and
 one learner is ported so far: sharded replay, learner replicas, async
 learner sync, shard-affine routing and the distributed program come with
-ROADMAP slice 6.
+ROADMAP slice 7.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ def _register_replay_probe(table):
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"make_agent: {what} is not ported yet (ROADMAP slice 6, "
+        f"make_agent: {what} is not ported yet (ROADMAP slice 7, "
         f"distributed execution and learner replicas)")
 
 

@@ -224,20 +224,20 @@ class AgentBuilder(abc.ABC):
         """A custom inference service for ``inference="server"`` programs.
 
         The generic feed-forward ``InferenceServer`` and the distributed
-        programs that place it come with later slices (ROADMAP slices 3
-        and 6), so the default raises.
+        programs that place it come with later slices (ROADMAP slices 4
+        and 7), so the default raises.
         """
         raise NotImplementedError(
             f"{type(self).__name__}: inference='server' needs the "
-            "distributed programs of ROADMAP slice 6")
+            "distributed programs of ROADMAP slice 7")
 
     def make_inference_actor(self, inference, adder=None, adders=None):
         """The actor-side client for an inference service node; the default
-        raises until the inference client actor is ported (ROADMAP slice 3).
+        raises until the inference client actor is ported (ROADMAP slice 4).
         """
         raise NotImplementedError(
             f"{type(self).__name__}: the inference client actor comes with "
-            "ROADMAP slice 3")
+            "ROADMAP slice 4")
 
 
 def registered_builders() -> List[Type[AgentBuilder]]:

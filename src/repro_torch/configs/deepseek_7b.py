@@ -1,0 +1,15 @@
+"""DeepSeek-7B — llama-arch MHA decoder [arXiv:2401.02954]."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-7b",
+    arch_type="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=102400,
+    source="arXiv:2401.02954",
+)

@@ -8,7 +8,17 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 from repro_torch.kernels.vtrace import vtrace as _vtrace
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """q: (b, h, sq, d); k, v: (b, kv, sk, d), kv dividing h.  ``window``
+    applies only with ``causal``."""
+    if q.device.type == "cuda":
+        return _flash(q, k, v, causal, window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, lengths):
@@ -16,6 +26,14 @@ def decode_attention(q, k, v, lengths):
     if q.device.type == "cuda":
         return _decode(q, k, v, lengths)
     return ref.decode_attention_ref(q, k, v, lengths)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk=256, h0=None):
+    """x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, n); h0:
+    optional (b, h, n, p).  Returns (y, final_state), both float32."""
+    if x.device.type == "cuda":
+        return _ssd(x, dt, A, B, C, chunk, h0)
+    return ref.ssd_scan_ref(x, dt, A, B, C, chunk, h0=h0)
 
 
 def vtrace(values, next_values, rewards, discounts, rhos, *,

@@ -1,8 +1,9 @@
 """GQA attention: full-sequence and prefill paths + single-token decode.
 
 Supports RoPE, Qwen3 qk-norm and sliding-window (banded) masking.  GQA K/V
-are stored with ``num_kv_heads`` (cache compression); the full-sequence and
-prefill paths broadcast them to the full head count, and the decode paths
+are stored with ``num_kv_heads`` (cache compression); the plain
+full-sequence and prefill paths broadcast them to the full head count, and
+the kernels (flash attention on the full-sequence path, decode attention)
 index the KV head of each query head directly.
 
 Positions are 1-D ``(seq,)`` — shared across the batch — on the full and
@@ -67,31 +68,25 @@ def _repeat_kv(k, q_per_kv: int):
     return torch.repeat_interleave(k, q_per_kv, dim=2)
 
 
-def _masked_softmax(scores, q_pos, k_pos, causal, window):
-    """scores: (b, h, sq, sk); q_pos: (sq,), k_pos: (sk,)."""
-    if causal:
-        mask = q_pos[:, None] >= k_pos[None, :]
-        if window is not None:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        scores = torch.where(mask[None, None], scores,
-                             torch.full_like(scores, NEG_INF))
-    return torch.softmax(scores.float(), dim=-1)
-
-
 def attention(params, cfg: ArchConfig, x, positions, *, causal=True):
     """Full-sequence self-attention over x: (b, s, d); positions: (s,).
 
-    The JAX package scans over query chunks to bound memory at long
-    sequence lengths; the policy's windows are short, so one block is used.
+    The scores and softmax run in ``ops.flash_attention`` (the CUDA kernel
+    on CUDA tensors, its plain version on CPU tensors), which takes q and
+    the unrepeated GQA K/V, after RoPE and qk-norm, in its (b, heads, s,
+    head_dim) layout.  Both mask by index, not by ``positions``: every
+    caller passes contiguous positions (``arange(seq)``), and the causal
+    and window masks depend only on q_pos - k_pos, so this is exact.
+    Positions are not checked on the device, which would cost a sync per
+    call.  The JAX package scans over query chunks to bound memory at long
+    sequence lengths; the plain version computes one block.
     """
     q, k, v = _project_qkv(params, cfg, x, positions)
-    k = _repeat_kv(k, cfg.q_per_kv)
-    v = _repeat_kv(v, cfg.q_per_kv)
-    scores = torch.einsum("bqhk,bshk->bhqs", q, k) * cfg.head_dim ** -0.5
-    p = _masked_softmax(scores, positions, positions, causal,
-                        cfg.sliding_window).to(v.dtype)
-    out = torch.einsum("bhqs,bshk->bqhk", p, v)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    out = ops.flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal,
+        window=cfg.sliding_window)
+    return torch.einsum("bhsk,hkd->bsd", out, params["wo"])
 
 
 # ------------------------------------------------------------------ decode

@@ -3,7 +3,8 @@
 One frozen dataclass describes every family we support: dense/GQA decoders,
 MoE, Mamba2 SSM, Zamba2-style hybrids, VLM decoders with stubbed vision
 frontends, and Whisper-style encoder-decoders (a copy of
-``repro.models.config``; the port runs the dense family so far).
+``repro.models.config``; the port runs the dense, ``ssm`` and
+``hybrid`` families so far).
 """
 from __future__ import annotations
 

@@ -77,3 +77,17 @@ def mlp(params, x):
     h = torch.einsum("...d,df->...f", x, params["w_gate"])
     u = torch.einsum("...d,df->...f", x, params["w_up"])
     return torch.einsum("...f,fd->...d", F.silu(h) * u, params["w_down"])
+
+
+# ---------------------------------------------------------------- Embedding
+def embed_init(generator, vocab, d_model, device="cuda", dtype=torch.float32):
+    return {"table": truncated_normal(generator, (vocab, d_model), 1.0,
+                                      device, dtype)}
+
+
+def embed(params, tokens):
+    return params["table"][tokens]
+
+
+def unembed(table, x):
+    return torch.einsum("...d,vd->...v", x, table)

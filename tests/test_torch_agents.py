@@ -443,7 +443,7 @@ def test_make_agent_rejects_paths_not_ported():
     for kwargs in (dict(num_replay_shards=2), dict(num_learner_replicas=2),
                    dict(learner_sync="async"),
                    dict(replay_routing="affinity")):
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="slice 7"):
             make_agent(builder, **kwargs)
     with pytest.raises(ValueError):
         make_agent(builder, learner_sync="bogus")

@@ -1,7 +1,9 @@
-"""repro_torch on a card: the CUDA decode-attention and V-trace kernels
-against their plain versions, their argument checks and launch counts, the
-kernel-backed engine against the plain one, the serving path's launch count,
-and an IMPALA learner step that launches V-trace once and syncs once.
+"""repro_torch on a card: the CUDA decode-attention, V-trace,
+flash-attention and SSD-scan kernels against their plain versions, their
+argument checks and launch counts, the kernel-backed engine against the
+plain one, an IMPALA learner step that launches V-trace once and syncs
+once, and the reduced Zamba2 and Mamba2 scoring steps on the kernels
+against the same steps on the plain versions.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -223,3 +225,292 @@ def test_impala_learner_step_syncs_only_for_its_metrics(cuda_device):
         syncs = [str(w.message) for w in caught
                  if "synchronizing CUDA" in str(w.message)]
         assert len(syncs) == 1, syncs
+
+
+# ---------------------------------------------------------- flash attention
+FLASH_CASES = [   # (b, h, kv, sq, sk, d): test_kernels.py's sweep, ragged, GQA
+    (1, 1, 1, 128, 128, 64), (2, 2, 2, 256, 256, 64),
+    (1, 4, 4, 256, 512, 128), (2, 1, 1, 512, 512, 32),
+    (2, 4, 4, 100, 100, 64), (1, 2, 2, 70, 200, 32),
+    (2, 8, 2, 256, 256, 64), (1, 4, 1, 300, 300, 128)]
+FLASH_MASKS = [(True, None), (True, 64), (False, None)]
+
+
+def _flash_inputs(b, h, kv, sq, sk, d, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.as_tensor(rng.randn(*shape), dtype=torch.float32
+                                 ).to(device, dtype)
+                 for shape in ((b, h, sq, d), (b, kv, sk, d), (b, kv, sk, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d", FLASH_CASES)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda_device, b, h, kv, sq, sk, d,
+                                            causal, window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(b, h, kv, sq, sk, d, dtype, cuda_device,
+                            seed=sq + sk + d)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    expected = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), expected.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_plain_version_at_the_scoring_shape(cuda_device):
+    """One shared-attention site of Zamba2-1.2B's scoring step: b 4, h 32,
+    kv 32, s 2048, d 64, causal, no window, float32."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(4, 32, 32, 2048, 2048, 64, torch.float32,
+                            cuda_device, seed=6)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, True, None),
+        ref.flash_attention_ref(q, k, v, causal=True, window=None),
+        atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rows_past_the_last_key_get_the_mean_of_v(cuda_device):
+    """sq > sk with a window: rows i with i - (sk - 1) >= window see no key
+    and get the mean of V, as the plain version does."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(1, 2, 2, 300, 100, 64, torch.float32,
+                            cuda_device)
+    out = flash_attention(q, k, v, True, 64)
+    expected = ref.flash_attention_ref(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(out, expected, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out[:, :, 200:],
+                               v.mean(dim=2, keepdim=True).expand(-1, -1, 100,
+                                                                  -1),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_ignores_the_window_without_causal(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(2, 4, 2, 128, 128, 64, torch.float32, cuda_device)
+    torch.testing.assert_close(flash_attention(q, k, v, False, 8),
+                               flash_attention(q, k, v, False, None),
+                               atol=0.0, rtol=0.0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_unsupported_inputs(cuda_device):
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention)
+    before = flash_attention.launches
+    assert 16 not in HEAD_DIMS
+    q, k, v = _flash_inputs(1, 2, 2, 64, 64, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(1, 4, 3, 64, 64, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(1, 4, 2, 64, 64, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, True, 0)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_ops_launches_on_cuda_tensors(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(1, 4, 2, 64, 64, 64, torch.float32, cuda_device)
+    before = flash_attention.launches
+    ops.flash_attention(q, k, v, causal=True, window=None)
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_policy_q_sequence_through_flash_kernel(cuda_device):
+    """Slice 1's policy network reaches full-sequence attention at s = 8,
+    window 8, kv = 2, head_dim 64: the kernel route matches the plain one
+    and launches once per layer."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = TransformerPolicyConfig(num_layers=2, d_model=256, num_heads=4,
+                                  num_kv_heads=2, head_dim=64, d_ff=512,
+                                  window=8)
+    arch = network.make_arch(cfg, 3)
+    params = network.init(torch.Generator().manual_seed(0), arch, 50, 3,
+                          device=cuda_device)
+    obs = torch.as_tensor(np.random.RandomState(3).rand(5, 8, 50) < 0.2,
+                          dtype=torch.float32, device=cuda_device)
+    before = flash_attention.launches
+    q = network.q_sequence(params, arch, obs)
+    assert flash_attention.launches == before + arch.num_layers
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref):
+        q_plain = network.q_sequence(params, arch, obs)
+    assert flash_attention.launches == before + arch.num_layers
+    torch.testing.assert_close(q, q_plain, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------------- SSD scan
+# (b, s, h, p, n, chunk): test_kernels.py's sweep, Mamba2's d_state 128, the
+# reduced configs' shape, and Zamba2-1.2B's scoring shape
+SSD_CASES = [(1, 256, 2, 32, 16, 64), (2, 512, 4, 64, 32, 128),
+             (1, 512, 2, 64, 64, 256), (1, 512, 4, 64, 128, 256),
+             (2, 64, 32, 16, 16, 32), (1, 300, 3, 16, 24, 100)]
+SSD_TOL = 1e-5        # of the output's largest magnitude, as the sweep's
+SSD_PATH = (4, 2048, 64, 64, 64, 256)
+# At the path's shape A runs down to -64 and the chunk's cumulative decay
+# reaches ~1e3, where one f32 ulp is ~1e-4: the plain version's f32
+# torch.cumsum carries that into exp(cum_i - cum_j) for the fastest-decaying
+# heads (the kernel keeps the sum in f64).
+SSD_PATH_TOL = 1e-4
+
+
+def _ssd_inputs(b, s, h, p, n, device, dtype=torch.float32, seed=0,
+                model_like=False, h0=False):
+    """The sweep's inputs (dt in 0.01..0.4, A in -0.5..-3), or, with
+    ``model_like``, the model's: dt = softplus(N(0, 1) + dt_bias) and
+    A = -(1..h), as Zamba2's init gives them."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, s, h, p)
+    if model_like:
+        bias = np.log(np.expm1(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                                  h))))
+        dt = np.logaddexp(rng.randn(b, s, h) + bias, 0.0)
+        A = -np.arange(1, h + 1, dtype=np.float64)
+    else:
+        dt = np.abs(rng.randn(b, s, h)) * 0.1 + 0.01
+        A = -(np.abs(rng.randn(h)) + 0.5)
+    B, C = rng.randn(b, s, n), rng.randn(b, s, n)
+
+    def t(a, cast=torch.float32):
+        return torch.as_tensor(a, dtype=torch.float32).to(device, cast)
+    state = t(rng.randn(b, h, n, p)) if h0 else None
+    return (t(x, dtype), t(dt), t(A), t(B, dtype), t(C, dtype)), state
+
+
+def _scaled_err(actual, expected):
+    return ((actual - expected).abs().max()
+            / (expected.abs().max() + 1.0)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_kernel_matches_plain_version(cuda_device, b, s, h, p, n, chunk,
+                                          with_h0):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    inputs, h0 = _ssd_inputs(b, s, h, p, n, cuda_device, seed=s + n,
+                             h0=with_h0)
+    before = ssd_scan.launches
+    y, final = ssd_scan(*inputs, chunk, h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == final.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and final.shape == (b, h, n, p)
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk, h0=h0)
+    assert _scaled_err(y, y_ref) <= SSD_TOL
+    assert _scaled_err(final, final_ref) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_bfloat16_inputs(cuda_device):
+    """x, B and C in bf16, the math in f32: the plain version upcasts the
+    same bf16 values, so the two agree to f32 rounding."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    inputs, _ = _ssd_inputs(2, 512, 4, 64, 32, cuda_device,
+                            dtype=torch.bfloat16)
+    y, final = ssd_scan(*inputs, 128)
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, 128)
+    assert _scaled_err(y, y_ref) <= SSD_TOL
+    assert _scaled_err(final, final_ref) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_at_the_zamba2_scoring_shape(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    b, s, h, p, n, chunk = SSD_PATH
+    inputs, _ = _ssd_inputs(b, s, h, p, n, cuda_device, model_like=True)
+    y, final = ssd_scan(*inputs, chunk)
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(final).all())
+    assert _scaled_err(y, y_ref) <= SSD_PATH_TOL
+    assert _scaled_err(final, final_ref) <= SSD_PATH_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_unsupported_inputs(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    before = ssd_scan.launches
+    (x, dt, A, B, C), _ = _ssd_inputs(1, 128, 2, 64, 16, cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd_scan(x.half(), dt, A, B.half(), C.half(), 64)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd_scan(x, dt.bfloat16(), A, B, C, 64)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, dt, A, B, C, 48)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, dt, A, B, C, 512)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_scan(x, dt, A[:1].contiguous(), B, C, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2), C,
+                 64)
+    (x, dt, A, B, C), _ = _ssd_inputs(1, 128, 2, 48, 16, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan(x, dt, A, B, C, 64)
+    (x, dt, A, B, C), _ = _ssd_inputs(1, 128, 2, 64, 256, cuda_device)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_scan(x, dt, A, B, C, 64)
+    assert ssd_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,tail", [("zamba2-1.2b", False),
+                                       ("zamba2-1.2b", True),
+                                       ("mamba2-780m", False)])
+def test_reduced_scoring_step_kernel_route_matches_plain(cuda_device, name,
+                                                         tail):
+    """make_prefill_step on a reduced config: every SSM layer launches the
+    SSD kernel once and every shared-attention site the flash kernel once,
+    and the kernel route gives the plain route's actions and logits."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    cfg = configs.reduced(configs.get_arch(name))
+    if tail:
+        cfg = dataclasses.replace(cfg, num_layers=3, hybrid_attn_every=2)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device=cuda_device)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 64))
+    step = make_prefill_step(cfg)
+    flash0, ssd0 = flash_attention.launches, ssd_scan.launches
+    out = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    sites = (cfg.num_layers // cfg.hybrid_attn_every
+             if cfg.arch_type == "hybrid" else 0)
+    assert flash_attention.launches - flash0 == sites
+    assert ssd_scan.launches - ssd0 == cfg.num_layers
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref), \
+            mock.patch.object(ops, "ssd_scan", _plain_ssd_scan):
+        plain = step(params, {"tokens": tokens})
+    assert flash_attention.launches - flash0 == sites
+    assert ssd_scan.launches - ssd0 == cfg.num_layers
+    torch.testing.assert_close(out["last_logits"], plain["last_logits"],
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(out["actions"], plain["actions"])
+
+
+def _plain_ssd_scan(x, dt, A, B, C, *, chunk=256, h0=None):
+    return ref.ssd_scan_ref(x, dt, A, B, C, min(chunk, x.shape[1]), h0=h0)

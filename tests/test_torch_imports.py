@@ -49,6 +49,21 @@ def test_learner_slice_imports_neither_jax_nor_repro():
     assert result.stdout.strip() == "[]"
 
 
+def test_scoring_slice_imports_neither_jax_nor_repro():
+    """The model-zoo scoring slice's modules on their own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys\n"
+            "import repro_torch.launch.steps, repro_torch.configs, "
+            "repro_torch.models.ssm, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.ssd_scan\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

@@ -1,7 +1,8 @@
-"""repro_torch.kernels: the plain decode attention against the JAX oracle
-and the Pallas kernel (interpret mode), GQA, ragged and fully masked
-caches, and the CPU/CUDA dispatch rules.  The CUDA kernel itself is tested
-on a card in test_torch_cuda.py."""
+"""repro_torch.kernels: the plain versions of decode attention, V-trace,
+flash attention and the SSD scan against the JAX oracles and the Pallas
+kernels (interpret mode), GQA, ragged and fully masked inputs, the window
+without ``causal``, and the CPU/CUDA dispatch rules.  The CUDA kernels
+themselves are tested on a card in test_torch_cuda.py."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -219,4 +220,186 @@ def test_vtrace_kernel_wrapper_raises_on_cpu_tensors():
     kernel = VTrace()
     with pytest.raises(ValueError, match="CUDA"):
         kernel(*map(torch.as_tensor, _vtrace_inputs(4, 3, seed=0)))
+    assert kernel.launches == 0
+
+
+# ==================================================== flash attention, plain
+FLASH_SWEEP = [(1, 1, 128, 128, 64), (2, 2, 256, 256, 64),
+               (1, 4, 256, 512, 128), (2, 1, 512, 512, 32)]
+FLASH_MASKS = [(True, None), (True, 64), (False, None)]
+
+
+def _flash_arrays(b, h, kv, sq, sk, d, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, h, sq, d).astype(np.float32),
+            rng.randn(b, kv, sk, d).astype(np.float32),
+            rng.randn(b, kv, sk, d).astype(np.float32))
+
+
+def _flash_torch(arrays, dtype):
+    return tuple(torch.as_tensor(a).to(TORCH_DTYPES[dtype]) for a in arrays)
+
+
+def _flash_jax(arrays, dtype, repeat=1):
+    q, k, v = arrays
+    if repeat > 1:
+        k, v = np.repeat(k, repeat, axis=1), np.repeat(v, repeat, axis=1)
+    return tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
+
+
+@pytest.mark.parametrize(
+    "b,h,sq,sk,d,causal,window",
+    [shape + mask for shape in FLASH_SWEEP for mask in FLASH_MASKS
+     if mask[0] or shape[2] == shape[3]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_ref_matches_jax_oracle_sweep(b, h, sq, sk, d, causal, window,
+                                            dtype):
+    """At the shapes and masks of test_kernels.py::test_flash_attention_sweep
+    (which leaves out non-causal cross shapes)."""
+    arrays = _flash_arrays(b, h, h, sq, sk, d, seed=sq + sk + d)
+    out = ops.flash_attention(*_flash_torch(arrays, dtype), causal=causal,
+                              window=window)
+    expected = jax_ref.flash_attention_ref(*_flash_jax(arrays, dtype),
+                                           causal=causal, window=window)
+    _assert_close(out, expected, dtype)
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_ref_matches_pallas_kernel(causal, window):
+    """Against the Pallas kernel itself (interpret mode), one 128 x 128
+    block per head."""
+    arrays = _flash_arrays(1, 2, 2, 128, 128, 64, seed=5)
+    out = ref.flash_attention_ref(*_flash_torch(arrays, "float32"),
+                                  causal=causal, window=window)
+    expected = jax_ops.flash_attention(*_flash_jax(arrays, "float32"),
+                                       causal=causal, window=window,
+                                       interpret=True)
+    _assert_close(out, expected, "float32")
+
+
+@pytest.mark.parametrize("h,kv", [(4, 2), (8, 1), (4, 4)])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_ref_gqa_indexes_kv_heads_like_repeated_kv(h, kv, causal,
+                                                         window):
+    """Query head i reads KV head i // (h // kv), with a ragged sq = sk =
+    100 (the Pallas kernel needs multiples of 128)."""
+    arrays = _flash_arrays(2, h, kv, 100, 100, 32, seed=h * 10 + kv)
+    out = ref.flash_attention_ref(*_flash_torch(arrays, "float32"),
+                                  causal=causal, window=window)
+    expected = jax_ref.flash_attention_ref(
+        *_flash_jax(arrays, "float32", repeat=h // kv), causal=causal,
+        window=window)
+    _assert_close(out, expected, "float32")
+
+
+def test_flash_window_applies_only_with_causal():
+    """The port follows the JAX oracle and the model: without ``causal``
+    the window is not applied.  The Pallas kernel applies it either way,
+    so on the same inputs it gives another answer."""
+    arrays = _flash_arrays(1, 2, 2, 128, 128, 64, seed=7)
+    tensors = _flash_torch(arrays, "float32")
+    windowed = ops.flash_attention(*tensors, causal=False, window=8)
+    np.testing.assert_array_equal(
+        windowed.numpy(), ops.flash_attention(*tensors, causal=False).numpy())
+    _assert_close(windowed, jax_ref.flash_attention_ref(
+        *_flash_jax(arrays, "float32"), causal=False, window=8), "float32")
+    pallas = jax_ops.flash_attention(*_flash_jax(arrays, "float32"),
+                                     causal=False, window=8, interpret=True)
+    assert np.abs(np.asarray(pallas) - windowed.numpy()).max() > 0.1
+
+
+def test_flash_cpu_tensors_take_the_plain_version_without_launching():
+    from repro_torch.kernels.flash_attention import flash_attention
+    tensors = _flash_torch(_flash_arrays(1, 4, 2, 16, 16, 32, seed=1),
+                           "float32")
+    before = flash_attention.launches
+    np.testing.assert_array_equal(
+        ops.flash_attention(*tensors, window=4).numpy(),
+        ref.flash_attention_ref(*tensors, window=4).numpy())
+    assert flash_attention.launches == before
+
+
+def test_flash_kernel_wrapper_raises_on_cpu_tensors():
+    from repro_torch.kernels.flash_attention import FlashAttention
+    kernel = FlashAttention()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*_flash_torch(_flash_arrays(1, 2, 2, 8, 8, 32, seed=0),
+                             "float32"))
+    assert kernel.launches == 0
+
+
+# ============================================================ SSD, plain
+SSD_TOL = 1e-5     # of the output's largest magnitude, as test_ssd_scan_sweep
+
+
+def _ssd_arrays(b, s, h, p, n, seed, h0=False):
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(b, s, h, p), np.abs(rng.randn(b, s, h)) * 0.1 + 0.01,
+              -(np.abs(rng.randn(h)) + 0.5), rng.randn(b, s, n),
+              rng.randn(b, s, n)]
+    if h0:
+        arrays.append(rng.randn(b, h, n, p))
+    return [a.astype(np.float32) for a in arrays]
+
+
+def _assert_scaled_close(actual, expected, tol=SSD_TOL):
+    expected = np.asarray(expected)
+    scale = np.abs(expected).max() + 1.0
+    np.testing.assert_allclose(np.asarray(actual) / scale, expected / scale,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 256, 2, 32, 16, 64),
+    (2, 512, 4, 64, 32, 128),
+    (1, 512, 2, 64, 64, 256),
+])
+def test_ssd_ref_matches_jax_oracle_sweep(b, s, h, p, n, chunk):
+    """At the shapes of test_kernels.py::test_ssd_scan_sweep, the final
+    state included."""
+    arrays = _ssd_arrays(b, s, h, p, n, seed=s + n)
+    y, final = ops.ssd_scan(*map(torch.as_tensor, arrays), chunk=chunk)
+    y_ref, final_ref = jax_ref.ssd_scan_ref(*map(jnp.asarray, arrays), chunk)
+    _assert_scaled_close(y, y_ref)
+    _assert_scaled_close(final, final_ref)
+
+
+def test_ssd_ref_matches_pallas_kernel():
+    """Against the Pallas kernel itself (interpret mode), which returns y
+    only; the final state is held against the JAX oracle."""
+    arrays = _ssd_arrays(1, 128, 2, 32, 16, seed=3)
+    y, final = ref.ssd_scan_ref(*map(torch.as_tensor, arrays), 64)
+    jax_args = tuple(map(jnp.asarray, arrays))
+    _assert_scaled_close(y, jax_ops.ssd_scan(*jax_args, chunk=64,
+                                             interpret=True))
+    _assert_scaled_close(final, jax_ref.ssd_scan_ref(*jax_args, 64)[1])
+
+
+def test_ssd_ref_with_initial_state_matches_jax():
+    from repro.models.ssm import ssd_chunked
+    arrays = _ssd_arrays(2, 128, 3, 16, 8, seed=4, h0=True)
+    y, final = ops.ssd_scan(*map(torch.as_tensor, arrays[:5]), chunk=32,
+                            h0=torch.as_tensor(arrays[5]))
+    y_ref, final_ref = ssd_chunked(*map(jnp.asarray, arrays[:5]), 32,
+                                   h0=jnp.asarray(arrays[5]))
+    _assert_scaled_close(y, y_ref)
+    _assert_scaled_close(final, final_ref)
+
+
+def test_ssd_cpu_tensors_take_the_plain_version_without_launching():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    tensors = tuple(map(torch.as_tensor, _ssd_arrays(1, 64, 2, 16, 8, 5)))
+    before = ssd_scan.launches
+    y, final = ops.ssd_scan(*tensors, chunk=32)
+    y_ref, final_ref = ref.ssd_scan_ref(*tensors, 32)
+    np.testing.assert_array_equal(y.numpy(), y_ref.numpy())
+    np.testing.assert_array_equal(final.numpy(), final_ref.numpy())
+    assert ssd_scan.launches == before
+
+
+def test_ssd_kernel_wrapper_raises_on_cpu_tensors():
+    from repro_torch.kernels.ssd_scan import SSDScan
+    kernel = SSDScan()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*map(torch.as_tensor, _ssd_arrays(1, 64, 2, 16, 8, 6)), 32)
     assert kernel.launches == 0

@@ -1,7 +1,8 @@
 """repro_torch.models against repro.models: layers, attention (full,
-prefill, decode with per-row positions and ring wrap) and the dense stack's
+prefill, decode with per-row positions and ring wrap), the dense stack's
 embedded entry points, with weights carried across by
-``params_from_jax``."""
+``params_from_jax``, and the Mamba2 block (causal conv, chunked SSD with
+an initial state, the whole block, its init)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -123,6 +124,35 @@ def test_full_sequence_attention_matches(window):
                                torch.arange(6)),
            jax_attn.attention(jp, jarch, jnp.asarray(x), jnp.arange(6)),
            ATTN_TOL)
+
+
+def test_full_sequence_attention_dispatches_through_ops_on_cpu():
+    """``ops`` alone picks kernel or plain version: on CPU tensors
+    ``attention`` still calls ``ops.flash_attention``, with the unrepeated
+    GQA K/V, and launches no kernel."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    arch, _ = _arch(sliding_window=3)
+    tp, _ = _attn_params(np.random.RandomState(3), arch)
+    x = torch.as_tensor(np.random.RandomState(4).randn(2, 6, 32),
+                        dtype=torch.float32)
+    shapes, dispatch = [], ops.flash_attention
+
+    def spy(q, k, v, **kwargs):
+        shapes.append((tuple(q.shape), tuple(k.shape), kwargs))
+        return dispatch(q, k, v, **kwargs)
+
+    before = flash_attention.launches
+    expected = attention.attention(tp, arch, x, torch.arange(6))
+    with mock.patch.object(attention.ops, "flash_attention", spy):
+        out = attention.attention(tp, arch, x, torch.arange(6))
+    h, kv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    assert shapes == [((2, h, 6, hd), (2, kv, 6, hd),
+                       {"causal": True, "window": 3})]
+    assert torch.equal(out, expected)
+    assert flash_attention.launches == before
 
 
 def test_prefill_attention_matches_with_lengths():
@@ -248,3 +278,92 @@ def test_params_from_jax_splits_the_layer_axis():
         np.testing.assert_array_equal(
             block["mlp"]["w_down"].numpy(),
             np.asarray(jstack["blocks"]["mlp"]["w_down"][i]))
+
+
+# ============================================================ Mamba2 (SSD)
+def _ssm_arch(**kw):
+    from repro import configs as jax_configs
+    from repro_torch import configs
+    import dataclasses
+    return (dataclasses.replace(configs.reduced(
+                configs.get_arch("zamba2-1.2b")), **kw),
+            dataclasses.replace(jax_configs.reduced(
+                jax_configs.get_arch("zamba2-1.2b")), **kw))
+
+
+def _scaled_close(actual, expected, tol):
+    expected = np.asarray(expected)
+    scale = np.abs(expected).max() + 1.0
+    np.testing.assert_allclose(np.asarray(actual) / scale, expected / scale,
+                               atol=tol)
+
+
+def test_causal_conv_matches():
+    from repro.models import ssm as jax_ssm
+    from repro_torch.models import ssm
+    rng = np.random.RandomState(20)
+    w = rng.randn(4, 24).astype(np.float32)
+    b = rng.randn(24).astype(np.float32)
+    xbc = rng.randn(2, 9, 24).astype(np.float32)
+    _close(ssm._causal_conv(torch.as_tensor(w), torch.as_tensor(b),
+                            torch.as_tensor(xbc)),
+           jax_ssm._causal_conv(jnp.asarray(w), jnp.asarray(b),
+                                jnp.asarray(xbc)),
+           LAYER_TOL)
+
+
+def test_ssd_chunked_with_initial_state_matches():
+    from repro.models import ssm as jax_ssm
+    from repro_torch.models import ssm
+    rng = np.random.RandomState(21)
+    b, s, h, p, n = 2, 64, 4, 16, 8
+    arrays = [rng.randn(b, s, h, p), np.abs(rng.randn(b, s, h)) * 0.3 + 0.01,
+              -np.arange(1, h + 1, dtype=np.float64), rng.randn(b, s, n),
+              rng.randn(b, s, n), rng.randn(b, h, n, p)]
+    arrays = [a.astype(np.float32) for a in arrays]
+    y, final = ssm.ssd_chunked(*map(torch.as_tensor, arrays[:5]), 16,
+                               h0=torch.as_tensor(arrays[5]))
+    y_ref, final_ref = jax_ssm.ssd_chunked(*map(jnp.asarray, arrays[:5]), 16,
+                                           h0=jnp.asarray(arrays[5]))
+    _scaled_close(y, y_ref, 1e-5)
+    _scaled_close(final, final_ref, 1e-5)
+
+
+@pytest.mark.parametrize("seq", [32, 64])
+def test_ssm_forward_matches(seq):
+    """One Mamba2 block of reduced Zamba2 (d_model 256, 32 heads of 16,
+    d_state 16, chunk 32) with the JAX init's weights, over one and two
+    chunks; the final state too."""
+    from repro.models import ssm as jax_ssm
+    from repro_torch.models import ssm
+    arch, jarch = _ssm_arch()
+    jparams = jax.tree.map(np.asarray,
+                           jax_ssm.ssm_init(jax.random.key(3), jarch))
+    params = {k: torch.as_tensor(v.copy()) for k, v in jparams.items()
+              if k != "norm"}
+    params["norm"] = {"scale": torch.as_tensor(jparams["norm"]["scale"].copy())}
+    x = np.random.RandomState(22).randn(2, seq, 256).astype(np.float32)
+    out, final = ssm.ssm_forward(params, arch, torch.as_tensor(x))
+    jout, jfinal = jax_ssm.ssm_forward(
+        jax.tree.map(jnp.asarray, jparams), jarch, jnp.asarray(x))
+    _close(out, jout, ATTN_TOL)
+    _scaled_close(final, jfinal, 1e-5)
+
+
+def test_ssm_init_matches_reference_shapes_and_constants():
+    from repro.models import ssm as jax_ssm
+    from repro_torch.models import ssm
+    arch, jarch = _ssm_arch()
+    ours = ssm.ssm_init(torch.Generator().manual_seed(0), arch, device="cpu")
+    ref = jax_ssm.ssm_init(jax.random.key(0), jarch)
+    for name in ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D",
+                 "out_proj"):
+        assert tuple(ours[name].shape) == ref[name].shape, name
+        assert ours[name].dtype == torch.float32, name
+    np.testing.assert_allclose(ours["A_log"].numpy(),
+                               np.asarray(ref["A_log"]), rtol=1e-6)
+    dt = torch.nn.functional.softplus(ours["dt_bias"])
+    assert bool(((dt > 1e-3 - 1e-7) & (dt < 1e-1 + 1e-7)).all())
+    for name in ("in_proj", "conv_w", "out_proj"):
+        assert ours[name].std().item() == pytest.approx(
+            float(np.asarray(ref[name]).std()), rel=0.15), name
