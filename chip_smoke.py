@@ -13,14 +13,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    clips and discounts with zeros (max-abs error <= 1e-4 in float32,
    <= 2e-2 in bfloat16); flash attention at the sweep shapes of
    ``tests/test_kernels.py`` in both dtypes with the three mask cases, a
-   ragged length, rows past the last key and GQA, and at one shared-
+   ragged length, rows past the last key and GQA, at one shared-
    attention site of the Zamba2 path (b 4, h 32, s 2048, d 64, causal,
-   float32) (the same tolerances);
-   the SSD scan at the sweep shapes, d_state 128 and the Zamba2 path's
-   shape, the final state included (error over the output's largest
-   magnitude <= 1e-5, and <= 1e-4 at the path's shape, where the chunk's
-   cumulative decay reaches ~1e3 and one f32 ulp of it is ~1e-4: the plain
-   version's f32 cumulative sum carries that into the decay weights);
+   float32), and at the tensor-core design's edges: sq, sk around the warp
+   and block tiles, windows that end inside a key tile, the model's strided
+   views (equal to contiguous copies) and one key per query with distinct
+   V rows, which a wrong key order between P and V would show (the same
+   tolerances); the SSD scan at the sweep shapes, d_state 128, the Zamba2
+   path's shape, one chunk, 16 chunks, the ragged chunk 100 and d_state 128
+   with p 128, the final state included, and a second call at another
+   shape that must not read the first call's scratch (error over the
+   output's largest magnitude <= 1e-5, and <= 1e-4 at the path's shape,
+   where the chunk's cumulative decay reaches ~1e3 and one f32 ulp of it is
+   ~1e-4: the plain version's f32 cumulative sum carries that into the
+   decay weights);
 3. engine parity at the served width: a ``PolicyEngine`` on the kernel and
    one on the plain version answer the same windows (ring wrap, episode
    restarts, one ``invalidate_all``) with equal actions and Q within 1e-4;
@@ -34,10 +40,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    library call for the same function, at the main paths' shapes, beside
    the least time the card could take: CUDA events over 200 calls, median
    of 5 (20 calls for flash attention and the SSD scan at the Zamba2
-   path's shapes, with the layout copy the model makes around flash
-   attention timed too), both replayed from a CUDA graph (device time:
-   ``ms``) and called eagerly (with the host's per-call cost:
-   ``eager_ms``);
+   path's shapes, flash attention on the model's strided views), both
+   replayed from a CUDA graph (device time: ``ms``) and called eagerly
+   (with the host's per-call cost: ``eager_ms``).  Flash attention and the
+   SSD scan also carry their tensor-core bound (``bound_tc_ms``: three
+   TF32 passes at 495 TFLOP/s) and, for the SSD scan, the CUDA kernels one
+   call launches, counted by torch.profiler (``cuda_launches_per_call``);
+   flash attention fails the run if it is slower than
+   ``scaled_dot_product_attention`` on the same inputs;
 6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
    the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
    actor over a ``VectorEnv`` of 16 Catch envs in a
@@ -90,10 +100,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
-# the tensor cores.  The kernels here run f32 arithmetic on CUDA cores.
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, f32
+# FLOP/s outside the tensor cores, and TF32 FLOP/s on them.  Flash
+# attention and the SSD scan take each f32 product as three TF32 passes,
+# so their tensor-core bound is 3x the f32 work over the TF32 rate
+# (``bound_tc_ms``, beside the CUDA-core ``bound_ms``).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+TF32_PASSES = 3
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Adam moments and params of two learners that differ only in V-trace's
 # rounding (FMA contraction in the kernel), after 10 steps.
@@ -151,6 +166,16 @@ SSD_CASES = [("sweep", 1, 256, 2, 32, 16, 64),
              ("ragged_chunk", 1, 300, 3, 16, 24, 100)]
 SSD_TOL = 1e-5            # of the output's largest magnitude
 SSD_PATH_TOL = 1e-4       # at the path's shape (see phase 2 above)
+# phase 2, the redesign's edges: flash at sq, sk around the 16-row warp
+# tiles and the 64-row / 64-key block tiles, windows that end inside a key
+# tile; the SSD scan with one chunk, 16 chunks, the ragged chunk 100 and
+# d_state 128 over two state tiles: (label, b, s, h, p, n, chunk)
+FLASH_EDGES = [1, 15, 16, 17, 63, 65, 127, 129]
+FLASH_WINDOWS = [65, 100, 130]
+SSD_CHUNKINGS = [("one_chunk", 2, 256, 4, 64, 64, 256),
+                 ("16_chunks", 1, 1024, 3, 32, 16, 64),
+                 ("chunk_100", 2, 400, 4, 64, 32, 100),
+                 ("n128_p128", 1, 512, 4, 128, 128, 128)]
 
 
 class SmokeFailure(RuntimeError):
@@ -399,15 +424,23 @@ def flash_pairs(sq, sk, causal, window):
     return int(np.where(kept > 0, kept, sk).sum())
 
 
+def bounds(nbytes, flops):
+    """(bound_ms, bound_by) on CUDA cores in f32, and bound_tc_ms: the same
+    bytes against 3 TF32 passes of the work on tensor cores."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    by_tc = TF32_PASSES * flops / TF32_FLOPS_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations",
+            max(by_bytes, by_tc))
+
+
 def flash_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
     """Least time (ms): q, K, V and out once; two multiply-adds (q.k and
     p.v) per kept (query, key) pair and channel, per head."""
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kv * sk)
     flops = 4 * d * b * h * flash_pairs(sq, sk, causal, window)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
-        "operations"
+    return bounds(nbytes, flops)
 
 
 def check_flash(kernel, ref, torch, cfg):
@@ -440,46 +473,118 @@ def check_flash(kernel, ref, torch, cfg):
                     f"window={window} {name:8s} max_abs_err={err:.3e}")
                 check(err <= TOL[name], f"flash_attention {label} {name}: "
                       f"max_abs_err {err} > {TOL[name]}")
+    worst["float32"] = max(worst["float32"],
+                           check_flash_edges(kernel, ref, torch, rng))
+    return worst
+
+
+def flash_error(kernel, ref, torch, q, k, v, causal, window, label):
+    out = kernel(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    expected = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    check(out.shape == expected.shape and bool(torch.isfinite(out).all()),
+          f"flash_attention {label}: bad output")
+    err = (out.float() - expected.float()).abs().max().item()
+    check(err <= TOL["float32"], f"flash_attention {label}: max_abs_err "
+          f"{err} > {TOL['float32']}")
+    return err, out
+
+
+def check_flash_edges(kernel, ref, torch, rng):
+    """The tensor-core design's edges, in float32: sq, sk around the warp
+    and block tiles; windows that end inside a key tile (causal tiles
+    launch heaviest first); the model's strided views against contiguous
+    copies (equal); one key per query with distinct V rows, which a wrong
+    key order between P and V would show."""
+    worst = 0.0
+    for sq in FLASH_EDGES:
+        for sk in FLASH_EDGES:
+            for causal in (True, False):
+                q, k, v = flash_inputs(1, 4, 2, sq, sk, 64, torch.float32,
+                                       rng)
+                err, _ = flash_error(kernel, ref, torch, q, k, v, causal,
+                                     None, f"edge sq={sq} sk={sk}")
+                worst = max(worst, err)
+    log(f"  flash_attention edges sq, sk in {FLASH_EDGES}, causal and not: "
+        f"max_abs_err={worst:.3e}")
+    for window in FLASH_WINDOWS:
+        q, k, v = flash_inputs(2, 4, 4, 300, 300, 64, torch.float32, rng)
+        err, _ = flash_error(kernel, ref, torch, q, k, v, True, window,
+                             f"window {window}")
+        worst = max(worst, err)
+        log(f"  flash_attention window={window} across key tiles s=300 "
+            f"max_abs_err={err:.3e}")
+    model = [torch.as_tensor(rng.randn(2, 200, heads, 64).astype(np.float32),
+                             device="cuda") for heads in (8, 2, 2)]
+    views = [t.transpose(1, 2) for t in model]
+    err, out = flash_error(kernel, ref, torch, *views, True, 80,
+                           "model-layout views")
+    same = torch.equal(out, kernel(*(t.contiguous() for t in views), True,
+                                   80))
+    check(same and out.transpose(1, 2).is_contiguous(),
+          "flash_attention: strided views differ from contiguous copies, "
+          "or the output is not in the model's order")
+    log(f"  flash_attention model-layout views: equal to contiguous copies, "
+        f"max_abs_err={err:.3e}")
+    for d in (32, 64, 128):
+        target = rng.randint(0, d, 200)
+        arrays = (np.eye(d)[target], np.eye(d) * 40.0 * d ** 0.5,
+                  np.arange(d)[:, None] + 0.01 * rng.randn(d, d))
+        q, k, v = (torch.as_tensor(a, dtype=torch.float32,
+                                   device="cuda")[None, None]
+                   for a in arrays)
+        err, out = flash_error(kernel, ref, torch, q, k, v, False, None,
+                               f"one key per query d={d}")
+        picked = (out[0, 0] - v[0, 0, target]).abs().max().item()
+        check(picked <= 1e-3, f"flash_attention: one key per query, d={d}: "
+              f"output {picked} from that key's V row")
+        log(f"  flash_attention one key per query d={d}: max_abs_err="
+            f"{err:.3e}, {picked:.3e} from the chosen keys' V rows")
     return worst
 
 
 def time_flash(kernel, ref, torch, cfg):
     """At the shape of one shared-attention site of the scoring path: the
-    kernel, its plain version, scaled_dot_product_attention (the library
-    yardstick, never called by the port), and the copies the model makes
-    into the kernel's (b, heads, s, head_dim) layout."""
+    kernel on (b, heads, s, head_dim) views of (b, s, heads, head_dim)
+    tensors, as models/attention.py passes them; its plain version; and
+    scaled_dot_product_attention (the library yardstick, never called by
+    the port) on contiguous (b, heads, s, head_dim) tensors.  The kernel
+    must not be slower than the library call."""
     import torch.nn.functional as F
     b, h, kv, s, d = (ZAMBA_BATCH, cfg.num_heads, cfg.num_kv_heads,
                       ZAMBA_SEQ, cfg.head_dim)
     window = cfg.sliding_window
     q, k, v = flash_inputs(b, h, kv, s, s, d, torch.float32,
                            np.random.RandomState(SEED + 6))
-    err = (kernel(q, k, v, True, window)
+    # the same values as (b, heads, s, d) views of (b, s, heads, d) tensors
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    err = (kernel(*views, True, window)
            - ref.flash_attention_ref(q, k, v, causal=True, window=window)
            ).abs().max().item()
     check(err <= TOL["float32"], f"flash_attention at the scoring shape: "
           f"max_abs_err {err} > {TOL['float32']}")
-    bound, bound_by = flash_bound(b, h, kv, s, s, d, True, window, 4)
-    model_layout = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    bound, bound_by, bound_tc = flash_bound(b, h, kv, s, s, d, True, window,
+                                            4)
     timed = {"shape": {"b": b, "h": h, "kv": kv, "sq": s, "sk": s, "d": d,
-                       "causal": True, "window": window, "dtype": "float32"},
+                       "causal": True, "window": window, "dtype": "float32",
+                       "layout": "model (b, s, heads, d) views"},
              "max_abs_err_timed": err, "bound_ms": bound,
-             "bound_by": bound_by}
+             "bound_by": bound_by, "bound_tc_ms": bound_tc}
     calls = {
-        "": lambda: kernel(q, k, v, True, window),
+        "": lambda: kernel(*views, True, window),
         "plain_": lambda: ref.flash_attention_ref(q, k, v, causal=True,
                                                   window=window),
         "library_": lambda: F.scaled_dot_product_attention(q, k, v,
                                                            is_causal=True),
-        # q, k and v from the model's (b, s, heads, head_dim) into the
-        # kernel's layout, as models/attention.py does before each call
-        "layout_copy_": lambda: [t.transpose(1, 2).contiguous()
-                                 for t in model_layout],
     }
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3, launches=20,
                                              graph=False)
+    check(timed["ms"] <= timed["library_ms"], f"flash_attention at the "
+          f"scoring shape: {timed['ms']} ms, slower than "
+          f"scaled_dot_product_attention's {timed['library_ms']} ms")
     return timed
 
 
@@ -513,10 +618,7 @@ def ssd_bound(b, s, h, p, n, chunk):
     nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + h
                   + b * h * n * p)
     flops = 2 * b * nc * (pairs * n + h * (pairs * p + 2 * chunk * n * p))
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
-        "operations"
+    return bounds(nbytes, flops)
 
 
 def ssd_errors(kernel, ref, inputs, chunk, h0=None):
@@ -558,13 +660,64 @@ def check_ssd(kernel, ref, torch, cfg):
             check(max(err_y, err_state) <= tol, f"ssd_scan {label}: scaled "
                   f"error {max(err_y, err_state)} > {tol}")
             worst = max(worst, err_y, err_state)
-    return worst
+    for label, b, s, h, p, n, chunk in SSD_CHUNKINGS:
+        inputs = ssd_inputs(b, s, h, p, n, rng)
+        for h0 in (None, torch.as_tensor(rng.randn(b, h, n, p),
+                                         dtype=torch.float32,
+                                         device="cuda")):
+            err_y, err_state, _, _ = ssd_errors(kernel, ref, inputs, chunk,
+                                                h0)
+            log(f"  ssd_scan {label:12s} b={b} s={s:<4d} h={h:<2d} p={p:<3d} "
+                f"n={n:<3d} chunk={chunk:<3d} h0={h0 is not None:d} scaled "
+                f"err y={err_y:.3e} state={err_state:.3e} (tol {SSD_TOL})")
+            check(max(err_y, err_state) <= SSD_TOL, f"ssd_scan {label}: "
+                  f"scaled error {max(err_y, err_state)} > {SSD_TOL}")
+            worst = max(worst, err_y, err_state)
+    # a second call at another shape, on scratch the allocator hands back,
+    # matches the plain version; the first call repeats exactly
+    big = ssd_inputs(2, 1024, 8, 64, 64, rng)
+    first = kernel(*big, 256)
+    torch.cuda.synchronize()
+    small = ssd_inputs(1, 300, 3, 16, 24, rng)
+    h0 = torch.as_tensor(rng.randn(1, 3, 24, 16), dtype=torch.float32,
+                         device="cuda")
+    err_y, err_state, _, _ = ssd_errors(kernel, ref, small, 100, h0)
+    again = kernel(*big, 256)
+    check(max(err_y, err_state) <= SSD_TOL
+          and all(torch.equal(a, f) for a, f in zip(again, first)),
+          f"ssd_scan: a second call read stale scratch ({err_y}, "
+          f"{err_state}) or the first call did not repeat")
+    log(f"  ssd_scan second call at another shape: scaled err y="
+        f"{err_y:.3e} state={err_state:.3e}; the first call repeats exactly")
+    return max(worst, err_y, err_state)
+
+
+def device_kernels(torch, fn):
+    """The device kernels that one call of ``fn`` launches, in order, with
+    their device times in ms, from torch.profiler's trace of the call
+    (copies and fills are not kernels); None if the profiler recorded no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return None
+    return [(e.name, e.device_time_total / 1e3) for e in events
+            if not e.name.startswith(("Memcpy", "Memset"))]
 
 
 def time_ssd(kernel, ref, torch, cfg):
     """At the shape of one Mamba2 layer of the scoring path: the kernel and
     its plain version; no single PyTorch call computes the SSD scan, so
-    there is no library yardstick."""
+    there is no library yardstick.  One call must launch the design's four
+    CUDA kernels once each, in order, and nothing else."""
     s_cfg = cfg.ssm
     b, s, h, p, n, chunk = (ZAMBA_BATCH, ZAMBA_SEQ,
                             s_cfg.num_heads(cfg.d_model), s_cfg.head_dim,
@@ -572,14 +725,32 @@ def time_ssd(kernel, ref, torch, cfg):
     inputs = ssd_inputs(b, s, h, p, n, np.random.RandomState(SEED + 8),
                         model_like=True)
     err_y, err_state, abs_err, _ = ssd_errors(kernel, ref, inputs, chunk)
-    bound, bound_by = ssd_bound(b, s, h, p, n, chunk)
+    bound, bound_by, bound_tc = ssd_bound(b, s, h, p, n, chunk)
     timed = {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
                        "chunk": chunk, "dtype": "float32"},
              "max_abs_err_timed": abs_err,
              "max_scaled_err_timed": max(err_y, err_state),
-             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+             "bound_ms": bound, "bound_by": bound_by,
+             "bound_tc_ms": bound_tc, "library_ms": None}
     calls = {"": lambda: kernel(*inputs, chunk),
              "plain_": lambda: ref.ssd_scan_ref(*inputs, chunk)}
+    launched = device_kernels(torch, calls[""])
+    if launched is None:
+        log("  ssd_scan: the profiler recorded no device activity; CUDA "
+            "launches per call not measured")
+        timed["cuda_launches_per_call"] = None
+    else:
+        names = [name for name, _ in launched]
+        stages = ("scores", "states", "pass", "output")
+        check(len(names) == len(stages)
+              and all(f"ssd_{stage}_kernel" in name
+                      for name, stage in zip(names, stages)),
+              f"ssd_scan: one call launched {names}, not the design's four "
+              f"kernels in order")
+        timed["cuda_launches_per_call"] = len(launched)
+        timed["device_ms_by_kernel"] = {
+            f"ssd_{stage}_kernel": ms
+            for stage, (_, ms) in zip(stages, launched)}
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3, launches=20,
@@ -1240,11 +1411,11 @@ def main() -> int:
         "ms": flash_timed["ms"], "plain_ms": flash_timed["plain_ms"],
         "bound_ms": flash_timed["bound_ms"],
         "bound_by": flash_timed["bound_by"],
+        "bound_tc_ms": flash_timed["bound_tc_ms"],
         "library_ms": flash_timed["library_ms"],
         "eager_ms": flash_timed["eager_ms"],
         "eager_plain_ms": flash_timed["eager_plain_ms"],
         "eager_library_ms": flash_timed["eager_library_ms"],
-        "layout_copy_ms": flash_timed["layout_copy_ms"],
         "shape": flash_timed["shape"],
     }, {
         "name": "ssd_scan", "route": "cuda",
@@ -1254,6 +1425,8 @@ def main() -> int:
         "max_scaled_err": max(worst_ssd, ssd_timed["max_scaled_err_timed"]),
         "ms": ssd_timed["ms"], "plain_ms": ssd_timed["plain_ms"],
         "bound_ms": ssd_timed["bound_ms"], "bound_by": ssd_timed["bound_by"],
+        "bound_tc_ms": ssd_timed["bound_tc_ms"],
+        "cuda_launches_per_call": ssd_timed["cuda_launches_per_call"],
         "library_ms": None, "eager_ms": ssd_timed["eager_ms"],
         "eager_plain_ms": ssd_timed["eager_plain_ms"],
         "shape": ssd_timed["shape"],

@@ -1,4 +1,4 @@
-// Mamba2 SSD chunk scan for Hopper (sm_90a).
+// Mamba2 SSD chunk scan for Hopper (sm_90a), on tensor cores.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel` / `ssd_scan` in
 // src/repro/kernels/ssd_scan.py.  For every batch row and head, with the
@@ -14,27 +14,43 @@
 // (cum_i - cum_j for j <= i, cum_last - cum_j, cum_i itself), never as
 // exp(cum_i) * exp(-cum_j): with A down to -64 the sums reach the
 // thousands and exp(-cum_j) would overflow.  The cumulative sum is kept in
-// f64: at those magnitudes one f32 ulp is ~1e-4, and a block scan adds in
-// another order than a sequential one, so the difference of two f32 sums
-// would carry that error into the weight of every pair near the diagonal.
+// f64: at those magnitudes one f32 ulp is ~1e-4, and the difference of two
+// f32 sums would carry that error into the weight of every pair near the
+// diagonal.
 //
 // Layouts: x (b, s, h, p) f32 or bf16; dt (b, s, h) f32; A (h,) f32;
 // B, C (b, s, n) in x's type (one group, shared by every head); h0 and the
 // final state (b, h, n, p) f32; y (b, s, h, p) f32.  All contiguous.
+// Scratch, from the caller: cum (b, s, h) f64, G (b, nc, Q, Q) f32 and the
+// chunk states (b, nc, h, n, p) f32, nc = s / Q.
 //
-// What bounds it: operations.  A chunk does about Q^2 (n + p) / 2 + 2 Q n p
-// multiply-adds per head for Q (p + 2n) / h + Q p bytes read, far above
-// the ~20 f32 operations per byte the card needs before compute is the
-// limit.  The design: the TPU grid walks the chunks in order and carries
-// the state in VMEM; here one block per (head, batch row) loops over the
-// chunks itself, with the (n, p) state in shared memory.  A whole chunk of
-// B and C (256 x n f32) does not fit beside it at n = 128, so the chunk is
-// cut into tiles of 64 rows: for each tile of outputs the block walks the
-// tiles of inputs at or below the diagonal, forms the 64 x 64 decayed score
-// tile in shared memory, and accumulates its product with x in registers
-// (a 4 x p/16 micro-tile per thread).  The chunk's cumulative sum is a
-// block scan over warp shuffles.  Tensor cores (wgmma), TMA staging and
-// splitting the chunk loop across blocks are later work.
+// What bounds it: operations.  Per chunk, C.B^T over the Q (Q + 1) / 2
+// pairs once for all heads (they share B and C), then per head the
+// decay-weighted scores times x, C times the entering state and the chunk
+// state, Q n p multiply-adds each: far above the ~20 operations per byte
+// the card needs before compute is the limit.  Every product runs on
+// tensor cores, f32-accurate in three TF32 passes (tf32_mma.cuh).  The
+// design is the chunked SSD of Mamba2 (arXiv:2405.21060 section 7): the
+// TPU grid walks the chunks in order and carries the state in VMEM; here
+// only the short state recurrence is serial, in four kernels launched in
+// order on one stream:
+//   1. scores, grid (chunk x tile pair, b): the f64 cumulative sums of
+//      every head, and G = C.B^T once per (batch row, chunk) for all heads,
+//      one 64 x 64 tile at or below the diagonal per block;
+//   2. chunk states, grid (chunk x n-tile, h, b): S_c = B^T (w x) over the
+//      chunk, w_j = dt_j exp(cum_last - cum_j), all chunks in parallel;
+//   3. state passing, grid (n p / 256, h, b): S_in(c + 1) = exp(cum_last)
+//      S_in(c) + S_c from h0 or zero, written over S_c, and the final
+//      state: the one serial pass, short and memory-bound;
+//   4. chunk scan, grid (row tile x chunk, h, b): y for 64 rows, the
+//      decay-weighted G tile built in registers from G and the f64 sums
+//      (below the diagonal as G_ij u_i w_j, with per-tile factors <= 1),
+//      times x over the tiles at or below the diagonal, plus
+//      (exp(cum_i) C_i).S_in; the heaviest row tiles launch first.
+// Tiles of x, B, C, G and the states are staged in shared memory by
+// 16-byte cp.async, double-buffered in kernels 2 and 4; bf16 x, B and C
+// are copied as they are and widened to f32 as fragments are loaded.
+// wgmma, TMA and warp specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,303 +58,508 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;        // 16 x 16: (ty, tx)
-constexpr int kTile = 64;            // rows per tile of a chunk
-constexpr int kMaxChunk = 256;       // one cumulative sum per thread
-constexpr int kMaxState = 128;       // n
+constexpr int kTile = 64;       // rows per tile of a chunk
+constexpr int kMaxChunk = 256;
+constexpr int kMaxState = 128;  // n
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Shared-memory row pads, in elements, that keep rows 16-byte aligned and
+// the fragment loads free of bank conflicts: kPadCol for tiles whose
+// product sums along a row (lanes read down 8 rows, 4 columns), kPadRow for
+// tiles whose product sums down the columns (4 rows, 8 columns).
+template <typename T>
+constexpr int kPadCol = sizeof(T) == 4 ? 4 : 8;
+constexpr int kPadRow = 8;
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-// Shared memory, in floats: the chunk's cumulative sums and one partial
-// sum per warp (f64, so two floats each, first for alignment), the state
-// (n * P), C and B tiles (kTile rows of n + 1, padded against bank
-// conflicts), the x tile (kTile * P), the score tile (kTile * (kTile + 1))
-// and the chunk's dt (kMaxChunk).
-__host__ __device__ inline size_t smem_floats(int n, int p) {
-  return 2 * ((size_t)kMaxChunk + kThreads / 32) + (size_t)n * p +
-         2 * (size_t)kTile * (n + 1) + (size_t)kTile * p +
-         (size_t)kTile * (kTile + 1) + (size_t)kMaxChunk;
+template <typename T>
+__device__ __forceinline__ bool whole_chunks(int cols) {
+  return cols % (16 / (int)sizeof(T)) == 0;
+}
+
+// ------------------------------------------------- 1. cumulative sums, G
+template <typename T>
+__host__ __device__ constexpr size_t scores_smem(int n) {
+  return 2 * (size_t)kTile * (round_up(n, 8) + kPadCol<T>) * sizeof(T);
+}
+
+// The lower-triangle tile pair `pair` of a chunk: (ti, tj), tj <= ti.
+__device__ __forceinline__ void tile_pair(int pair, int& ti, int& tj) {
+  ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= pair) ++ti;
+  tj = pair - ti * (ti + 1) / 2;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    ssd_scores_kernel(const float* __restrict__ dt,
+                      const float* __restrict__ A, const T* __restrict__ Bm,
+                      const T* __restrict__ Cm, double* __restrict__ cum,
+                      float* __restrict__ G, int s, int h, int n, int chunk) {
+  constexpr int kBatch = 16;  // loads in flight per thread
+  const int tiles = (chunk + kTile - 1) / kTile;
+  const int pairs = tiles * (tiles + 1) / 2;
+  const int c = blockIdx.x / pairs;
+  const int pair = blockIdx.x - c * pairs;
+  const int nc = gridDim.x / pairs;
+  const int row = blockIdx.y;
+  const size_t t0 = (size_t)row * s + (size_t)c * chunk;
+
+  // the chunk's inclusive cumulative sums of dt * A, in f64, one head per
+  // thread in order, the heads spread over the chunk's blocks (coalesced:
+  // neighbouring heads are neighbours in dt)
+  for (int head = pair * blockDim.x + threadIdx.x; head < h;
+       head += pairs * blockDim.x) {
+    const float a = A[head];
+    const float* d = dt + t0 * h + head;
+    double* out = cum + t0 * h + head;
+    double acc = 0.0;
+    for (int i0 = 0; i0 < chunk; i0 += kBatch) {
+      float step[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        step[u] = i0 + u < chunk ? d[(size_t)(i0 + u) * h] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (i0 + u < chunk) {
+          acc += (double)(step[u] * a);
+          out[(size_t)(i0 + u) * h] = acc;
+        }
+    }
+  }
+
+  // G[i][j] = C_i . B_j on this block's 64 x 64 tile; each warp takes 16
+  // rows x 32 columns
+  int ti, tj;
+  tile_pair(pair, ti, tj);
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const int np = round_up(n, 8);
+  const int ld = np + kPadCol<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* c_s = reinterpret_cast<T*>(smem_raw);
+  T* b_s = c_s + kTile * ld;
+  const T* C0 = Cm + (t0 + i0) * n;
+  const T* B0 = Bm + (t0 + j0) * n;
+  const bool vec = tc::aligned16(C0, n) && tc::aligned16(B0, n) &&
+                   whole_chunks<T>(n);
+  tc::stage(c_s, ld, C0, n, min(kTile, chunk - i0), kTile, n, np, vec);
+  tc::stage(b_s, ld, B0, n, min(kTile, chunk - j0), kTile, n, np, vec);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wr = 16 * (warp >> 1);
+  const int wc = 32 * (warp & 1);
+  float acc[4][4] = {};
+  tc::warp_mma3<4>(
+      acc, np,
+      [&](int r, int k) { return tc::to_float(c_s[(wr + r) * ld + k]); },
+      [&](int k, int col) { return tc::to_float(b_s[(wc + col) * ld + k]); });
+  float* G_c = G + ((size_t)row * nc + c) * chunk * chunk;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + wr + (lane >> 2) + (e < 2 ? 0 : 8);
+      const int j = j0 + wc + 8 * nt + 2 * (lane & 3) + (e & 1);
+      if (i < chunk && j < chunk) G_c[(size_t)i * chunk + j] = acc[nt][e];
+    }
+}
+
+// ----------------------------------------------------- 2. chunk states
+template <typename T, int P>
+__host__ __device__ constexpr size_t states_smem(int n) {
+  return kMaxChunk * sizeof(float) +
+         2 * (size_t)kTile *
+             (round_up(n < kTile ? n : kTile, 16) + kPadRow + P + kPadRow) *
+             sizeof(T);
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, const float* __restrict__ h0,
-                    float* __restrict__ y, float* __restrict__ final_state,
-                    int s, int h, int n, int chunk) {
-  constexpr int PC = P / 16;  // output columns per thread: tx + 16 c
-  const int head = blockIdx.x;
-  const int row = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int np = n + 1;
+__global__ void __launch_bounds__(128)
+    ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const T* __restrict__ Bm,
+                      const double* __restrict__ cum, float* __restrict__ S,
+                      int s, int h, int n, int chunk) {
+  constexpr int LDX = P + kPadRow;
+  const int ntn = (n + kTile - 1) / kTile;
+  const int c = blockIdx.x / ntn;
+  const int n0 = (blockIdx.x - c * ntn) * kTile;
+  const int nc = gridDim.x / ntn;
+  const int head = blockIdx.y;
+  const int row = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nn = min(kTile, n - n0);       // state rows of this block
+  const int nnp = round_up(nn, 16);
+  const int ldb = nnp + kPadRow;
+  const size_t t0 = (size_t)row * s + (size_t)c * chunk;
 
-  extern __shared__ __align__(16) float smem[];
-  double* cum_s = reinterpret_cast<double*>(smem);  // kMaxChunk
-  double* warp_s = cum_s + kMaxChunk;                // kThreads / 32
-  float* state = reinterpret_cast<float*>(warp_s + kThreads / 32);  // n * P
-  float* c_s = state + (size_t)n * P;        // kTile * np
-  float* b_s = c_s + kTile * np;             // kTile * np
-  float* x_s = b_s + kTile * np;             // kTile * P
-  float* g_s = x_s + kTile * P;              // kTile * (kTile + 1)
-  float* dt_s = g_s + kTile * (kTile + 1);   // kMaxChunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* w_s = reinterpret_cast<float*>(smem_raw);  // kMaxChunk
+  T* tiles_s = reinterpret_cast<T*>(w_s + kMaxChunk);
+  const int stage_len = kTile * (ldb + LDX);
 
-  const float a = A[head];
-  const size_t state_off = ((size_t)row * h + head) * n * P;
-  for (int i = tid; i < n * P; i += kThreads)
-    state[i] = h0 != nullptr ? h0[state_off + i] : 0.f;
+  // w_j = dt_j exp(cum_last - cum_j), 0 past the chunk
+  const double last = cum[(t0 + chunk - 1) * h + head];
+  for (int j = threadIdx.x; j < kMaxChunk; j += blockDim.x)
+    w_s[j] = j < chunk ? dt[(t0 + j) * h + head] *
+                             expf((float)(last - cum[(t0 + j) * h + head]))
+                       : 0.f;
 
-  const size_t step = (size_t)h * P;  // x and y: one time step
-  const T* x_bh = x + (size_t)row * s * step + (size_t)head * P;
-  float* y_bh = y + (size_t)row * s * step + (size_t)head * P;
-  const float* dt_bh = dt + (size_t)row * s * h + head;
-  const T* B_b = Bm + (size_t)row * s * n;
-  const T* C_b = Cm + (size_t)row * s * n;
+  const T* B0 = Bm + t0 * n + n0;
+  const T* x0 = x + t0 * h * P + (size_t)head * P;
+  const bool b_vec = tc::aligned16(B0, n) && whole_chunks<T>(nn);
+  const bool x_vec = tc::aligned16(x0, (long long)h * P);
+  const int tiles = (chunk + kTile - 1) / kTile;
+  auto stage = [&](int it) {
+    const int j0 = it * kTile;
+    const int rows = min(kTile, chunk - j0);
+    T* b_s = tiles_s + (it & 1) * stage_len;
+    tc::stage(b_s, ldb, B0 + (size_t)j0 * n, n, rows, kTile, nn, nnp, b_vec);
+    tc::stage(b_s + kTile * ldb, LDX, x0 + (size_t)j0 * h * P,
+              (long long)h * P, rows, kTile, P, P, x_vec);
+    tc::cp_async_commit();
+  };
 
-  for (int c0 = 0; c0 < s; c0 += chunk) {
-    // ---- dt and the chunk's inclusive cumulative sum of dA = dt * A, in
-    // f64 (see the note at the top)
-    double v = 0.0;
-    if (tid < chunk) {
-      const float d = dt_bh[(size_t)(c0 + tid) * h];
-      dt_s[tid] = d;
-      v = (double)(d * a);
+  // warp w: state rows n0 + wr .. + 16, all P columns
+  const int wr = 16 * warp;
+  float acc[P / 8][4] = {};
+  stage(0);
+  for (int it = 0; it < tiles; ++it) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile `it` and w_s are in; the other buffer is free
+    if (it + 1 < tiles) stage(it + 1);
+    if (wr < nn) {
+      const T* b_s = tiles_s + (it & 1) * stage_len;
+      const T* x_s = b_s + kTile * ldb;
+      const float* w = w_s + it * kTile;
+      tc::warp_mma3<P / 8>(
+          acc, kTile,
+          [&](int r, int k) { return tc::to_float(b_s[k * ldb + wr + r]); },
+          [&](int k, int col) {
+            return tc::to_float(x_s[k * LDX + col]) * w[k];
+          });
     }
-    for (int off = 1; off < 32; off <<= 1) {
-      const double t = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += t;
-    }
-    if (lane == 31) warp_s[warp] = v;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) v += warp_s[w];
-    if (tid < chunk) cum_s[tid] = v;
-    __syncthreads();
-    const double cum_last = cum_s[chunk - 1];
-
-    // ---- y, one tile of kTile output rows at a time
-    for (int i0 = 0; i0 < chunk; i0 += kTile) {
-      for (int idx = tid; idx < kTile * n; idx += kThreads) {
-        const int r = idx / n;
-        const int k = idx - r * n;
-        c_s[r * np + k] = i0 + r < chunk
-                              ? to_float(C_b[(size_t)(c0 + i0 + r) * n + k])
-                              : 0.f;
-      }
-      float acc[4][PC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < PC; ++c) acc[r][c] = 0.f;
-
-      // input tiles at or below the diagonal
-      for (int j0 = 0; j0 <= i0; j0 += kTile) {
-        __syncthreads();  // the previous tile's readers are done
-        for (int idx = tid; idx < kTile * n; idx += kThreads) {
-          const int r = idx / n;
-          const int k = idx - r * n;
-          b_s[r * np + k] = j0 + r < chunk
-                                ? to_float(B_b[(size_t)(c0 + j0 + r) * n + k])
-                                : 0.f;
-        }
-        for (int idx = tid; idx < kTile * P; idx += kThreads) {
-          const int r = idx / P;
-          const int e = idx - r * P;
-          x_s[idx] = j0 + r < chunk
-                         ? to_float(x_bh[(size_t)(c0 + j0 + r) * step + e])
-                         : 0.f;
-        }
-        __syncthreads();
-
-        // G[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i, else 0
-        float g[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) g[r][c] = 0.f;
-        for (int k = 0; k < n; ++k) {
-          float cr[4], br[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) cr[r] = c_s[(ty + 16 * r) * np + k];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) br[c] = b_s[(tx + 16 * c) * np + k];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) g[r][c] += cr[r] * br[c];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + ty + 16 * r;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int j = j0 + tx + 16 * c;
-            const bool keep = j <= i && i < chunk;
-            g_s[(ty + 16 * r) * (kTile + 1) + tx + 16 * c] =
-                keep ? g[r][c] * expf((float)(cum_s[i] - cum_s[j])) * dt_s[j]
-                     : 0.f;
-          }
-        }
-        __syncthreads();
-
-        // acc += G . x
-        for (int jj = 0; jj < kTile; ++jj) {
-          float xr[PC];
-#pragma unroll
-          for (int c = 0; c < PC; ++c) xr[c] = x_s[jj * P + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float w = g_s[(ty + 16 * r) * (kTile + 1) + jj];
-#pragma unroll
-            for (int c = 0; c < PC; ++c) acc[r][c] += w * xr[c];
-          }
-        }
-      }
-
-      // the carried state's part: exp(cum_i) C_i . S
-      float off[4][PC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < PC; ++c) off[r][c] = 0.f;
-      for (int k = 0; k < n; ++k) {
-        float sr[PC];
-#pragma unroll
-        for (int c = 0; c < PC; ++c) sr[c] = state[k * P + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float cv = c_s[(ty + 16 * r) * np + k];
-#pragma unroll
-          for (int c = 0; c < PC; ++c) off[r][c] += cv * sr[c];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty + 16 * r;
-        if (i < chunk) {
-          const float decay = expf((float)cum_s[i]);
-          float* y_row = y_bh + (size_t)(c0 + i) * step;
-#pragma unroll
-          for (int c = 0; c < PC; ++c)
-            y_row[tx + 16 * c] = acc[r][c] + decay * off[r][c];
-        }
-      }
-      __syncthreads();  // c_s is reloaded for the next tile
-    }
-
-    // ---- state <- exp(cum_last) state + sum_j B_j (w_j x_j)^T, with
-    // w_j = dt_j exp(cum_last - cum_j); 64 state rows per pass
-    const float chunk_decay = expf((float)cum_last);
-    for (int k0 = 0; k0 < n; k0 += kTile) {
-      float acc[4][PC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < PC; ++c) acc[r][c] = 0.f;
-      for (int j0 = 0; j0 < chunk; j0 += kTile) {
-        __syncthreads();
-        for (int idx = tid; idx < kTile * n; idx += kThreads) {
-          const int r = idx / n;
-          const int k = idx - r * n;
-          b_s[r * np + k] = j0 + r < chunk
-                                ? to_float(B_b[(size_t)(c0 + j0 + r) * n + k])
-                                : 0.f;
-        }
-        for (int idx = tid; idx < kTile * P; idx += kThreads) {
-          const int r = idx / P;
-          const int e = idx - r * P;
-          const int j = j0 + r;
-          x_s[idx] = j < chunk
-                         ? to_float(x_bh[(size_t)(c0 + j) * step + e]) *
-                               dt_s[j] * expf((float)(cum_last - cum_s[j]))
-                         : 0.f;
-        }
-        __syncthreads();
-        for (int jj = 0; jj < kTile; ++jj) {
-          float xr[PC];
-#pragma unroll
-          for (int c = 0; c < PC; ++c) xr[c] = x_s[jj * P + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int k = k0 + ty + 16 * r;
-            const float bv = k < n ? b_s[jj * np + k] : 0.f;
-#pragma unroll
-            for (int c = 0; c < PC; ++c) acc[r][c] += bv * xr[c];
-          }
-        }
-      }
-      // each thread owns its state entries: no other thread reads them
-      // until the barrier below
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int k = k0 + ty + 16 * r;
-        if (k < n) {
-#pragma unroll
-          for (int c = 0; c < PC; ++c) {
-            float* entry = state + k * P + tx + 16 * c;
-            *entry = chunk_decay * *entry + acc[r][c];
-          }
-        }
-      }
-    }
-    __syncthreads();  // the state, dt_s and cum_s are read and rewritten
   }
 
-  for (int i = tid; i < n * P; i += kThreads)
-    final_state[state_off + i] = state[i];
+  float* S_c = S + (((size_t)row * nc + c) * h + head) * n * P;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = wr + g + 8 * half;
+    if (r < nn) {
+      float* out = S_c + (size_t)(n0 + r) * P;
+#pragma unroll
+      for (int nt = 0; nt < P / 8; ++nt)
+        *reinterpret_cast<float2*>(out + 8 * nt + 2 * t) = make_float2(
+            acc[nt][2 * half], acc[nt][2 * half + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------- 3. state passing
+__global__ void __launch_bounds__(256)
+    ssd_pass_kernel(const double* __restrict__ cum,
+                    const float* __restrict__ h0, float* __restrict__ S,
+                    float* __restrict__ final_state, int s, int h, int np,
+                    int chunk, int nc) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= np) return;
+  const int head = blockIdx.y;
+  const int row = blockIdx.z;
+  constexpr int kBatch = 8;  // chunks whose loads are in flight together
+  const size_t off = ((size_t)row * h + head) * np + idx;
+  float state = h0 != nullptr ? h0[off] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kBatch) {
+    float decay[kBatch], chunk_state[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int c = c0 + u;
+      if (c < nc) {
+        decay[u] = expf((float)cum[((size_t)row * s + (size_t)c * chunk +
+                                    chunk - 1) * h + head]);
+        chunk_state[u] = S[(((size_t)row * nc + c) * h + head) * np + idx];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int c = c0 + u;
+      if (c < nc) {
+        // the state entering chunk c
+        S[(((size_t)row * nc + c) * h + head) * np + idx] = state;
+        state = decay[u] * state + chunk_state[u];
+      }
+    }
+  }
+  final_state[off] = state;
+}
+
+// ---------------------------------------------------------- 4. chunk scan
+// Shared memory of the chunk scan, in bytes: the chunk's cumulative sums
+// (f64) and dt, the row decays exp(cum_i), each warp's factors of an
+// off-diagonal tile (16 rows, 64 columns), then two buffers of a G tile and
+// an x tile.  The C tile and the entering state are used once, before the
+// loop, and share the second buffer's space.
+constexpr size_t kOutputHead =
+    kMaxChunk * (sizeof(double) + sizeof(float)) +
+    (kTile + 4 * (16 + kTile)) * sizeof(float);
+
+template <typename T, int P>
+__host__ __device__ constexpr size_t output_ring_len() {
+  return (size_t)kTile *
+         ((kTile + 4) * sizeof(float) + (P + kPadRow) * sizeof(T));
+}
+
+template <typename T, int P>
+__host__ __device__ constexpr size_t output_once_len(int n) {
+  return (size_t)kTile * (round_up(n, 8) + kPadCol<T>) * sizeof(T) +
+         (size_t)round_up(n, 8) * (P + kPadRow) * sizeof(float);
+}
+
+template <typename T, int P>
+__host__ __device__ constexpr size_t output_smem(int n) {
+  return kOutputHead + output_ring_len<T, P>() +
+         (output_once_len<T, P>(n) > output_ring_len<T, P>()
+              ? output_once_len<T, P>(n)
+              : output_ring_len<T, P>());
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(128)
+    ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const T* __restrict__ Cm,
+                      const double* __restrict__ cum,
+                      const float* __restrict__ G,
+                      const float* __restrict__ S, float* __restrict__ y,
+                      int s, int h, int n, int chunk) {
+  constexpr int LDX = P + kPadRow;
+  constexpr int LDS = P + kPadRow;
+  constexpr int LDG = kTile + 4;
+  const int n_row_tiles = (chunk + kTile - 1) / kTile;
+  const int c = blockIdx.x / n_row_tiles;
+  const int ti = n_row_tiles - 1 - (blockIdx.x - c * n_row_tiles);
+  const int nc = gridDim.x / n_row_tiles;
+  const int head = blockIdx.y;
+  const int row = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i0 = ti * kTile;
+  const int rows = min(kTile, chunk - i0);
+  const int np = round_up(n, 8);
+  const int ldc = np + kPadCol<T>;
+  const size_t t0 = (size_t)row * s + (size_t)c * chunk;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cum_s = reinterpret_cast<double*>(smem_raw);  // kMaxChunk
+  float* dt_s = reinterpret_cast<float*>(cum_s + kMaxChunk);
+  float* dec_s = dt_s + kMaxChunk;                     // kTile
+  // warp w: rows i0 + wr .. + 16, all P columns, with its factors of an
+  // off-diagonal tile: u (16 rows) and w (64 columns)
+  const int wr = 16 * warp;
+  float* u_s = dec_s + kTile + warp * (16 + kTile);
+  float* w_s = u_s + 16;
+  unsigned char* ring = smem_raw + kOutputHead;
+  constexpr size_t ring_len = output_ring_len<T, P>();
+  T* c_s = reinterpret_cast<T*>(ring + ring_len);      // kTile x ldc
+  float* st_s = reinterpret_cast<float*>(c_s + kTile * ldc);  // np x LDS
+
+  const T* C0 = Cm + (t0 + i0) * n;
+  const float* st = S + (((size_t)row * nc + c) * h + head) * n * P;
+  const float* G_c = G + ((size_t)row * nc + c) * chunk * chunk +
+                     (size_t)i0 * chunk;
+  const T* x0 = x + t0 * h * P + (size_t)head * P;
+  const bool c_vec = tc::aligned16(C0, n) && whole_chunks<T>(n);
+  const bool st_vec = tc::aligned16(st, P);
+  const bool g_vec = tc::aligned16(G_c, chunk) && chunk % 4 == 0;
+  const bool x_vec = tc::aligned16(x0, (long long)h * P);
+  auto stage = [&](int tj) {  // into buffer tj & 1
+    const int j0 = tj * kTile;
+    float* g_s = reinterpret_cast<float*>(ring + (tj & 1) * ring_len);
+    T* x_s = reinterpret_cast<T*>(g_s + kTile * LDG);
+    tc::stage(g_s, LDG, G_c + j0, chunk, rows, kTile,
+              min(kTile, chunk - j0), kTile, g_vec);
+    tc::stage(x_s, LDX, x0 + (size_t)j0 * h * P, (long long)h * P,
+              min(kTile, chunk - j0), kTile, P, P, x_vec);
+  };
+
+  tc::stage(c_s, ldc, C0, n, rows, kTile, n, np, c_vec);
+  tc::stage(st_s, LDS, st, P, n, np, P, P, st_vec);
+  stage(0);
+  tc::cp_async_commit();
+  for (int j = threadIdx.x; j < min(chunk, i0 + kTile); j += blockDim.x) {
+    cum_s[j] = cum[(t0 + j) * h + head];
+    dt_s[j] = dt[(t0 + j) * h + head];
+  }
+  for (int r = threadIdx.x; r < kTile; r += blockDim.x)
+    dec_s[r] = r < rows ? expf((float)cum[(t0 + i0 + r) * h + head]) : 0.f;
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // first the entering state: (exp(cum_i) C_i) . S_in
+  float acc[P / 8][4] = {};
+  tc::warp_mma3<P / 8>(
+      acc, np,
+      [&](int r, int k) {
+        return tc::to_float(c_s[(wr + r) * ldc + k]) * dec_s[wr + r];
+      },
+      [&](int k, int col) { return st_s[k * LDS + col]; });
+
+  // then (G_ij exp(cum_i - cum_j) dt_j) . x_j over the tiles j <= i
+  for (int tj = 0; tj <= ti; ++tj) {
+    tc::cp_async_wait<0>();
+    // tile tj is in; every warp is done with the other buffer (at tj = 0,
+    // with the C tile and the state that share it)
+    __syncthreads();
+    if (tj < ti) {
+      stage(tj + 1);
+      tc::cp_async_commit();
+    }
+    const int j0 = tj * kTile;
+    const float* g_s =
+        reinterpret_cast<const float*>(ring + (tj & 1) * ring_len);
+    const T* x_s = reinterpret_cast<const T*>(g_s + kTile * LDG);
+    auto x_at = [&](int k, int col) {
+      return tc::to_float(x_s[k * LDX + col]);
+    };
+    if (tj < ti) {
+      // Below the diagonal every i > ref = j0 + 63 >= j, so the decay
+      // factors as exp(cum_i - cum_ref) exp(cum_ref - cum_j), both <= 1:
+      // u_i, and w_j = exp(cum_ref - cum_j) dt_j, each from an f64
+      // difference; rows past the chunk weigh 0.
+      const double ref = cum_s[j0 + kTile - 1];
+      const int lane_row = i0 + wr + (lane & 15);
+      __syncwarp();  // the warp's lanes are done with the last tile's factors
+      if (lane < 16)
+        u_s[lane] = lane_row < chunk ? expf((float)(cum_s[lane_row] - ref))
+                                     : 0.f;
+      w_s[lane] = expf((float)(ref - cum_s[j0 + lane])) * dt_s[j0 + lane];
+      w_s[lane + 32] =
+          expf((float)(ref - cum_s[j0 + lane + 32])) * dt_s[j0 + lane + 32];
+      __syncwarp();
+      tc::warp_mma3<P / 8>(
+          acc, kTile,
+          [&](int r, int k) {
+            return g_s[(wr + r) * LDG + k] * u_s[r] * w_s[k];
+          },
+          x_at);
+    } else {
+      // the diagonal tile: each weight from its own f64 difference; keys
+      // past the warp's last row are all masked
+      tc::warp_mma3<P / 8>(
+          acc, wr + 16,
+          [&](int r, int k) {
+            const int i = i0 + wr + r;
+            const int j = j0 + k;
+            return j <= i && i < chunk
+                       ? g_s[(wr + r) * LDG + k] *
+                             expf((float)(cum_s[i] - cum_s[j])) * dt_s[j]
+                       : 0.f;
+          },
+          x_at);
+    }
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = wr + g + 8 * half;
+    if (r < rows) {
+      float* out = y + ((t0 + i0 + r) * h + head) * P;
+#pragma unroll
+      for (int nt = 0; nt < P / 8; ++nt)
+        *reinterpret_cast<float2*>(out + 8 * nt + 2 * t) = make_float2(
+            acc[nt][2 * half], acc[nt][2 * half + 1]);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T, int P>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* h0, void* y,
-                   void* final_state, int b, int s, int h, int n, int chunk,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(n, P);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = ssd_scan_kernel<T, P>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(final_state), s, h, n,
-      chunk);
+                   void* final_state, void* cum, void* G, void* S, int b,
+                   int s, int h, int n, int chunk, cudaStream_t stream) {
+  const int nc = s / chunk;
+  const T* xt = static_cast<const T*>(x);
+  const T* Bt = static_cast<const T*>(Bm);
+  const T* Ct = static_cast<const T*>(Cm);
+  const float* dtf = static_cast<const float*>(dt);
+  double* cumd = static_cast<double*>(cum);
+  float* Gf = static_cast<float*>(G);
+  float* Sf = static_cast<float*>(S);
+  cudaError_t err;
+
+  const size_t smem1 = scores_smem<T>(n);
+  if ((err = allow_smem(ssd_scores_kernel<T>, smem1)) != cudaSuccess)
+    return err;
+  const int tiles = (chunk + kTile - 1) / kTile;
+  ssd_scores_kernel<T>
+      <<<dim3(nc * tiles * (tiles + 1) / 2, b), 256, smem1, stream>>>(
+      dtf, static_cast<const float*>(A), Bt, Ct, cumd, Gf, s, h, n, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t smem2 = states_smem<T, P>(n);
+  if ((err = allow_smem(ssd_states_kernel<T, P>, smem2)) != cudaSuccess)
+    return err;
+  const int ntn = (n + kTile - 1) / kTile;
+  ssd_states_kernel<T, P><<<dim3(nc * ntn, h, b), 128, smem2, stream>>>(
+      xt, dtf, Bt, cumd, Sf, s, h, n, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  ssd_pass_kernel<<<dim3((n * P + 255) / 256, h, b), 256, 0, stream>>>(
+      cumd, static_cast<const float*>(h0), Sf,
+      static_cast<float*>(final_state), s, h, n * P, chunk, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t smem4 = output_smem<T, P>(n);
+  if ((err = allow_smem(ssd_output_kernel<T, P>, smem4)) != cudaSuccess)
+    return err;
+  const int row_tiles = (chunk + kTile - 1) / kTile;
+  ssd_output_kernel<T, P><<<dim3(nc * row_tiles, h, b), 128, smem4, stream>>>(
+      xt, dtf, Ct, cumd, Gf, Sf, static_cast<float*>(y), s, h, n, chunk);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* h0,
-                              void* y, void* final_state, int b, int s, int h,
-                              int p, int n, int chunk, cudaStream_t stream) {
+                              void* y, void* final_state, void* cum, void* G,
+                              void* S, int b, int s, int h, int p, int n,
+                              int chunk, cudaStream_t stream) {
   switch (p) {
     case 16:
-      return launch<T, 16>(x, dt, A, Bm, Cm, h0, y, final_state, b, s, h, n,
-                           chunk, stream);
+      return launch<T, 16>(x, dt, A, Bm, Cm, h0, y, final_state, cum, G, S, b,
+                           s, h, n, chunk, stream);
     case 32:
-      return launch<T, 32>(x, dt, A, Bm, Cm, h0, y, final_state, b, s, h, n,
-                           chunk, stream);
+      return launch<T, 32>(x, dt, A, Bm, Cm, h0, y, final_state, cum, G, S, b,
+                           s, h, n, chunk, stream);
     case 64:
-      return launch<T, 64>(x, dt, A, Bm, Cm, h0, y, final_state, b, s, h, n,
-                           chunk, stream);
+      return launch<T, 64>(x, dt, A, Bm, Cm, h0, y, final_state, cum, G, S, b,
+                           s, h, n, chunk, stream);
     case 128:
-      return launch<T, 128>(x, dt, A, Bm, Cm, h0, y, final_state, b, s, h, n,
-                            chunk, stream);
+      return launch<T, 128>(x, dt, A, Bm, Cm, h0, y, final_state, cum, G, S,
+                            b, s, h, n, chunk, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -347,23 +568,26 @@ cudaError_t dispatch_head_dim(const void* x, const void* dt, const void* A,
 }  // namespace
 
 // dtype of x, B and C: 0 = float32, 1 = bfloat16.  h0 may be null (a zero
-// initial state).  Returns the launch's cudaError_t.
+// initial state).  cum (b, s, h) f64, G (b, s / chunk, chunk, chunk) f32
+// and S (b, s / chunk, h, n, p) f32 are scratch that the call overwrites
+// before it reads.  Launches four kernels on `stream`; returns the first
+// launch error.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* h0,
-                              void* y, void* final_state, int b, int s, int h,
-                              int p, int n, int chunk, int dtype,
-                              void* stream) {
-  if (b < 1 || b > 65535 || h < 1 || s < 1 || n < 1 || n > kMaxState ||
-      chunk < 1 || chunk > kMaxChunk || s % chunk != 0)
+                              void* y, void* final_state, void* cum, void* G,
+                              void* S, int b, int s, int h, int p, int n,
+                              int chunk, int dtype, void* stream) {
+  if (b < 1 || b > 65535 || h < 1 || h > 65535 || s < 1 || n < 1 ||
+      n > kMaxState || chunk < 1 || chunk > kMaxChunk || s % chunk != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float>(x, dt, A, Bm, Cm, h0, y, final_state, b, s,
-                                    h, p, n, chunk, st);
+    return dispatch_head_dim<float>(x, dt, A, Bm, Cm, h0, y, final_state, cum,
+                                    G, S, b, s, h, p, n, chunk, st);
   if (dtype == 1)
     return dispatch_head_dim<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y,
-                                            final_state, b, s, h, p, n, chunk,
-                                            st);
+                                            final_state, cum, G, S, b, s, h,
+                                            p, n, chunk, st);
   return cudaErrorInvalidValue;
 }
 

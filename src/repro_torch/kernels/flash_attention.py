@@ -38,7 +38,9 @@ class FlashAttention:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_flash_attention
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+            fn.argtypes = ([ctypes.c_void_p] * 4
+                           + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
@@ -46,9 +48,11 @@ class FlashAttention:
 
     def __call__(self, q, k, v, causal: bool = True, window=None):
         """q: (b, h, sq, d); k, v: (b, kv, sk, d), kv dividing h; one dtype
-        (float32 or bfloat16), contiguous, on one CUDA device.  ``window``
-        (>= 1) applies only with ``causal``.  Returns (b, h, sq, d) in q's
-        dtype."""
+        (float32 or bfloat16), each with its last dimension contiguous (any
+        strides elsewhere: the model passes transposed views of its
+        (b, s, heads, d) tensors), on one CUDA device.  ``window`` (>= 1)
+        applies only with ``causal``.  Returns (b, h, sq, d) in q's dtype,
+        a transposed view of a (b, sq, h, d) tensor, the model's order."""
         if q.device.type != "cuda":
             raise ValueError(
                 f"flash_attention kernel needs CUDA tensors, got {q.device}")
@@ -73,17 +77,21 @@ class FlashAttention:
             raise ValueError(f"flash_attention: window {window} < 1")
         if k.device != q.device or v.device != q.device:
             raise ValueError("flash_attention: tensors on different devices")
-        if not (q.is_contiguous() and k.is_contiguous()
-                and v.is_contiguous()):
-            raise ValueError("flash_attention: tensors must be contiguous")
+        if any(t.stride(3) != 1 for t in (q, k, v)):
+            raise ValueError("flash_attention: the last dimension of q, k "
+                             "and v must be contiguous")
 
         fn = self._kernel()
-        out = torch.empty_like(q)
+        out = torch.empty((b, sq, h, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        strides = (ctypes.c_longlong * 12)(
+            *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, h, kv, sq, sk, d, int(bool(causal)),
-                      int(window or 0), _DTYPES[q.dtype], d ** -0.5, stream)
+                      out.data_ptr(), strides, b, h, kv, sq, sk, d,
+                      int(bool(causal)), int(window or 0), _DTYPES[q.dtype],
+                      d ** -0.5, stream)
         build.check(self._lib, code, "flash_attention launch")
         with self._lock:
             self.launches += 1

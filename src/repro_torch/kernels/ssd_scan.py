@@ -4,9 +4,11 @@
 
 The wrapper takes CUDA tensors only; ``ops.ssd_scan`` sends CPU tensors to
 the plain version in ``ref.py``.  ``ssd_scan.launches`` counts the kernel's
-launches, so a run can show that its Mamba2 layers went through the kernel.
-Unlike the Pallas kernel it also takes an initial state and returns the
-final one, so the model's ``ssd_chunked`` maps onto it whole.
+calls, so a run can show that its Mamba2 layers went through the kernel; each
+call launches four CUDA kernels in order on the current stream (cumulative
+sums and scores, chunk states, state passing, chunk scan).  Unlike the
+Pallas kernel it also takes an initial state and returns the final one, so
+the model's ``ssd_chunked`` maps onto it whole.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ HEAD_DIMS = (16, 32, 64, 128)     # p
 MAX_STATE = 128                   # n
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BATCH = 65535                # the grid's y extent
+_MAX_GRID = 65535                 # the grids' y (heads) and z (batch) extents
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -42,7 +44,7 @@ class SSDScan:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_ssd_scan
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
@@ -72,7 +74,7 @@ class SSDScan:
         if (dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n)
                 or C.shape != B.shape
                 or (h0 is not None and h0.shape != (b, h, n, p))
-                or not 1 <= b <= _MAX_BATCH or not 1 <= h <= _INT_MAX
+                or not 1 <= b <= _MAX_GRID or not 1 <= h <= _MAX_GRID
                 or not 1 <= s <= _INT_MAX):
             raise ValueError(
                 f"ssd_scan: bad shapes x {tuple(x.shape)} dt "
@@ -96,12 +98,21 @@ class SSDScan:
         y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
         final = torch.empty((b, h, n, p), dtype=torch.float32,
                             device=x.device)
+        # scratch, written before it is read: the f64 cumulative sums, the
+        # scores C.B^T of every chunk, and the chunk states
+        nc = s // chunk
+        cum = torch.empty((b, s, h), dtype=torch.float64, device=x.device)
+        scores = torch.empty((b, nc, chunk, chunk), dtype=torch.float32,
+                             device=x.device)
+        states = torch.empty((b, nc, h, n, p), dtype=torch.float32,
+                             device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                       B.data_ptr(), C.data_ptr(),
                       None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                      final.data_ptr(), b, s, h, p, n, chunk,
+                      final.data_ptr(), cum.data_ptr(), scores.data_ptr(),
+                      states.data_ptr(), b, s, h, p, n, chunk,
                       _DTYPES[x.dtype], stream)
         build.check(self._lib, code, "ssd_scan launch")
         with self._lock:

@@ -73,8 +73,10 @@ def attention(params, cfg: ArchConfig, x, positions, *, causal=True):
 
     The scores and softmax run in ``ops.flash_attention`` (the CUDA kernel
     on CUDA tensors, its plain version on CPU tensors), which takes q and
-    the unrepeated GQA K/V, after RoPE and qk-norm, in its (b, heads, s,
-    head_dim) layout.  Both mask by index, not by ``positions``: every
+    the unrepeated GQA K/V, after RoPE and qk-norm, as (b, heads, s,
+    head_dim) views of the (b, s, heads, head_dim) tensors, without copies;
+    the kernel writes its output in the model's order too.  Both mask by
+    index, not by ``positions``: every
     caller passes contiguous positions (``arange(seq)``), and the causal
     and window masks depend only on q_pos - k_pos, so this is exact.
     Positions are not checked on the device, which would cost a sync per
@@ -82,10 +84,9 @@ def attention(params, cfg: ArchConfig, x, positions, *, causal=True):
     sequence lengths; the plain version computes one block.
     """
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal,
-        window=cfg.sliding_window)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=cfg.sliding_window)
     return torch.einsum("bhsk,hkd->bsd", out, params["wo"])
 
 

@@ -333,6 +333,83 @@ def test_flash_ops_launches_on_cuda_tensors(cuda_device):
     assert flash_attention.launches == before + 1
 
 
+FLASH_EDGES = [1, 15, 16, 17, 63, 65, 127, 129]   # around the 16-row warp
+                                                  # and 64-row/key tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", FLASH_EDGES)
+@pytest.mark.parametrize("sk", FLASH_EDGES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_tile_edges(cuda_device, sq, sk, causal):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(1, 4, 2, sq, sk, 64, torch.float32, cuda_device,
+                            seed=sq * 131 + sk)
+    out = flash_attention(q, k, v, causal, None)
+    expected = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out, expected, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_model_layout_views(cuda_device, dtype):
+    """The model passes transposed views of (b, s, heads, d) tensors; the
+    kernel reads them by their strides and writes its output in the same
+    order, equal to the call on contiguous copies."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.as_tensor(rng.randn(2, 200, heads, 64),
+                               dtype=torch.float32).to(cuda_device, dtype)
+               for heads in (8, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    out = flash_attention(*views, True, 80)
+    expected = flash_attention(*(t.contiguous() for t in views), True, 80)
+    assert out.shape == (2, 8, 200, 64)
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, expected)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [65, 100, 130])
+def test_flash_kernel_reversed_causal_tiles_with_a_window_across_tiles(
+        cuda_device, window):
+    """Causal query tiles launch heaviest first; windows that end inside a
+    64-key tile, so a tile is cut by the window and by the diagonal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(2, 4, 4, 300, 300, 64, torch.float32,
+                            cuda_device, seed=window)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, True, window),
+        ref.flash_attention_ref(q, k, v, causal=True, window=window),
+        atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_kernel_pv_reads_the_key_of_each_weight(cuda_device, d):
+    """Each query puts almost all its weight on one key, whose V row is
+    distinct from every other key's: the output is that key's V row, so a
+    wrong order of keys between P and V shows."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.RandomState(d)
+    sk = d
+    target = rng.randint(0, sk, 200)
+    k = np.eye(sk, d) * 40.0 * d ** 0.5      # score 40 on the key, 0 elsewhere
+    q = np.eye(sk, d)[target]
+    v = np.arange(sk)[:, None] + 0.01 * rng.randn(sk, d)
+    q, k, v = (torch.as_tensor(a, dtype=torch.float32,
+                               device=cuda_device)[None, None]
+               for a in (q, k, v))
+    out = flash_attention(q, k, v, False, None)
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v,
+                                                            causal=False),
+                               atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+    torch.testing.assert_close(out[0, 0], v[0, 0, target], atol=1e-3,
+                               rtol=0)
+
+
 @pytest.mark.cuda
 def test_policy_q_sequence_through_flash_kernel(cuda_device):
     """Slice 1's policy network reaches full-sequence attention at s = 8,
@@ -417,6 +494,44 @@ def test_ssd_kernel_matches_plain_version(cuda_device, b, s, h, p, n, chunk,
     y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk, h0=h0)
     assert _scaled_err(y, y_ref) <= SSD_TOL
     assert _scaled_err(final, final_ref) <= SSD_TOL
+
+
+# (b, s, h, p, n, chunk): one chunk, 16 chunks, the ragged chunk 100, and
+# d_state 128 with several n-tiles of the state
+SSD_CHUNKINGS = [(2, 256, 4, 64, 64, 256), (1, 1024, 3, 32, 16, 64),
+                 (2, 400, 4, 64, 32, 100), (1, 512, 4, 128, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CHUNKINGS)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_kernel_chunkings(cuda_device, b, s, h, p, n, chunk, with_h0):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    inputs, h0 = _ssd_inputs(b, s, h, p, n, cuda_device, seed=s + chunk,
+                             h0=with_h0)
+    y, final = ssd_scan(*inputs, chunk, h0)
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk, h0=h0)
+    assert _scaled_err(y, y_ref) <= SSD_TOL
+    assert _scaled_err(final, final_ref) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_second_call_reads_nothing_stale(cuda_device):
+    """The scratch (cumulative sums, scores, chunk states) is written before
+    it is read: a call at another shape after a larger one, on memory the
+    allocator hands back, matches the plain version, and the first call
+    repeats exactly."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    big, _ = _ssd_inputs(2, 1024, 8, 64, 64, cuda_device, seed=1)
+    small, h0 = _ssd_inputs(1, 300, 3, 16, 24, cuda_device, seed=2, h0=True)
+    first = ssd_scan(*big, 256)
+    torch.cuda.synchronize()
+    y, final = ssd_scan(*small, 100, h0)
+    y_ref, final_ref = ref.ssd_scan_ref(*small, 100, h0=h0)
+    assert _scaled_err(y, y_ref) <= SSD_TOL
+    assert _scaled_err(final, final_ref) <= SSD_TOL
+    again = ssd_scan(*big, 256)
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
 @pytest.mark.cuda

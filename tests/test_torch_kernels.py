@@ -328,6 +328,82 @@ def test_flash_kernel_wrapper_raises_on_cpu_tensors():
     assert kernel.launches == 0
 
 
+def test_flash_ops_takes_transposed_views_like_contiguous_copies():
+    """The model passes (b, s, heads, d) tensors as (b, heads, s, d) views;
+    the result equals the call on contiguous copies."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.as_tensor(rng.randn(2, 96, heads, 32).astype(np.float32))
+               for heads in (4, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views)
+    out = ops.flash_attention(*views, causal=True, window=40)
+    expected = ops.flash_attention(*(t.contiguous() for t in views),
+                                   causal=True, window=40)
+    np.testing.assert_array_equal(out.numpy(), expected.numpy())
+
+
+def _tf32_rna(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped
+    bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b with TF32 operands and f32 sums: one pass (hi.hi) or three
+    (lo.hi + hi.lo + hi.hi, lo = tf32(x - tf32(x))), as the kernels'
+    ``mma3`` runs them; products of TF32 values are exact in f32.
+
+    This models the operands' rounding only.  The sums here round to
+    nearest; the tensor core's own accumulation does not, which is why the
+    flash kernel sums each key tile's P.V from zero and adds it to O in
+    f32.  That hazard is not modelled on the CPU: the card tests and
+    ``chip_smoke.py`` phase 2, at the scoring path's shape, guard it."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_three_tf32_passes_hold_causal_attention_to_the_f32_tolerance(d):
+    """The precision argument for the tensor-core kernels: causal attention
+    (unit-normal q, k, v, 384 keys) with both products in three TF32
+    passes stays within the f32 tolerance of an f64 computation; one pass
+    does not."""
+    rng = np.random.RandomState(d)
+    q, k, v = (torch.as_tensor(rng.randn(2, 384, d).astype(np.float32))
+               for _ in range(3))
+    mask = torch.ones(384, 384, dtype=torch.bool).tril()
+
+    def attend(matmul, dtype):
+        scores = matmul((q * d ** -0.5).to(dtype),
+                        k.transpose(1, 2).to(dtype))
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        return matmul(torch.softmax(scores, dim=-1), v.to(dtype))
+
+    exact = attend(torch.matmul, torch.float64)
+    errors = {passes: (attend(lambda a, b: _tf32_matmul(a, b, passes),
+                              torch.float32).double() - exact).abs().max()
+              .item() for passes in (1, 3)}
+    assert errors[3] <= _tol("float32"), errors
+    assert errors[1] > _tol("float32"), errors
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_to_nearest():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -12,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -10, 3.0e-3],
+                     dtype=torch.float32)
+    rounded = _tf32_rna(x)
+    np.testing.assert_array_equal(
+        rounded[:5].numpy(),
+        np.float32([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, -(1.0 + 2 ** -10),
+                    1.0 + 2 ** -10]))
+    assert abs(rounded[5].item() / 3.0e-3 - 1) <= 2 ** -11
+
+
 # ============================================================ SSD, plain
 SSD_TOL = 1e-5     # of the output's largest magnitude, as test_ssd_scan_sweep
 
@@ -403,3 +479,25 @@ def test_ssd_kernel_wrapper_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel(*map(torch.as_tensor, _ssd_arrays(1, 64, 2, 16, 8, 6)), 32)
     assert kernel.launches == 0
+
+
+def test_tensor_core_probe_variants_edit_the_committed_sources(monkeypatch):
+    """Each variant of ``scripts/tensor_core_probe.py`` (one part of a
+    tensor-core kernel taken out, timed on the card) still finds the text
+    it edits in the committed sources, and changes it."""
+    import importlib.util
+    import pathlib
+    import sys
+    monkeypatch.setattr(sys, "path", list(sys.path))  # the script adds to it
+    path = (pathlib.Path(__file__).resolve().parents[1] / "scripts"
+            / "tensor_core_probe.py")
+    spec = importlib.util.spec_from_file_location("tensor_core_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    csrc = probe.build.CSRC
+    for kernel, variants in probe.VARIANTS.items():
+        for name in variants:
+            texts = probe.variant_sources(kernel, name)
+            assert f"{kernel}.cu" in texts
+            assert any(text != (csrc / file).read_text()
+                       for file, text in texts.items()), (kernel, name)
