@@ -7,11 +7,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with nvcc, one process per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card: decode
-   attention at the serve shapes, the sweep shapes, a ragged cache and
-   fully masked rows; V-trace at the learner's shape, the sweep shapes, a
-   ragged batch, (1, 5) and (100, 16384), with ratios below and above the
-   clips and discounts with zeros (max-abs error <= 1e-4 in float32,
-   <= 2e-2 in bfloat16); flash attention at the sweep shapes of
+   attention at the serve shapes, the sweep shapes, a ragged cache, fully
+   masked rows, caches of 1 key, of one tile and of one split and one key
+   either side of them, long caches over several splits with lengths at
+   the splits' edges, inside the first split and 0, 1 to 8 query heads a
+   KV head (and 12, two head blocks) at every head dim, and a second call
+   at another split plan that must not read the first call's partials;
+   V-trace at the learner's shape, the sweep shapes, a ragged batch,
+   (1, 5) and (100, 16384), and T in {1, 31, 32, 33, 64, 65, 100, 1000} x
+   B in {1, 15, 16, 17, 31, 32, 33, 16391} in both layouts (time-major,
+   and the learner's transposed (B, T) sequences), with ratios below and
+   above the clips and discounts with zeros (max-abs error <= 1e-4 in
+   float32, <= 2e-2 in bfloat16); flash attention at the sweep shapes of
    ``tests/test_kernels.py`` in both dtypes with the three mask cases, a
    ragged length, rows past the last key and GQA, at one shared-
    attention site of the Zamba2 path (b 4, h 32, s 2048, d 64, causal,
@@ -36,7 +43,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    episodes each; launch counts are zeroed just before and read just
    after, and every decode batch must have launched the kernel once per
    layer;
-5. time each kernel, its plain version and, where one exists, one PyTorch
+5. time the launch floor (one ``add_(1)`` on a one-element tensor), then
+   each kernel, its plain version and, where one exists, one PyTorch
    library call for the same function, at the main paths' shapes, beside
    the least time the card could take: CUDA events over 200 calls, median
    of 5 (20 calls for flash attention and the SSD scan at the Zamba2
@@ -45,9 +53,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (with the host's per-call cost: ``eager_ms``).  Flash attention and the
    SSD scan also carry their tensor-core bound (``bound_tc_ms``: three
    TF32 passes at 495 TFLOP/s) and, for the SSD scan, the CUDA kernels one
-   call launches, counted by torch.profiler (``cuda_launches_per_call``);
-   flash attention fails the run if it is slower than
-   ``scaled_dot_product_attention`` on the same inputs;
+   call launches, counted by torch.profiler (``cuda_launches_per_call``,
+   also for decode attention and V-trace); decode attention is also timed
+   at a long cache (b 64, s 2048) and V-trace at shapes up to
+   (100, 65536), beyond L2, in both layouts; flash attention fails the run
+   if it is slower than ``scaled_dot_product_attention`` on the same
+   inputs, and decode attention at the long cache if it is slower than its
+   plain version or than ``scaled_dot_product_attention``;
 6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
    the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
    actor over a ``VectorEnv`` of 16 Catch envs in a
@@ -80,7 +92,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    card's kernels against the same weights on the CPU's plain versions.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
-a JSON ``kernels`` line, and ``{"ok": true, "device": {...}}``.
+a JSON ``kernels`` line (with the launch floor beside the kernels), and
+``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -133,7 +146,14 @@ IMPALA_MIN_LEARNER_STEPS = 20
 VTRACE_SHAPES = [("learner", 20, 16), ("sweep", 16, 128), ("sweep", 64, 256),
                  ("sweep", 100, 128), ("ragged", 20, 37), ("tiny", 1, 5),
                  ("large", 100, 16384)]
-VTRACE_TIMED = [(20, 16), (100, 256), (100, 16384)]
+# around the kernel's 32-row chunks and 32-column tiles and its 16-byte
+# copies, in both layouts (time-major, and the learner's batch-major views)
+VTRACE_T = [1, 31, 32, 33, 64, 65, 100, 1000]
+VTRACE_B = [1, 15, 16, 17, 31, 32, 33, 16391]
+# (T, B, batch_major): the learner's shape in its own layout first (the
+# kernel line's row), then beyond L2 (183 MB at B 65536)
+VTRACE_TIMED = [(20, 16, True), (20, 16, False), (100, 256, False),
+                (100, 16384, False), (100, 65536, False), (100, 65536, True)]
 
 # Zamba2-1.2B scoring (src/repro_torch/configs/zamba2_1_2b.py), full width
 # and depth, float32, random weights from SEED.
@@ -237,6 +257,16 @@ def time_ms(fn, warmup=20, launches=200, repeats=5, graph=True):
     return statistics.median(samples)
 
 
+def launch_floor(torch):
+    """The time of the least kernel the card runs: one ``add_(1)`` on a
+    one-element tensor, from a CUDA graph (device ms) and eager (host
+    ms), timed as every kernel is.  A kernel whose bound lies far below
+    this sits at its launch floor."""
+    x = torch.zeros(1, device="cuda")
+    return {"launch_floor_ms": time_ms(lambda: x.add_(1), graph=True),
+            "eager_launch_floor_ms": time_ms(lambda: x.add_(1), graph=False)}
+
+
 # ---------------------------------------------------------- decode attention
 def decode_inputs(b, h, kv, s, d, lengths, dtype, rng):
     import torch
@@ -256,8 +286,22 @@ def serve_lengths(b, s, rng):
     return lengths
 
 
-def decode_cases(rng):
-    """(label, b, h, kv, s, d, lengths) for phase 2."""
+def edge_lengths(b, s, keys_per_split, rng):
+    """Lengths at the split plan's edges: 0 (every key masked), inside the
+    first split, one short of, at and one past a split's end, s, 1, then
+    random ones."""
+    edges = [0, max(keys_per_split // 2, 1), keys_per_split - 1,
+             keys_per_split, keys_per_split + 1, s, 1]
+    lengths = np.asarray(edges + list(rng.randint(0, s + 1, b)), np.int64)
+    return np.clip(lengths[:b], 0, s + 1)
+
+
+def decode_cases(rng, plan_splits, head_dims):
+    """(label, b, h, kv, s, d, lengths) for phase 2: the serving shapes,
+    the sweep, ragged and masked rows; caches of one key, one tile and one
+    split and one key either side of them, and long ones over several
+    splits, with lengths at the splits' edges; 1 to 8 query heads a KV
+    head (12: two head blocks) at every head dim."""
     cases = []
     for b in (1, 8, 64):
         cases.append(("serve", b, 4, 2, 8, 64, serve_lengths(b, 8, rng)))
@@ -266,8 +310,16 @@ def decode_cases(rng):
         cases.append(("sweep", b, h, h, s, d, rng.randint(1, s + 1, b)))
     cases.append(("ragged", 4, 4, 2, 1000, 64, rng.randint(1, 1001, 4)))
     cases.append(("masked", 4, 4, 2, 64, 64, np.asarray([0, 64, 0, 10])))
-    cases.append(("head_dim", 2, 8, 2, 300, 16, rng.randint(1, 301, 2)))
-    cases.append(("head_dim", 2, 8, 2, 700, 256, rng.randint(1, 701, 2)))
+    for b, s in ((8, 1), (8, 63), (8, 64), (8, 65), (8, 127), (8, 128),
+                 (8, 129), (8, 2048), (8, 4096), (64, 447), (64, 448),
+                 (64, 449), (64, 2048)):
+        keys = plan_splits(b, 2, s, 64)[1]
+        cases.append(("split", b, 4, 2, s, 64, edge_lengths(b, s, keys, rng)))
+    for group in (1, 2, 4, 8, 12):
+        for d in head_dims:
+            keys = plan_splits(8, 2, 300, d)[1]
+            cases.append(("group", 8, 2 * group, 2, 300, d,
+                          edge_lengths(8, 300, keys, rng)))
     return cases
 
 
@@ -284,10 +336,11 @@ def decode_bound(b, h, kv, s, d, lengths, itemsize):
         "operations"
 
 
-def check_decode_attention(kernel, ref, torch):
+def check_decode_attention(kernel, ref, torch, plan_splits, head_dims):
     rng = np.random.RandomState(SEED)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for label, b, h, kv, s, d, lengths in decode_cases(rng):
+    for label, b, h, kv, s, d, lengths in decode_cases(rng, plan_splits,
+                                                       head_dims):
         for name, dtype in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             q, k, v, lens = decode_inputs(b, h, kv, s, d, lengths, dtype, rng)
@@ -300,16 +353,37 @@ def check_decode_attention(kernel, ref, torch):
                   f"decode_attention {label}: non-finite output")
             err = (out.float() - expected.float()).abs().max().item()
             worst[name] = max(worst[name], err)
-            log(f"  decode_attention {label:8s} b={b:<3d} h={h} kv={kv} "
-                f"s={s:<5d} d={d:<3d} {name:8s} max_abs_err={err:.3e}")
+            log(f"  decode_attention {label:8s} b={b:<3d} h={h:<2d} kv={kv} "
+                f"s={s:<5d} d={d:<3d} splits={plan_splits(b, kv, s, d)[0]:<3d}"
+                f" {name:8s} max_abs_err={err:.3e}")
             check(err <= TOL[name], f"decode_attention {label} {name}: "
                   f"max_abs_err {err} > {TOL[name]}")
+    # a second call at another split plan, on partials the allocator hands
+    # back, matches the plain version; the first call repeats exactly
+    big = decode_inputs(64, 4, 2, 2048, 64, rng.randint(0, 2049, 64),
+                        torch.float32, rng)
+    first = kernel(*big)
+    small = decode_inputs(4, 8, 2, 300, 32, edge_lengths(4, 300, 64, rng),
+                          torch.float32, rng)
+    err = (kernel(*small) - ref.decode_attention_ref(*small)).abs().max(
+        ).item()
+    again = kernel(*big)
+    torch.cuda.synchronize()
+    check(err <= TOL["float32"] and torch.equal(again, first),
+          f"decode_attention: a second call read stale partials ({err}) or "
+          f"the first call did not repeat")
+    log(f"  decode_attention second call at another split plan: "
+        f"max_abs_err={err:.3e}; the first call repeats exactly")
+    worst["float32"] = max(worst["float32"], err)
     return worst
 
 
-def time_decode_attention(kernel, ref, torch, b, s, lengths_value):
+def time_decode_attention(kernel, ref, torch, plan_splits, b, s,
+                          lengths_value):
     """Kernel, plain version and scaled_dot_product_attention (the library
-    yardstick, never called by the port) at the served head layout."""
+    yardstick, never called by the port) at the served head layout, and the
+    CUDA kernels one call launches, counted by torch.profiler: the split
+    plan's one, or two when it cuts the cache."""
     import torch.nn.functional as F
     h, kv, d = POLICY["num_heads"], POLICY["num_kv_heads"], POLICY["head_dim"]
     rng = np.random.RandomState(SEED + 1)
@@ -329,10 +403,27 @@ def time_decode_attention(kernel, ref, torch, b, s, lengths_value):
         "library_": lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True),
     }
+    splits = plan_splits(b, kv, s, d)[0]
     timed = {"shape": {"b": b, "h": h, "kv": kv, "s": s, "d": d,
-                       "lengths": int(lengths_value), "dtype": "float32"},
+                       "lengths": int(lengths_value), "dtype": "float32",
+                       "splits": splits},
              "max_abs_err_timed": err, "bound_ms": bound,
              "bound_by": bound_by}
+    launched = device_kernels(torch, calls[""])
+    if launched is None:
+        log("  decode_attention: the profiler recorded no device activity; "
+            "CUDA launches per call not measured")
+        timed["cuda_launches_per_call"] = None
+    else:
+        names = [name for name, _ in launched]
+        stages = ["decode_split_kernel"] + (
+            ["decode_combine_kernel"] if splits > 1 else [])
+        check(len(names) == len(stages)
+              and all(stage in name for name, stage in zip(names, stages)),
+              f"decode_attention: one call launched {names}, not {stages}")
+        timed["cuda_launches_per_call"] = len(launched)
+        timed["device_ms_by_kernel"] = {
+            stage: ms for stage, (_, ms) in zip(stages, launched)}
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
@@ -340,14 +431,21 @@ def time_decode_attention(kernel, ref, torch, b, s, lengths_value):
 
 
 # ------------------------------------------------------------------ V-trace
-def vtrace_inputs(T, B, rng):
-    """Time-major (T, B) f32 on the card: ratios below and above the clips,
-    discounts with zeros (episode ends)."""
+def vtrace_inputs(T, B, rng, batch_major=False):
+    """(T, B) f32 on the card: ratios below and above the clips, discounts
+    with zeros (episode ends).  Time-major, or with ``batch_major`` the
+    (T, B) transposes of contiguous (B, T) tensors, as the learner passes
+    its sequences."""
     import torch
     discounts = rng.rand(T, B) * 0.99
     discounts[rng.rand(T, B) < 0.1] = 0.0
     arrays = (rng.randn(T, B), rng.randn(T, B), rng.randn(T, B), discounts,
               np.abs(rng.randn(T, B)) + 0.1)
+    if batch_major:
+        return tuple(torch.as_tensor(np.ascontiguousarray(a.T),
+                                     dtype=torch.float32,
+                                     device="cuda").transpose(0, 1)
+                     for a in arrays)
     return tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
                  for a in arrays)
 
@@ -371,32 +469,58 @@ def vtrace_error(kernel, ref, inputs, clip_rho=1.0, clip_c=1.0):
 def check_vtrace(kernel, ref, torch):
     rng = np.random.RandomState(SEED + 3)
     worst = 0.0
-    for label, T, B in VTRACE_SHAPES:
-        inputs = vtrace_inputs(T, B, rng)
+    cases = [(label, T, B, False) for label, T, B in VTRACE_SHAPES] + [
+        ("edges", T, B, batch_major) for T in VTRACE_T for B in VTRACE_B
+        for batch_major in (False, True)]
+    edges = 0.0
+    for label, T, B, batch_major in cases:
+        inputs = vtrace_inputs(T, B, rng, batch_major)
         for clips in ((1.0, 1.0), (0.8, 1.5)):
             err, out = vtrace_error(kernel, ref, inputs, *clips)
             torch.cuda.synchronize()
-            check(all(o.shape == (T, B) and bool(torch.isfinite(o).all())
-                      for o in out), f"vtrace {label}: bad output")
+            layout_ok = all((o.transpose(0, 1) if batch_major else o
+                             ).is_contiguous() for o in out)
+            check(layout_ok and all(o.shape == (T, B)
+                                    and bool(torch.isfinite(o).all())
+                                    for o in out),
+                  f"vtrace {label} T={T} B={B} batch_major={batch_major}: "
+                  f"bad output")
             worst = max(worst, err)
-            log(f"  vtrace {label:8s} T={T:<3d} B={B:<5d} clips={clips} "
-                f"max_abs_err={err:.3e}")
-            check(err <= TOL["float32"], f"vtrace {label}: max_abs_err "
-                  f"{err} > {TOL['float32']}")
+            if label == "edges":
+                edges = max(edges, err)
+            else:
+                log(f"  vtrace {label:8s} T={T:<3d} B={B:<5d} clips={clips} "
+                    f"max_abs_err={err:.3e}")
+            check(err <= TOL["float32"], f"vtrace {label} T={T} B={B} "
+                  f"batch_major={batch_major}: max_abs_err {err} > "
+                  f"{TOL['float32']}")
+    log(f"  vtrace edges T in {VTRACE_T} x B in {VTRACE_B}, both layouts, "
+        f"both clips: max_abs_err={edges:.3e}")
     return worst
 
 
-def time_vtrace(kernel, ref, T, B):
+def time_vtrace(kernel, ref, torch, T, B, batch_major):
     """Kernel and plain version; no single PyTorch call computes a reverse
     linear recurrence, so there is no library yardstick."""
-    inputs = vtrace_inputs(T, B, np.random.RandomState(SEED + 4))
+    inputs = vtrace_inputs(T, B, np.random.RandomState(SEED + 4),
+                           batch_major)
     err, _ = vtrace_error(kernel, ref, inputs)
     bound, bound_by = vtrace_bound(T, B)
-    timed = {"shape": {"T": T, "B": B, "dtype": "float32"},
+    timed = {"shape": {"T": T, "B": B, "dtype": "float32",
+                       "layout": "batch-major views" if batch_major
+                       else "time-major"},
              "max_abs_err_timed": err, "bound_ms": bound,
              "bound_by": bound_by, "library_ms": None}
     calls = {"": lambda: kernel(*inputs),
              "plain_": lambda: ref.vtrace_ref(*inputs)}
+    launched = device_kernels(torch, calls[""])
+    if launched is None:
+        timed["cuda_launches_per_call"] = None
+    else:
+        names = [name for name, _ in launched]
+        check(len(names) == 1 and "vtrace_kernel" in names[0],
+              f"vtrace: one call launched {names}, not vtrace_kernel alone")
+        timed["cuda_launches_per_call"] = 1
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
@@ -696,7 +820,9 @@ def device_kernels(torch, fn):
     """The device kernels that one call of ``fn`` launches, in order, with
     their device times in ms, from torch.profiler's trace of the call
     (copies and fills are not kernels); None if the profiler recorded no
-    device activity."""
+    device activity.  A session can miss its first launches, so the
+    traced call follows a warm-up call and a marker kernel
+    (``torch.cuda._sleep``'s ``spin_kernel``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -704,12 +830,17 @@ def device_kernels(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    if not events:
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if not marks:
         return None
-    return [(e.name, e.device_time_total / 1e3) for e in events
+    return [(e.name, e.device_time_total / 1e3)
+            for e in events[marks[-1] + 1:]
             if not e.name.startswith(("Memcpy", "Memset"))]
 
 
@@ -1324,7 +1455,9 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     decode = decode_module.decode_attention
     vtrace = vtrace_module.vtrace
-    worst = check_decode_attention(decode, ref, torch)
+    plan_splits = decode_module.plan_splits
+    worst = check_decode_attention(decode, ref, torch, plan_splits,
+                                   decode_module.HEAD_DIMS)
     worst_vtrace = check_vtrace(vtrace, ref, torch)
     flash = flash_module.flash_attention
     ssd = ssd_module.ssd_scan
@@ -1341,18 +1474,31 @@ def main() -> int:
     path = serving_path(torch, policy_cfg, kernels)
 
     log("phase 5: timing at the main paths' shapes")
+    floor = launch_floor(torch)
+    log(f"  launch floor (one add_ on one element) {json.dumps(floor)}")
     stats = path["stats"]
     rows = _bucket(math.ceil(stats["decode_rows"] / stats["decode_batches"]))
-    timed = time_decode_attention(decode, ref, torch, rows,
+    timed = time_decode_attention(decode, ref, torch, plan_splits, rows,
                                   POLICY["window"], POLICY["window"])
-    log(f"  decode_attention {json.dumps(timed)}")
-    long_cache = time_decode_attention(decode, ref, torch, 64, 2048, 2048)
+    log(f"  decode_attention {json.dumps(timed)}; "
+        f"{timed['ms'] / floor['launch_floor_ms']:.2f}x the launch floor")
+    long_cache = time_decode_attention(decode, ref, torch, plan_splits, 64,
+                                       2048, 2048)
     log(f"  decode_attention, long cache (not on the main path) "
-        f"{json.dumps(long_cache)}")
+        f"{json.dumps(long_cache)}; "
+        f"{long_cache['bound_ms'] / long_cache['ms']:.3f} of its bound")
+    check(long_cache["ms"] <= long_cache["plain_ms"]
+          and long_cache["ms"] <= long_cache["library_ms"],
+          f"decode_attention at the long cache: {long_cache['ms']} ms, slower "
+          f"than its plain version ({long_cache['plain_ms']} ms) or "
+          f"scaled_dot_product_attention ({long_cache['library_ms']} ms)")
     vtrace_timed = {}
-    for T, B in VTRACE_TIMED:
-        vtrace_timed[(T, B)] = time_vtrace(vtrace, ref, T, B)
-        log(f"  vtrace {json.dumps(vtrace_timed[(T, B)])}")
+    for T, B, batch_major in VTRACE_TIMED:
+        entry = time_vtrace(vtrace, ref, torch, T, B, batch_major)
+        vtrace_timed[(T, B, batch_major)] = entry
+        log(f"  vtrace {json.dumps(entry)}; "
+            f"{entry['ms'] / floor['launch_floor_ms']:.2f}x the launch floor, "
+            f"{entry['bound_ms'] / entry['ms']:.3f} of its bound")
     flash_timed = time_flash(flash, ref, torch, zamba)
     log(f"  flash_attention {json.dumps(flash_timed)}")
     ssd_timed = time_ssd(ssd, ref, torch, zamba)
@@ -1388,7 +1534,12 @@ def main() -> int:
         "library_ms": timed["library_ms"], "eager_ms": timed["eager_ms"],
         "eager_plain_ms": timed["eager_plain_ms"],
         "eager_library_ms": timed["eager_library_ms"],
+        "cuda_launches_per_call": timed["cuda_launches_per_call"],
         "shape": timed["shape"],
+        "long_cache": {key: long_cache[key] for key in (
+            "shape", "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "cuda_launches_per_call", "device_ms_by_kernel",
+            "max_abs_err_timed") if key in long_cache},
     }, {
         "name": "vtrace", "route": "cuda",
         "source": kernels[1]["source"], "replaces": kernels[1]["replaces"],
@@ -1400,7 +1551,13 @@ def main() -> int:
         "bound_by": vtrace_main["bound_by"], "library_ms": None,
         "eager_ms": vtrace_main["eager_ms"],
         "eager_plain_ms": vtrace_main["eager_plain_ms"],
+        "cuda_launches_per_call": vtrace_main["cuda_launches_per_call"],
         "shape": vtrace_main["shape"],
+        "timed_shapes": [
+            {key: entry[key] for key in ("shape", "ms", "eager_ms",
+                                         "plain_ms", "bound_ms",
+                                         "max_abs_err_timed")}
+            for entry in vtrace_timed.values()],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": kernels[2]["source"], "replaces": kernels[2]["replaces"],
@@ -1432,7 +1589,7 @@ def main() -> int:
         "shape": ssd_timed["shape"],
     }]
     log(card_line())
-    log(json.dumps({"kernels": kernel_lines}))
+    log(json.dumps({"kernels": kernel_lines, **floor}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

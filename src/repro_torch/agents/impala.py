@@ -73,8 +73,9 @@ def params_from_jax(params, device="cuda"):
 
 
 def _time_major(x):
-    """(B, T) -> contiguous, detached (T, B), as the kernel takes it."""
-    return x.detach().transpose(0, 1).contiguous()
+    """(B, T) -> a detached (T, B) view, without a copy: the kernel reads
+    the transpose of a contiguous (B, T) tensor as it is."""
+    return x.detach().transpose(0, 1)
 
 
 def make_learner(spec: EnvironmentSpec, cfg: IMPALAConfig, iterator: Iterator,

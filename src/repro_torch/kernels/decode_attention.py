@@ -4,8 +4,10 @@
 
 The wrapper takes CUDA tensors only; ``ops.decode_attention`` sends CPU
 tensors to the plain version in ``ref.py``.  ``decode_attention.launches``
-counts the kernel's launches, so a run can show that its decode steps went
-through the kernel.
+counts the wrapper's calls that launched the kernel, so a run can show
+that its decode steps went through it.  A call is one CUDA launch, or two
+when ``plan_splits`` cuts the cache into several ranges (the second merges
+their partial results).
 """
 from __future__ import annotations
 
@@ -21,6 +23,25 @@ REPLACES = "src/repro/kernels/decode_attention.py:27"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 65535          # the grid's y extent
+TILE_ELEMS = 4096          # kTileElems in csrc/decode_attention.cu
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+TARGET_BLOCKS = 4 * SMS
+
+
+def plan_splits(b: int, kv: int, s: int, d: int):
+    """``(splits, keys_per_split)``: how the kernel cuts the cache axis.
+
+    From the shapes alone, never from ``lengths``, so a call adds no sync
+    with the device.  Each split is a whole number of key tiles
+    (``TILE_ELEMS // d`` keys), none is empty, and together they cover the
+    ``s`` keys.  When ``b * kv`` blocks already fill the card several times
+    over (``TARGET_BLOCKS``), or the cache is one tile, there is one split:
+    the serving shapes are one launch."""
+    tile = TILE_ELEMS // d
+    tiles = -(-s // tile)
+    wanted = -(-TARGET_BLOCKS // (b * kv))
+    per_split = -(-tiles // min(wanted, tiles))
+    return -(-tiles // per_split), per_split * tile
 
 
 class DecodeAttention:
@@ -37,7 +58,7 @@ class DecodeAttention:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_decode_attention
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
@@ -76,12 +97,19 @@ class DecodeAttention:
             raise ValueError("decode_attention: tensors must be contiguous")
 
         fn = self._kernel()
+        splits, keys_per_split = plan_splits(b, kv, s, d)
         out = torch.empty_like(q)
+        # the splits' partial (m, l) and accumulators, merged by the second
+        # launch; from the caching allocator, so a CUDA graph captures it
+        part = (torch.empty(splits * b * h * (d + 2), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), b, h, s, kv, d,
-                      _DTYPES[q.dtype], d ** -0.5, stream)
+                      lengths.data_ptr(), out.data_ptr(),
+                      part.data_ptr() if part is not None else None, b, h, s,
+                      kv, d, _DTYPES[q.dtype], splits, keys_per_split,
+                      d ** -0.5, stream)
         build.check(self._lib, code, "decode_attention launch")
         with self._lock:
             self.launches += 1

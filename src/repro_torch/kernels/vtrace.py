@@ -36,7 +36,7 @@ class VTrace:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_vtrace
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
@@ -44,8 +44,11 @@ class VTrace:
 
     def __call__(self, values, next_values, rewards, discounts, rhos,
                  clip_rho: float = 1.0, clip_c: float = 1.0):
-        """Five contiguous time-major (T, B) float32 CUDA tensors on one
-        device, T >= 1 and B >= 1.  Returns (vs, pg_adv), each (T, B)."""
+        """Five (T, B) float32 CUDA tensors on one device, T >= 1 and
+        B >= 1, in one layout: all contiguous (time-major), or all (T, B)
+        transposes of contiguous (B, T) tensors (batch-major, as the IMPALA
+        learner holds its sequences).  Returns (vs, pg_adv), each (T, B) in
+        the inputs' layout."""
         tensors = (values, next_values, rewards, discounts, rhos)
         if values.device.type != "cuda":
             raise ValueError(
@@ -62,21 +65,37 @@ class VTrace:
             raise ValueError(f"vtrace: bad shape (T, B) = {(T, B)}")
         if any(t.device != values.device for t in tensors):
             raise ValueError("vtrace: tensors on different devices")
-        if not all(t.is_contiguous() for t in tensors):
-            raise ValueError("vtrace: tensors must be contiguous")
+        batch_major = _layout(tensors)
 
         fn = self._kernel()
-        vs = torch.empty_like(values)
-        pg_adv = torch.empty_like(values)
+        vs, pg_adv = (torch.empty((B, T) if batch_major else (T, B),
+                                  dtype=torch.float32, device=values.device)
+                      for _ in range(2))
+        if batch_major:
+            vs, pg_adv = vs.transpose(0, 1), pg_adv.transpose(0, 1)
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream(values.device).cuda_stream
             code = fn(*(t.data_ptr() for t in tensors), vs.data_ptr(),
-                      pg_adv.data_ptr(), T, B, float(clip_rho),
-                      float(clip_c), stream)
+                      pg_adv.data_ptr(), T, B, int(batch_major),
+                      float(clip_rho), float(clip_c), stream)
         build.check(self._lib, code, "vtrace launch")
         with self._lock:
             self.launches += 1
         return vs, pg_adv
+
+
+def _layout(tensors) -> bool:
+    """Whether the five (T, B) tensors are batch-major (each the transpose
+    of a contiguous (B, T) tensor) rather than time-major (contiguous);
+    raises unless all five are one or the other."""
+    if all(t.is_contiguous() for t in tensors):
+        return False
+    if all(t.transpose(0, 1).is_contiguous() for t in tensors):
+        return True
+    raise ValueError(
+        "vtrace: the five inputs must share one layout, contiguous (T, B) or "
+        "the (T, B) transposes of contiguous (B, T) tensors; got strides "
+        f"{[t.stride() for t in tensors]}")
 
 
 vtrace = VTrace()

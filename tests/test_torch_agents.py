@@ -167,6 +167,29 @@ def test_learner_steps_match_reference(steps):
     assert int(port.state.steps) == int(ref.state.steps) == steps
 
 
+def test_learner_feeds_vtrace_views_without_copies(monkeypatch):
+    """The learner hands V-trace its five (B, T) sequences as (T, B)
+    transposed views, strides (1, T), with no copy; the kernel reads that
+    layout as it is."""
+    from repro_torch.kernels import ops, ref
+    cfg = impala.IMPALAConfig()
+    B, T = cfg.batch_size, cfg.sequence_length
+    seen = []
+
+    def spy(*inputs, clip_rho, clip_c):
+        seen.append(inputs)
+        return ref.vtrace_ref(*inputs, clip_rho=clip_rho, clip_c=clip_c)
+
+    monkeypatch.setattr(ops, "vtrace", spy)
+    _, port = _learners(cfg, 1)
+    port.step()
+    assert len(seen) == 1 and len(seen[0]) == 5
+    for x in seen[0]:
+        assert x.shape == (T, B) and x.stride() == (1, T)
+        assert x._is_view() and not x.requires_grad
+        assert x.transpose(0, 1).is_contiguous()
+
+
 def test_learner_contract():
     """One host copy per step carries the metrics and the step counter;
     get_variables hands out numpy; walltime accumulates."""

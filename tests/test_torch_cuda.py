@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import HEAD_DIMS, decode_attention
+from repro_torch.kernels.decode_attention import (HEAD_DIMS, decode_attention,
+                                                  plan_splits)
 from repro_torch.kernels.vtrace import vtrace
 from repro_torch.policies import PolicyEngine, TransformerPolicyConfig, network
 from repro_torch.policies.actors import _WindowBuffer
@@ -66,6 +67,73 @@ def test_kernel_matches_plain_version(cuda_device, b, h, kv, s, d, dtype):
     expected = ref.decode_attention_ref(q, k, v, lens)
     torch.testing.assert_close(out.float(), expected.float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _edge_lengths(b, s, keys_per_split, seed):
+    """Lengths at the split plan's edges: 0 (every key masked), inside the
+    first split, one short of, at and one past a split's end, s, 1, and
+    random ones after those."""
+    rng = np.random.RandomState(seed)
+    edges = [0, max(keys_per_split // 2, 1), keys_per_split - 1,
+             keys_per_split, keys_per_split + 1, s, 1]
+    lengths = np.asarray(edges + list(rng.randint(0, s + 1, b)), np.int64)
+    return np.clip(lengths[:b], 0, s + 1)
+
+
+def _check_decode(q, k, v, lens):
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    expected = ref.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(out.float(), expected.float(),
+                               atol=TOL[q.dtype], rtol=TOL[q.dtype])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(8, 1), (8, 63), (8, 64), (8, 65),
+                                 (8, 127), (8, 128), (8, 129), (8, 2048),
+                                 (8, 4096), (64, 447), (64, 448), (64, 449),
+                                 (64, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_split_edges_match_plain_version(cuda_device, b, s, dtype):
+    """Caches of one key, one tile and one split, one key either side of
+    them, and long ones cut into several splits; lengths at the splits'
+    edges, inside the first split and 0, so later splits are empty."""
+    _, keys = plan_splits(b, 2, s, 64)
+    q, k, v, lens = _inputs(b, 4, 2, s, 64, dtype, cuda_device,
+                            _edge_lengths(b, s, keys, seed=s))
+    _check_decode(q, k, v, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 12])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_groups_and_head_dims_match_plain_version(cuda_device, group,
+                                                         d, dtype):
+    """1 to 8 query heads a KV head in one block, 12 in two; every head
+    dim (16-byte rows of 2 bf16 chunks at d = 16); 300 keys over several
+    splits."""
+    b, kv, s = 8, 2, 300
+    _, keys = plan_splits(b, kv, s, d)
+    q, k, v, lens = _inputs(b, kv * group, kv, s, d, dtype, cuda_device,
+                            _edge_lengths(b, s, keys, seed=d + group))
+    _check_decode(q, k, v, lens)
+
+
+@pytest.mark.cuda
+def test_kernel_second_call_reads_no_stale_partials(cuda_device):
+    """A call at another split plan, on partials the allocator hands back,
+    matches the plain version, and the first call repeats exactly."""
+    big = _inputs(64, 4, 2, 2048, 64, torch.float32, cuda_device, seed=1)
+    first = _check_decode(*big)
+    small = _inputs(4, 8, 2, 300, 32, torch.float32, cuda_device,
+                    _edge_lengths(4, 300, 64, seed=2))
+    _check_decode(*small)
+    assert torch.equal(decode_attention(*big), first)
 
 
 @pytest.mark.cuda
@@ -120,18 +188,28 @@ def test_kernel_engine_matches_plain_engine(cuda_device):
 
 
 # ------------------------------------------------------------------ V-trace
-VTRACE_TOL = 1e-4      # f32; the kernel contracts to FMAs, the plain version not
+VTRACE_TOL = 1e-4      # f32, as in chip_smoke.py
 VTRACE_SHAPES = [(20, 16), (16, 128), (64, 256), (100, 128), (20, 37), (1, 5),
                  (100, 16384)]
+# around the kernel's 32-row chunks and 32-column tiles, and its 16-byte
+# copies (a multiple of 4 along the contiguous axis, or not)
+VTRACE_T = [1, 31, 32, 33, 64, 65, 100, 1000]
+VTRACE_B = [1, 15, 16, 17, 31, 32, 33, 16391]
 
 
-def _vtrace_inputs(T, B, device, seed=0):
-    """rhos below and above the clips, discounts with zeros (episode ends)."""
+def _vtrace_inputs(T, B, device, seed=0, batch_major=False):
+    """rhos below and above the clips, discounts with zeros (episode ends);
+    with ``batch_major``, (T, B) transposes of contiguous (B, T) tensors."""
     rng = np.random.RandomState(seed)
     discounts = rng.rand(T, B) * 0.99
     discounts[rng.rand(T, B) < 0.1] = 0.0
     arrays = (rng.randn(T, B), rng.randn(T, B), rng.randn(T, B), discounts,
               np.abs(rng.randn(T, B)) + 0.1)
+    if batch_major:
+        return tuple(torch.as_tensor(np.ascontiguousarray(a.T),
+                                     dtype=torch.float32,
+                                     device=device).transpose(0, 1)
+                     for a in arrays)
     return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                  for a in arrays)
 
@@ -153,6 +231,32 @@ def test_vtrace_kernel_matches_plain_version(cuda_device, T, B, clips):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", VTRACE_T)
+@pytest.mark.parametrize("B", VTRACE_B)
+@pytest.mark.parametrize("batch_major", [False, True])
+def test_vtrace_kernel_layouts_match_plain_version(cuda_device, T, B,
+                                                   batch_major):
+    """Both layouts (time-major, and the learner's transposed (B, T)
+    sequences), with both clip settings; the outputs come in the inputs'
+    layout."""
+    tensors = _vtrace_inputs(T, B, cuda_device, seed=T * B,
+                             batch_major=batch_major)
+    for clips in ((1.0, 1.0), (0.8, 1.5)):
+        vs, adv = vtrace(*tensors, *clips)
+        torch.cuda.synchronize()
+        vs_ref, adv_ref = ref.vtrace_ref(*tensors, clip_rho=clips[0],
+                                         clip_c=clips[1])
+        torch.testing.assert_close(vs, vs_ref, atol=VTRACE_TOL,
+                                   rtol=VTRACE_TOL)
+        torch.testing.assert_close(adv, adv_ref, atol=VTRACE_TOL,
+                                   rtol=VTRACE_TOL)
+        for out in (vs, adv):
+            assert out.shape == (T, B)
+            assert (out.transpose(0, 1) if batch_major else out
+                    ).is_contiguous()
+
+
+@pytest.mark.cuda
 def test_vtrace_ops_launches_on_cuda_tensors(cuda_device):
     tensors = _vtrace_inputs(20, 16, cuda_device)
     before = vtrace.launches
@@ -166,8 +270,12 @@ def test_vtrace_kernel_rejects_unsupported_inputs(cuda_device):
     before = vtrace.launches
     with pytest.raises(ValueError, match="float32"):
         vtrace(tensors[0].bfloat16(), *tensors[1:])
-    with pytest.raises(ValueError, match="contiguous"):
-        vtrace(*(t.t().contiguous().t() for t in tensors))
+    # not dense along either axis
+    with pytest.raises(ValueError, match="layout"):
+        vtrace(*(t[:, ::2] for t in tensors))
+    # the two layouts mixed
+    with pytest.raises(ValueError, match="layout"):
+        vtrace(tensors[0].t().contiguous().t(), *tensors[1:])
     with pytest.raises(ValueError, match="shape"):
         vtrace(tensors[0][:, :3].contiguous(), *tensors[1:])
     with pytest.raises(ValueError, match="shape"):

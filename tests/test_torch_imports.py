@@ -76,7 +76,8 @@ def _imported_roots(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
-                            ROOT / "scripts" / "tensor_core_probe.py"],
+                            ROOT / "scripts" / "tensor_core_probe.py",
+                            ROOT / "scripts" / "latency_probe.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     roots = set(_imported_roots(path))

@@ -11,8 +11,10 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (DecodeAttention,
-                                                  decode_attention)
+from repro_torch.kernels.decode_attention import (TARGET_BLOCKS, TILE_ELEMS,
+                                                  DecodeAttention,
+                                                  decode_attention,
+                                                  plan_splits)
 from repro_torch.models import attention
 
 RNG = np.random.RandomState(42)
@@ -123,6 +125,129 @@ def test_decode_ref_ragged_cache_and_fully_masked_rows(s):
     assert torch.isfinite(out).all()
 
 
+# ================================================= the kernel's split plan
+@pytest.mark.parametrize("b,kv,s,d,splits", [
+    # the serving shapes (fig17's policy, up to 64 rows): one launch
+    (1, 2, 8, 64, 1), (16, 2, 8, 64, 1), (64, 2, 8, 64, 1),
+    (1, 1, 1, 64, 1),                     # one key
+    (64, 2, 2048, 64, 5),                 # the long cache
+    (64, 2, 4096, 64, 5),
+    (4, 2, 1000, 64, 16),                 # s not a multiple of the tile
+    (2, 2, 700, 256, 44),
+    (2, 8, 4096, 128, 32),
+    (1, 1, 100_000, 64, 521),
+    (1024, 2, 2048, 64, 1),               # b x kv fills the card alone
+])
+def test_plan_splits_covers_the_cache_in_whole_tiles(b, kv, s, d, splits):
+    """From shapes alone: whole key tiles a split, none empty, together
+    covering s; blocks enough to fill the card twice over or more (a tile
+    a split when the cache is short), or one split when the rows alone
+    reach the target or the cache is one tile."""
+    got, keys = plan_splits(b, kv, s, d)
+    tile = TILE_ELEMS // d
+    assert got == splits
+    assert keys % tile == 0 and keys >= tile
+    assert (got - 1) * keys < s <= got * keys
+    tiles = -(-s // tile)
+    if b * kv >= TARGET_BLOCKS or tiles == 1:
+        assert got == 1
+    else:   # a tile a split, or at least half the target's blocks
+        assert b * kv * got >= min(TARGET_BLOCKS // 2, b * kv * tiles)
+
+
+def _split_decode(q, k, v, lengths, splits, keys_per_split, warps=4):
+    """The kernel's algorithm in f32 torch ops: each split streams its key
+    range in tiles, each tile cut among ``warps`` online softmaxes (spread
+    evenly when the tile is short), the warps merged, then the splits'
+    partials (m, l, acc) merged by m* = max m_i, out = sum e^(m_i - m*)
+    acc_i / max(sum e^(m_i - m*) l_i, 1e-30).  A split past the valid
+    prefix is the empty partial (-1e30, 0, 0)."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    group, tile = h // kv, TILE_ELEMS // d
+    q, k, v = q.float(), k.float(), v.float()
+    out = torch.empty(b, h, d)
+    for row in range(b):
+        length = int(lengths[row])
+        masked = length < 1
+        n_keys = s if masked else min(length, s)
+        for head in range(h):
+            kvh = head // group
+            parts = []
+            for split in range(splits):
+                begin = split * keys_per_split
+                end = min(begin + keys_per_split, n_keys)
+                states = [(torch.tensor(-1e30), torch.tensor(0.0),
+                           torch.zeros(d)) for _ in range(warps)]
+                for key0 in range(begin, end, tile):
+                    tile_len = min(tile, end - key0)
+                    per_warp = -(-tile_len // warps)
+                    for w in range(warps):
+                        j0 = key0 + w * per_warp
+                        j1 = min(j0 + per_warp, key0 + tile_len)
+                        if j1 <= j0:
+                            continue
+                        keys = slice(j0, j1)
+                        sc = (k[row, keys, kvh] @ q[row, head]) * d ** -0.5
+                        if masked:
+                            sc = torch.full_like(sc, -1e30)
+                        m, l, acc = states[w]
+                        m_new = torch.maximum(m, sc.max())
+                        a = torch.exp(m - m_new)
+                        p = torch.exp(sc - m_new)
+                        states[w] = (m_new, l * a + p.sum(),
+                                     acc * a + p @ v[row, keys, kvh])
+                parts.append(_merge(states))
+            m, l, acc = _merge(parts)
+            out[row, head] = acc / torch.clamp(l, min=1e-30)
+    return out
+
+
+def _merge(states):
+    """(m*, sum e^(m_i - m*) l_i, sum e^(m_i - m*) acc_i)."""
+    m = torch.stack([st[0] for st in states]).max()
+    weights = [torch.exp(st[0] - m) for st in states]
+    return (m, sum(w * st[1] for w, st in zip(weights, states)),
+            sum(w * st[2] for w, st in zip(weights, states)))
+
+
+@pytest.mark.parametrize("s,lengths", [
+    # b 8 x kv 2 rows: 64-key splits, the last one ragged
+    (300, [0, 30, 64, 65, 63, 128, 300, 1]),
+    (300, [0, 0, 0, 0, 0, 0, 0, 0]),
+    # one 64-key tile
+    (8, [8, 1, 0, 5, 8, 8, 3, 0]),
+    (65, [65, 64, 0, 1, 2, 33, 64, 10]),
+])
+def test_split_partials_and_combine_match_the_oracles(s, lengths):
+    """Per-split partials and their merge (the kernel's two launches),
+    emulated on the CPU, against the plain version and the JAX oracle:
+    lengths inside the first split, at split edges, past s's last tile and
+    0 (the mean of V; every split non-empty then, all at m = -1e30)."""
+    b, h, kv, d = 8, 4, 2, 64
+    splits, keys = plan_splits(b, kv, s, d)
+    arrays = _inputs(b, h, kv, s, d, lengths)
+    q, k, v, lens = _torch(arrays, "float32")
+    out = _split_decode(q, k, v, lens, splits, keys)
+    expected = ref.decode_attention_ref(q, k, v, lens)
+    np.testing.assert_allclose(out.numpy(), expected.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    oracle = jax_ref.decode_attention_ref(*_jax(arrays, "float32",
+                                                repeat=h // kv))
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle), atol=1e-5,
+                               rtol=1e-5)
+    assert torch.isfinite(out).all()
+
+
+def test_split_emulation_exercises_several_splits_and_empty_ones():
+    """The shapes above really cut the cache: several splits, some of them
+    past a row's valid prefix."""
+    splits, keys = plan_splits(8, 2, 300, 64)
+    assert splits == 5 and keys == 64
+    assert plan_splits(8, 2, 65, 64) == (2, 64)
+    assert plan_splits(8, 2, 8, 64) == (1, 64)
+
+
 # ============================================================ dispatch rules
 def test_cpu_tensors_take_the_plain_version_without_launching():
     arrays = _torch(_inputs(2, 4, 2, 16, 32), "float32")
@@ -202,6 +327,21 @@ def test_vtrace_ref_ragged_batch_matches_jax_oracle(T, B):
     arrays = _vtrace_inputs(T, B, seed=B)
     out = ref.vtrace_ref(*map(torch.as_tensor, arrays))
     _assert_vtrace_close(out, jax_ref.vtrace_ref(*map(jnp.asarray, arrays)))
+
+
+@pytest.mark.parametrize("T,B", [(20, 16), (33, 31), (1, 5), (64, 1)])
+def test_vtrace_ref_on_batch_major_views_equals_contiguous_copies(T, B):
+    """The IMPALA learner passes the (T, B) transposes of its (B, T)
+    sequences; the plain version gives the same bits on them as on
+    contiguous copies."""
+    arrays = _vtrace_inputs(T, B, seed=T + B)
+    views = tuple(torch.as_tensor(np.ascontiguousarray(a.T)).transpose(0, 1)
+                  for a in arrays)
+    assert all(x.stride() == (1, T) for x in views if T > 1 and B > 1)
+    copies = tuple(x.contiguous() for x in views)
+    for a, e in zip(ref.vtrace_ref(*views, clip_rho=0.8, clip_c=1.5),
+                    ref.vtrace_ref(*copies, clip_rho=0.8, clip_c=1.5)):
+        np.testing.assert_array_equal(a.numpy(), e.numpy())
 
 
 def test_vtrace_cpu_tensors_take_the_plain_version_without_launching():
@@ -501,3 +641,28 @@ def test_tensor_core_probe_variants_edit_the_committed_sources(monkeypatch):
             assert f"{kernel}.cu" in texts
             assert any(text != (csrc / file).read_text()
                        for file, text in texts.items()), (kernel, name)
+
+
+def test_latency_probe_variants_edit_the_committed_sources(monkeypatch):
+    """Each variant of ``scripts/latency_probe.py`` (decode attention and
+    V-trace with clock64() marks, a phase run twice, or a part taken out,
+    timed on the card) still finds every text it edits in the committed
+    sources, exactly once, and changes them."""
+    import importlib.util
+    import pathlib
+    import sys
+    monkeypatch.setattr(sys, "path", list(sys.path))  # the script adds to it
+    path = (pathlib.Path(__file__).resolve().parents[1] / "scripts"
+            / "latency_probe.py")
+    spec = importlib.util.spec_from_file_location("latency_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    for kernel, variants in probe.VARIANTS.items():
+        committed = (probe.build.CSRC / f"{kernel}.cu").read_text()
+        for name in variants:
+            text = probe.variant_sources(kernel, name)[f"{kernel}.cu"]
+            assert text != committed, (kernel, name)
+            marks = probe.MARKS.get((kernel, name))
+            if marks is not None:   # one mark per span's end, and the start
+                assert all(f"PROBE_MARK({i})" in text
+                           for i in range(len(marks))), (kernel, name)
