@@ -89,7 +89,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    their plain versions (last logits within 1e-4 of the largest plain
    |logit|; equal greedy actions wherever the plain top-2 margin exceeds
    twice that), and, by the same rule, a reduced Zamba2 with a tail on the
-   card's kernels against the same weights on the CPU's plain versions.
+   card's kernels against the same weights on the CPU's plain versions;
+11. the DQN path: ``repro_torch.experiments.run_experiment`` with
+   examples/quickstart.py's config (DQN, hidden 64, dueling, Adam 1e-3,
+   prioritized replay, batch 32, n-step 1, epsilon 0.2; Catch, seed 1, 250
+   episodes, an eval of 20 episodes every 50) on the card, telemetry on;
+   launch counts are zeroed just before and read just after, and must stay
+   0 (the path runs none of the four kernels); the mean of the last 50
+   train returns must be > 0 (the quickstart's acceptance) and the final
+   eval must beat the mean of the first 20 (scripts/ci.sh's); prints env
+   steps/s, learner steps, the learner step's p50/p95 and the wall time,
+   then profiles a 20-episode run of the same config for the device's idle
+   share;
+12. the DQN learner on the card against the same learner on the CPU, from
+   the same init on the same 10 replay batches: losses, |td| priorities,
+   params, target params and Adam moments within 1e-5 of the CPU's largest
+   magnitude per leaf, and each card step syncs with the device once;
+   then a learner step and an acting call on the card, each timed over 50
+   calls and traced for the kernels and copies a call launches and the
+   device's busy time a call;
+13. gradients through the kernels: the grads of a ``q_sequence`` loss over
+   the phase-3 policy's params, and of a reduced Zamba2's logits (7 Mamba2
+   layers, 3 shared-attention sites, d_model 256, 2 x 512 tokens, f32),
+   with flash attention and the SSD scan on their autograd Functions
+   (kernel forward, plain-recompute backward) against the same calls on
+   the plain route; every leaf gets a grad within 1e-4 of the plain
+   grad's largest magnitude; counts zeroed before and read after each, one
+   flash launch per site and one SSD launch per layer; then the
+   backward's time beside the forward kernel's at the scoring path's
+   shapes.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line (with the launch floor beside the kernels), and
@@ -170,6 +198,26 @@ ZAMBA_TIMED_STEPS = 20
 ZAMBA_LOGIT_REL_TOL = 1e-4
 REDUCED_TOL = 1e-4        # the same rule: reduced Zamba2, card vs CPU
 # flash attention, phase 2: (label, b, h, kv, sq, sk, d) x masks x dtypes
+# DQN on Catch: examples/quickstart.py's config (seed 1, 250 episodes, an
+# eval of 20 episodes every 50), through run_experiment on the card.
+DQN_QUICKSTART = dict(min_replay_size=50, samples_per_insert=0.0,
+                      batch_size=32, n_step=1, epsilon=0.2)
+DQN_EPISODES = 250
+DQN_PROFILED_EPISODES = 20
+DQN_PROFILED_STEPS = 50
+# the card learner against the CPU learner after 10 steps, max |d| over
+# the CPU's largest magnitude per leaf (TF32 off: the same f32 math in
+# another summation order)
+DQN_TOL = 1e-5
+# Gradients through the kernels against the plain route's: max |d| over the
+# plain gradient's largest magnitude per leaf, at the kernels' f32
+# tolerance (the forward outputs differ by up to 1e-4; the backward is the
+# plain version's).
+GRAD_TOL = 1e-4
+GRAD_POLICY_BATCH = 64
+GRAD_ZAMBA = dict(num_layers=7, hybrid_attn_every=2)
+GRAD_ZAMBA_TOKENS = (2, 512)
+
 FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
                ("sweep", 2, 2, 2, 256, 256, 64),
                ("sweep", 1, 4, 4, 256, 512, 128),
@@ -1406,6 +1454,461 @@ def zamba2_parity(torch, cfg, path):
     return full, reduced
 
 
+# ------------------------------------------------------------- DQN on Catch
+def dqn_quickstart_config(num_episodes=DQN_EPISODES, eval_every=50,
+                          eval_episodes=20):
+    from repro_torch.agents.dqn import DQNBuilder, DQNConfig
+    from repro_torch.envs import Catch
+    from repro_torch.experiments import ExperimentConfig
+    return ExperimentConfig(
+        builder_factory=lambda spec: DQNBuilder(
+            spec, DQNConfig(**DQN_QUICKSTART), seed=0, device="cuda"),
+        environment_factory=lambda seed: Catch(seed=seed),
+        seed=1, num_episodes=num_episodes, eval_every=eval_every,
+        eval_episodes=eval_episodes, telemetry=True)
+
+
+def dqn_profile(torch):
+    """A short run of the same config under torch.profiler: the device's
+    busy time against the run's wall time, and the kernels it ran most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiments import run_experiment
+    from repro_torch.telemetry import registry as telemetry
+    config = dqn_quickstart_config(num_episodes=DQN_PROFILED_EPISODES,
+                                   eval_every=0, eval_episodes=0)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            result = run_experiment(config)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        telemetry.unconfigure()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if device_ms == 0:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"  profiled run of {DQN_PROFILED_EPISODES} episodes "
+        f"({result.learner_steps} learner steps, under the profiler): wall "
+        f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms, idle share "
+        f"{1 - device_ms / wall_ms:.4f}")
+    for e in top:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / wall_ms,
+            "learner_steps": result.learner_steps}
+
+
+def dqn_path(torch, kernels):
+    """run_experiment with the quickstart's DQN config on the card (seed 1,
+    250 episodes, an eval every 50), held to the quickstart's acceptance
+    and to scripts/ci.sh's; this path runs none of the four kernels, so
+    every count must stay 0."""
+    from repro_torch import tree
+    from repro_torch.experiments import run_experiment
+    from repro_torch.telemetry import registry as telemetry
+
+    config = dqn_quickstart_config()
+    try:
+        for kernel in kernels:
+            kernel["wrapper"].launches = 0
+        t0 = time.monotonic()
+        result = run_experiment(config)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    finally:
+        telemetry.unconfigure()
+    learner = result.learner
+    env_steps = result.actor_steps[-1]
+    step_ms = result.extras["telemetry"]["merged"].get("learner/step_ms", {})
+    last50 = float(np.mean(result.train_returns[-50:]))
+    first20 = float(np.mean(result.train_returns[:20]))
+    final = result.final_eval_return
+    log(f"  {len(result.train_returns)} episodes, {env_steps} env steps, "
+        f"{result.learner_steps} learner steps in {seconds:.3f} s: "
+        f"{env_steps / seconds:.1f} env steps/s, "
+        f"{result.learner_steps / seconds:.1f} learner steps/s; learner "
+        f"walltime {learner.learner_walltime:.3f} s")
+    log(f"  learner step host time (ms): p50={step_ms.get('p50', 0):.3f} "
+        f"p95={step_ms.get('p95', 0):.3f} count={step_ms.get('count')}; "
+        f"launches={launches}")
+    log(f"  evals {[(s, r) for s, r in result.eval_returns]}; train return "
+        f"mean of the last 50 {last50:.3f}, of the first 20 {first20:.3f}")
+    check(all(n == 0 for n in launches.values()),
+          f"DQN path launched a kernel of another slice: {launches}")
+    check(step_ms.get("count") == result.learner_steps > 0,
+          f"DQN path: {step_ms.get('count')} step times for "
+          f"{result.learner_steps} learner steps")
+    check(all(t.device.type == "cuda"
+              for t in tree.leaves(learner.state)),
+          "DQN path: the learner's state is not on the card")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tree.leaves(learner.state.params)),
+          "DQN path: non-finite params")
+    check(last50 > 0, f"DQN path (quickstart acceptance): the mean of the "
+          f"last 50 train returns is {last50}, not > 0")
+    check(final is not None and final > first20,
+          f"DQN path (ci acceptance): final eval {final} does not beat the "
+          f"mean of the first 20 train returns {first20}")
+    return {"launches": launches, "episodes": len(result.train_returns),
+            "env_steps": env_steps, "learner_steps": result.learner_steps,
+            "seconds": seconds, "env_steps_per_s": env_steps / seconds,
+            "learner_steps_per_s": result.learner_steps / seconds,
+            "learner_walltime_s": learner.learner_walltime,
+            "learner_step_ms_p50": step_ms.get("p50"),
+            "learner_step_ms_p95": step_ms.get("p95"),
+            "last50": last50, "first20": first20, "final_eval": final,
+            "evals": result.eval_returns}
+
+
+def dqn_batches(count):
+    """Replay batches as the quickstart's table serves them: n-step-1
+    Catch transitions (boards, actions, rewards at episode ends, discount
+    0 there), keys and sampling probabilities."""
+    from repro_torch.core.types import Transition
+    from repro_torch.replay import ReplaySample, SampleInfo
+    batch = DQN_QUICKSTART["batch_size"]
+    rng = np.random.RandomState(SEED)
+    rows = np.arange(batch)
+    out = []
+    for i in range(count):
+        boards = []
+        for _ in range(2):
+            obs = np.zeros((batch, *OBS_SHAPE), np.float32)
+            obs[rows, rng.randint(0, 9, batch), rng.randint(0, 5, batch)] = 1
+            obs[rows, 9, rng.randint(0, 5, batch)] = 1
+            boards.append(obs)
+        ended = rng.rand(batch) < 0.12
+        data = Transition(
+            boards[0], rng.randint(0, NUM_ACTIONS, batch).astype(np.int32),
+            np.where(ended, rng.choice([-1.0, 1.0], batch), 0.0
+                     ).astype(np.float32),
+            np.where(ended, 0.0, 1.0).astype(np.float32), boards[1], ())
+        out.append(ReplaySample(SampleInfo(
+            np.arange(batch, dtype=np.int64) + i * batch,
+            rng.rand(batch) * 1e-3 + 1e-4), data))
+    return out
+
+
+def dqn_learner_parity(torch):
+    """The quickstart's learner on the card and on the CPU, from the same
+    init (a CPU generator) on the same 10 batches: losses, |td| priorities,
+    params, target params and Adam moments within DQN_TOL of the CPU's
+    largest magnitude per leaf; each card step syncs with the device once."""
+    from repro_torch import tree
+    from repro_torch.agents import dqn
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+
+    cfg = dqn.DQNConfig(**DQN_QUICKSTART)
+    spec = make_environment_spec(Catch())
+    batches = dqn_batches(10)
+    devices = {"card": "cuda", "cpu": "cpu"}
+    priorities = {label: [] for label in devices}
+    learners = {label: dqn.make_learner(
+        spec, cfg, iter(batches), torch.Generator().manual_seed(SEED),
+        priority_update_cb=lambda k, p, label=label:
+        priorities[label].append(p), device=device)
+        for label, device in devices.items()}
+    syncs, losses = [], []
+    for _ in batches:
+        syncs.append(sync_count(torch, learners["card"].step))
+        learners["cpu"].step()
+        losses.append((learners["card"].metrics["loss"],
+                       learners["cpu"].metrics["loss"]))
+    log(f"  device syncs per card learner step: {syncs}")
+    check(all(n == 1 for n in syncs), f"DQN learner parity: a card step "
+          f"synced {syncs} times; its one host copy should be its only sync")
+
+    def rel(a, b):
+        b = np.asarray(b, np.float64)
+        return float(np.abs(np.asarray(a, np.float64) - b).max()
+                     / max(np.abs(b).max(), 1e-30))
+
+    card, cpu = learners["card"].state, learners["cpu"].state
+    worst = {"loss": max(rel(a, b) for a, b in losses),
+             "priorities": max(rel(a, b) for a, b in
+                               zip(priorities["card"], priorities["cpu"]))}
+    for name, a, b in (
+            ("params", card.params, cpu.params),
+            ("target_params", card.target_params, cpu.target_params),
+            ("mu", card.opt_state.mu, cpu.opt_state.mu),
+            ("nu", card.opt_state.nu, cpu.opt_state.nu)):
+        worst[name] = max(rel(x.cpu().numpy(), y.numpy()) for x, y in
+                          zip(tree.leaves(a), tree.leaves(b)))
+    log(f"  card vs CPU over {len(batches)} steps, max |d| / max |cpu| "
+        f"per leaf: {json.dumps(worst)}; last loss {losses[-1][0]:.8f} vs "
+        f"{losses[-1][1]:.8f}")
+    check(len(priorities["card"]) == len(batches),
+          "DQN learner parity: priorities not sent once per step")
+    check(max(worst.values()) <= DQN_TOL,
+          f"DQN learner parity: {worst} > {DQN_TOL}")
+    check(int(card.steps) == int(cpu.steps) == len(batches),
+          "DQN learner parity: step counters")
+    return {"syncs": syncs, "max_rel_err": worst}
+
+
+def dqn_step_profile(torch, steps=DQN_PROFILED_STEPS):
+    """Where the DQN path's time goes, on the card: a learner step (after
+    10 warm-up steps) and an acting call (the behaviour policy on one
+    observation, as ``FeedForwardActor`` makes it: upload, forward, draws,
+    copy back), each timed on the host clock over ``steps`` calls, then
+    traced by torch.profiler for the device kernels and copies a call
+    launches and the device's busy time a call."""
+    import itertools
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.agents import dqn
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+
+    cfg = dqn.DQNConfig(**DQN_QUICKSTART)
+    spec = make_environment_spec(Catch())
+    learner = dqn.make_learner(
+        spec, cfg, itertools.cycle(dqn_batches(10)),
+        torch.Generator().manual_seed(SEED),
+        priority_update_cb=lambda keys, priorities: None, device="cuda")
+    policy = dqn.make_behavior_policy(spec, cfg)
+    generator = torch.Generator(device="cuda")
+    obs = np.zeros((1, *OBS_SHAPE), np.float32)
+
+    def act():
+        generator.manual_seed(SEED)
+        policy(learner.state.params, generator,
+               torch.as_tensor(obs, device="cuda")).cpu()
+
+    out = {}
+    for name, fn in (("learner_step", learner.step), ("act", act)):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.monotonic() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = [e for e in events
+                  if e.name.startswith(("Memcpy", "Memset"))]
+        busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
+        out[name] = {"host_ms": host_ms,
+                     "kernels": (len(events) - len(copies)) / steps,
+                     "copies": len(copies) / steps,
+                     "device_busy_ms": busy_ms}
+        log(f"  {name}: {host_ms:.3f} ms a call on the host clock; per "
+            f"call {out[name]['kernels']:.1f} device kernels and "
+            f"{out[name]['copies']:.1f} copies, device busy {busy_ms:.4f} "
+            f"ms ({steps} traced calls)")
+    return out
+
+
+# ------------------------------------------- gradients through the kernels
+def param_grads(torch, params, loss_fn):
+    """Every leaf's gradient of ``loss_fn(params)`` (autograd.grad raises
+    if a leaf gets none)."""
+    from repro_torch import tree
+    leaves, treedef = tree.flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    grads = torch.autograd.grad(loss_fn(tree.unflatten(treedef, leaves)),
+                                leaves)
+    check(all(g is not None for g in grads), "a parameter got no gradient")
+    return grads
+
+
+def grad_errors(torch, grads, plain, what):
+    """Max over leaves of max |d| / (max |plain| + 1e-30), checked against
+    GRAD_TOL; every gradient finite."""
+    worst = 0.0
+    for g, p in zip(grads, plain):
+        check(bool(torch.isfinite(g).all()), f"{what}: a non-finite grad")
+        worst = max(worst, ((g - p).abs().max()
+                            / (p.abs().max() + 1e-30)).item())
+    check(worst <= GRAD_TOL, f"{what}: grads differ from the plain route's "
+          f"by {worst} of their largest magnitude > {GRAD_TOL}")
+    return worst
+
+
+def plain_route():
+    """ops.flash_attention and ops.ssd_scan patched to their plain
+    versions (the gradients' reference)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+
+    def ssd(x, dt, A, B, C, *, chunk=256, h0=None):
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk, h0=h0)
+    return (mock.patch.object(ops, "flash_attention",
+                              ref.flash_attention_ref),
+            mock.patch.object(ops, "ssd_scan", ssd))
+
+
+def time_backward(torch, fn, inputs, repeats=3):
+    """Eager ms of the forward with grad on, of its backward, and of the
+    plain route's forward + backward (CUDA events, median of ``repeats``
+    after one warm-up)."""
+    outs = fn(*inputs)
+    weights = [torch.randn_like(o) for o in
+               (outs if isinstance(outs, tuple) else (outs,))]
+    del outs
+
+    def run(times):
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
+        outs = fn(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        mid.record()
+        torch.autograd.grad(outs, inputs, weights)
+        end.record()
+        end.synchronize()
+        times.append((start.elapsed_time(mid), mid.elapsed_time(end)))
+
+    warm = []
+    run(warm)
+    times = []
+    for _ in range(repeats):
+        run(times)
+    return (statistics.median(t[0] for t in times),
+            statistics.median(t[1] for t in times))
+
+
+def kernel_grads(torch, kernels, zamba):
+    """Phase 13: the grads of a q_sequence loss over the fig17 serving
+    policy's params, and of a reduced Zamba2's logits loss, with flash
+    attention and the SSD scan on their kernels (the autograd Functions:
+    kernel forward, plain-recompute backward) against the same calls on
+    the plain route; then the backward's time beside the forward kernel's
+    at the scoring path's shapes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers, transformer
+    from repro_torch.policies import TransformerPolicyConfig, network
+
+    out = {}
+    cfg = TransformerPolicyConfig(**POLICY, epsilon=0.0)
+    arch = network.make_arch(cfg, NUM_ACTIONS)
+    obs_dim = int(np.prod(OBS_SHAPE))
+    params = network.init(torch.Generator().manual_seed(SEED), arch, obs_dim,
+                          NUM_ACTIONS, device="cuda")
+    rng = np.random.RandomState(SEED + 13)
+    obs = torch.as_tensor(rng.rand(GRAD_POLICY_BATCH, POLICY["window"],
+                                   obs_dim) < 0.04,
+                          dtype=torch.float32, device="cuda")
+    weights = torch.as_tensor(rng.randn(GRAD_POLICY_BATCH, POLICY["window"],
+                                        NUM_ACTIONS),
+                              dtype=torch.float32, device="cuda")
+
+    def policy_loss(p):
+        return (network.q_sequence(p, arch, obs) * weights).sum()
+
+    for kernel in kernels:
+        kernel["wrapper"].launches = 0
+    grads = param_grads(torch, params, policy_loss)
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    flash_route, ssd_route = plain_route()
+    with flash_route:
+        plain = param_grads(torch, params, policy_loss)
+    err = grad_errors(torch, grads, plain, "q_sequence grads")
+    log(f"  q_sequence (fig17 policy, {GRAD_POLICY_BATCH} windows of "
+        f"{POLICY['window']}): {len(grads)} leaves, launches {launches}; "
+        f"max |d grad| / max |plain grad| = {err:.3e} (tol {GRAD_TOL})")
+    check(launches["flash_attention"] == arch.num_layers
+          and launches["ssd_scan"] == 0,
+          f"q_sequence grads: launches {launches}, expected flash "
+          f"attention once per layer ({arch.num_layers})")
+    out["q_sequence"] = {"leaves": len(grads), "launches": launches,
+                         "max_rel_err": err}
+
+    small = dataclasses.replace(configs.reduced(zamba), **GRAD_ZAMBA)
+    params = transformer.init(torch.Generator().manual_seed(SEED), small,
+                              device="cuda")
+    tokens = rng.randint(0, small.vocab_size, GRAD_ZAMBA_TOKENS)
+    weights = torch.as_tensor(
+        rng.randn(*GRAD_ZAMBA_TOKENS, small.padded_vocab_size),
+        dtype=torch.float32, device="cuda")
+
+    def zamba_loss(p):
+        feats, _ = transformer.forward_features(p, small, {"tokens": tokens})
+        logits = layers.unembed(transformer.unembed_table(p, small), feats)
+        return (logits * weights).sum()
+
+    for kernel in kernels:
+        kernel["wrapper"].launches = 0
+    grads = param_grads(torch, params, zamba_loss)
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    with flash_route, ssd_route:
+        plain = param_grads(torch, params, zamba_loss)
+    err = grad_errors(torch, grads, plain, "reduced Zamba2 grads")
+    sites = small.num_layers // small.hybrid_attn_every
+    log(f"  reduced Zamba2 ({small.num_layers} Mamba2 layers, {sites} "
+        f"shared-attention sites, d_model {small.d_model}, "
+        f"{GRAD_ZAMBA_TOKENS[0]} x {GRAD_ZAMBA_TOKENS[1]} tokens, f32): "
+        f"{len(grads)} leaves, launches {launches}; max |d grad| / max "
+        f"|plain grad| = {err:.3e} (tol {GRAD_TOL})")
+    check(launches["flash_attention"] == sites
+          and launches["ssd_scan"] == small.num_layers,
+          f"reduced Zamba2 grads: launches {launches}, expected flash "
+          f"attention {sites} and the SSD scan {small.num_layers}")
+    out["zamba2_reduced"] = {"leaves": len(grads), "launches": launches,
+                             "max_rel_err": err}
+
+    # the backward's cost at the scoring path's shapes
+    b, h, kv, s, d = (ZAMBA_BATCH, zamba.num_heads, zamba.num_kv_heads,
+                      ZAMBA_SEQ, zamba.head_dim)
+    window = zamba.sliding_window
+    qkv = [t.requires_grad_() for t in flash_inputs(
+        b, h, kv, s, s, d, torch.float32, np.random.RandomState(SEED + 6))]
+    fwd, bwd = time_backward(torch, lambda *t: ops.flash_attention(
+        *t, causal=True, window=window), qkv)
+    plain_fwd, plain_bwd = time_backward(torch, lambda *t:
+                                         ref.flash_attention_ref(
+                                             *t, causal=True, window=window),
+                                         qkv)
+    out["flash_attention"] = {"fwd_ms": fwd, "bwd_ms": bwd,
+                              "plain_fwd_ms": plain_fwd,
+                              "plain_bwd_ms": plain_bwd}
+    log(f"  flash_attention at the scoring shape, eager ms: forward kernel "
+        f"{fwd:.3f}, backward (plain recompute) {bwd:.3f}; plain route "
+        f"forward {plain_fwd:.3f}, backward {plain_bwd:.3f}")
+    del qkv
+    s_cfg = zamba.ssm
+    chunk = s_cfg.chunk_size
+    inputs = [t.requires_grad_() for t in ssd_inputs(
+        ZAMBA_BATCH, ZAMBA_SEQ, s_cfg.num_heads(zamba.d_model),
+        s_cfg.head_dim, s_cfg.d_state, np.random.RandomState(SEED + 8),
+        model_like=True)]
+    fwd, bwd = time_backward(torch, lambda *t: ops.ssd_scan(
+        *t, chunk=chunk), inputs)
+    plain_fwd, plain_bwd = time_backward(torch, lambda *t: ref.ssd_scan_ref(
+        *t, chunk), inputs)
+    out["ssd_scan"] = {"fwd_ms": fwd, "bwd_ms": bwd,
+                       "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd}
+    log(f"  ssd_scan at the scoring shape, eager ms: forward kernel "
+        f"{fwd:.3f}, backward (plain recompute) {bwd:.3f}; plain route "
+        f"forward {plain_fwd:.3f}, backward {plain_bwd:.3f}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1522,6 +2025,21 @@ def main() -> int:
     log("phase 10: scoring path, kernel route vs plain route")
     zamba2_parity(torch, zamba, scoring)
 
+    log(f"phase 11: DQN path — run_experiment with the quickstart's config "
+        f"on the card, {DQN_EPISODES} episodes")
+    dqn = dqn_path(torch, kernels)
+    dqn["profile"] = dqn_profile(torch)
+    log(f"  dqn_path {json.dumps(dqn)}")
+
+    log("phase 12: DQN learner parity (card vs CPU), and where a step's "
+        "time goes")
+    dqn_learner_parity(torch)
+    dqn["steps"] = dqn_step_profile(torch)
+    log(f"  dqn_steps {json.dumps(dqn['steps'])}")
+
+    log("phase 13: gradients through flash attention and the SSD scan")
+    grads = kernel_grads(torch, kernels, zamba)
+
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
         "name": "decode_attention", "route": "cuda",
@@ -1574,6 +2092,10 @@ def main() -> int:
         "eager_plain_ms": flash_timed["eager_plain_ms"],
         "eager_library_ms": flash_timed["eager_library_ms"],
         "shape": flash_timed["shape"],
+        "grad_path_launches": (
+            grads["q_sequence"]["launches"]["flash_attention"]
+            + grads["zamba2_reduced"]["launches"]["flash_attention"]),
+        "backward": grads["flash_attention"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": kernels[3]["source"], "replaces": kernels[3]["replaces"],
@@ -1587,6 +2109,9 @@ def main() -> int:
         "library_ms": None, "eager_ms": ssd_timed["eager_ms"],
         "eager_plain_ms": ssd_timed["eager_plain_ms"],
         "shape": ssd_timed["shape"],
+        "grad_path_launches": grads["zamba2_reduced"]["launches"][
+            "ssd_scan"],
+        "backward": grads["ssd_scan"],
     }]
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

@@ -37,6 +37,7 @@ def make_agent(builder: AgentBuilder, seed: int = 0,
                num_replay_shards: Optional[int] = None,
                num_envs: Optional[int] = None,
                num_learner_replicas: Optional[int] = None,
+               learner_average_period: Optional[int] = None,
                learner_sync: Optional[str] = None,
                replay_routing: Optional[str] = None,
                telemetry: Optional[bool] = None) -> Agent:
@@ -47,7 +48,9 @@ def make_agent(builder: AgentBuilder, seed: int = 0,
     ``VectorizedEnvironmentLoop``.  More than one replay shard or learner
     replica, ``learner_sync="async"`` and ``replay_routing="affinity"``
     raise ``NotImplementedError``.  One explicit replica is the plain
-    learner (the reference proves the two bit-identical).
+    learner (the reference proves the two bit-identical), and
+    ``learner_average_period`` (SGD steps between averaging rounds) is then
+    ignored, as in the reference.
     """
     options = builder.options
     # (Re)configure the process registry BEFORE any component construction:

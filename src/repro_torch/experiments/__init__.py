@@ -1,0 +1,12 @@
+"""Experiments layer: config-driven runs over the AgentBuilder protocol.
+
+    config = ExperimentConfig(builder_factory=..., environment_factory=...)
+    result = run_experiment(config)                        # §2.2
+
+``run_distributed_experiment`` (§2.4) and ``run_offline_experiment``
+(§2.6) raise ``NotImplementedError`` until ROADMAP slices 7 and 6.
+"""
+from repro_torch.experiments.config import (  # noqa: F401
+    ExperimentConfig, ExperimentResult)
+from repro_torch.experiments.run import (  # noqa: F401
+    run_distributed_experiment, run_experiment, run_offline_experiment)

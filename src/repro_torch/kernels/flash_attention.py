@@ -6,6 +6,13 @@ The wrapper takes CUDA tensors only; ``ops.flash_attention`` sends CPU
 tensors to the plain version in ``ref.py``.  ``flash_attention.launches``
 counts the kernel's launches, so a run can show that its attention went
 through the kernel.
+
+The kernel computes the forward pass only.  ``FlashAttentionFunction``
+makes it differentiable: its forward launches the kernel, and its backward
+recomputes the attention through the plain version and differentiates
+that.  The recompute is the correctness route, not a design (a backward
+kernel is still to be written); it launches no kernel, so ``launches``
+counts forward launches only.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:28"
@@ -99,3 +106,29 @@ class FlashAttention:
 
 
 flash_attention = FlashAttention()
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``apply(q, k, v, causal, window)``: the kernel's forward (counted),
+    and a backward that recomputes the plain version from the saved inputs
+    and returns its gradients.  A failed build or launch in the forward
+    raises, as without autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            out = ref.flash_attention_ref(*inputs, causal=ctx.causal,
+                                          window=ctx.window)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], grad_out))
+        return tuple(next(grads) if need else None for need in needs) + (
+            None, None)

@@ -9,6 +9,14 @@ call launches four CUDA kernels in order on the current stream (cumulative
 sums and scores, chunk states, state passing, chunk scan).  Unlike the
 Pallas kernel it also takes an initial state and returns the final one, so
 the model's ``ssd_chunked`` maps onto it whole.
+
+The kernel computes the forward pass only.  ``SSDScanFunction`` makes it
+differentiable: its forward launches the kernel, and its backward
+recomputes the scan through the plain version and differentiates that,
+for both outputs (y and the final state) and for h0 when it was given.
+The recompute is the correctness route, not a design (a backward kernel
+is still to be written); it launches no kernel, so ``launches`` counts
+forward launches only.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 REPLACES = "src/repro/kernels/ssd_scan.py:26"
@@ -121,3 +129,31 @@ class SSDScan:
 
 
 ssd_scan = SSDScan()
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """``apply(x, dt, A, B, C, h0, chunk) -> (y, final_state)``: the
+    kernel's forward (counted), and a backward that recomputes the plain
+    version from the saved inputs and returns its gradients with respect
+    to x, dt, A, B, C and h0 (None when h0 was None).  A failed build or
+    launch in the forward raises, as without autograd."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h0, chunk):
+        ctx.save_for_backward(x, dt, A, B, C, h0)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, A, B, C, chunk, h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            y, final = ref.ssd_scan_ref(*inputs[:5], ctx.chunk, h0=inputs[5])
+            grads = iter(torch.autograd.grad(
+                (y, final), [t for t in inputs if t is not None
+                             and t.requires_grad],
+                (grad_y, grad_final), allow_unused=True))
+        return tuple(next(grads) if need else None for need in needs) + (
+            None,)

@@ -1,1 +1,2 @@
+from repro_torch.networks.heads import dueling_apply, dueling_init  # noqa: F401
 from repro_torch.networks.mlp import MLP, flatten_obs, mlp_apply, mlp_init  # noqa: F401

@@ -1,6 +1,7 @@
-"""repro_torch.telemetry — the per-process metric registry (a copy of
-``repro.telemetry.registry``, which imports no jax; the ``MetricsHub`` comes
-with the distributed slice)."""
+"""repro_torch.telemetry — the per-process metric registry and the
+run-wide ``MetricsHub`` (copies of ``repro.telemetry.registry`` and of the
+hub in ``repro.telemetry.hub``, which import no jax; the port keeps its
+own).  The hub's pusher thread comes with the distributed slice."""
 
 from repro_torch.telemetry.registry import (  # noqa: F401
     DEFAULT_RESERVOIR,
@@ -27,3 +28,4 @@ from repro_torch.telemetry.registry import (  # noqa: F401
     timer,
     unconfigure,
 )
+from repro_torch.telemetry.hub import MetricsHub, format_report  # noqa: F401

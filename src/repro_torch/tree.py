@@ -21,21 +21,38 @@ from typing import Any, Callable, List, Tuple
 
 import numpy as np
 
-TreeDef = Any      # None for a leaf, else (rebuild, [child treedefs])
+TreeDef = Any      # None for a leaf, else (kind, [child treedefs])
 
 
-def _children(node):
-    """(children, rebuild) of an inner node; None for a leaf."""
+def _kind(node):
+    """What an inner node is, comparable between trees as JAX compares
+    node types: ``("dict", sorted keys)``, a NamedTuple's class, ``list``,
+    ``tuple`` or ``"None"``; None for a leaf."""
     if isinstance(node, dict):
-        keys = sorted(node)
-        return [node[k] for k in keys], lambda cs: dict(zip(keys, cs))
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return list(node), lambda cs: type(node)(*cs)
-    if isinstance(node, (list, tuple)):
-        return list(node), lambda cs: type(node)(cs)
+        return ("dict", tuple(sorted(node)))
+    if isinstance(node, (list, tuple)):          # NamedTuples too
+        return type(node)
     if node is None:
-        return [], lambda cs: None
+        return "None"
     return None
+
+
+def _children(node, kind) -> list:
+    if kind == "None":
+        return []
+    if isinstance(kind, tuple):                   # a dict
+        return [node[k] for k in kind[1]]
+    return list(node)
+
+
+def _rebuild(kind, children):
+    if kind == "None":
+        return None
+    if isinstance(kind, tuple):
+        return dict(zip(kind[1], children))
+    if kind in (list, tuple):
+        return kind(children)
+    return kind(*children)                        # a NamedTuple
 
 
 def flatten(tree) -> Tuple[List[Any], TreeDef]:
@@ -43,12 +60,11 @@ def flatten(tree) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
 
     def walk(node):
-        inner = _children(node)
-        if inner is None:
+        kind = _kind(node)
+        if kind is None:
             leaves.append(node)
             return None
-        children, rebuild = inner
-        return rebuild, [walk(child) for child in children]
+        return kind, [walk(child) for child in _children(node, kind)]
 
     return leaves, walk(tree)
 
@@ -63,8 +79,8 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
         if d is None:
             position += 1
             return leaves[position - 1]
-        rebuild, kids = d
-        return rebuild([build(k) for k in kids])
+        kind, kids = d
+        return _rebuild(kind, [build(k) for k in kids])
 
     tree = build(treedef)
     if position != len(leaves):
@@ -76,20 +92,52 @@ def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _name(kind) -> str:
+    if isinstance(kind, tuple):
+        return f"dict with keys {list(kind[1])}"
+    return kind if isinstance(kind, str) else kind.__name__
+
+
+def _flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
+    """``tree``'s subtrees at the leaves of ``treedef``, in JAX order, as
+    ``jax.tree.map`` reads each of its later trees: ``tree`` must have the
+    structure of ``treedef`` down to its leaves (the same node kinds: dict
+    keys, container types, NamedTuple types, ``None`` in the same places),
+    and a leaf of ``treedef`` takes the whole subtree found there.  Raises
+    ``ValueError`` where the structures differ."""
+    out: List[Any] = []
+
+    def walk(d, node):
+        if d is None:
+            out.append(node)
+            return
+        kind, kids = d
+        if _kind(node) != kind:
+            raise ValueError(f"tree structures differ: expected "
+                             f"{_name(kind)}, got {node!r}")
+        children = _children(node, kind)
+        if len(children) != len(kids):
+            raise ValueError(f"tree structures differ: {_name(kind)} of "
+                             f"{len(kids)} children, got {len(children)}")
+        for k, child in zip(kids, children):
+            walk(k, child)
+
+    walk(treedef, tree)
+    return out
+
+
 def map(fn: Callable, tree, *rest):   # noqa: A001 — mirrors jax.tree.map
-    """``fn`` over the leaves of ``tree`` and of ``rest``, which must have
-    as many leaves in the same order."""
+    """``fn`` over the leaves of ``tree`` and the matching subtrees of
+    ``rest``, each of which must have ``tree``'s structure (or ``tree`` as
+    a prefix), as ``jax.tree.map`` requires: ``ValueError`` otherwise."""
     flat, treedef = flatten(tree)
-    others = [leaves(r) for r in rest]
-    for other in others:
-        if len(other) != len(flat):
-            raise ValueError(f"tree structures differ: {len(flat)} leaves "
-                             f"vs {len(other)}")
+    others = [_flatten_up_to(treedef, r) for r in rest]
     return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])
 
 
 def stack(trees) -> Any:
     """Stack a list of trees of the same structure, leaf by leaf, along a
-    new leading axis, as numpy arrays."""
+    new leading axis, as numpy arrays (``ValueError`` where two trees'
+    structures differ)."""
     return map(lambda *xs: np.stack([np.asarray(x) for x in xs], axis=0),
                *trees)

@@ -23,7 +23,7 @@ from repro.envs import Catch as JaxCatch
 from repro.replay import ReplaySample as JaxReplaySample
 from repro.replay import SampleInfo as JaxSampleInfo
 from repro_torch import tree
-from repro_torch.agents import common, impala, make_agent
+from repro_torch.agents import common, dqn, impala, make_agent
 from repro_torch.builders import (AgentBuilder, BuilderOptions,
                                   registered_builders)
 from repro_torch.core import (Agent, EnvironmentLoop, VariableClient,
@@ -474,10 +474,27 @@ def test_make_agent_rejects_paths_not_ported():
     assert isinstance(agent.learner, common.TorchLearner)
 
 
+@pytest.mark.parametrize("period", [None, 1, 10])
+def test_make_agent_takes_learner_average_period(period):
+    """run_experiment passes learner_average_period on, as the reference
+    does; with one replica it changes nothing, and with more the replica
+    error still fires."""
+    cfg = impala.IMPALAConfig(sequence_length=3, batch_size=2)
+    builder = impala.IMPALABuilder(_spec(), cfg, device=CPU)
+    agent = make_agent(builder, learner_average_period=period)
+    assert isinstance(agent.learner, common.TorchLearner)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        make_agent(builder, num_learner_replicas=2,
+                   learner_average_period=period)
+
+
 # ------------------------------------------------------------- builder API
 FACTORIES = {
     "IMPALABuilder": lambda: (impala.IMPALABuilder(
         _spec(), impala.IMPALAConfig(sequence_length=3, batch_size=2),
+        seed=0, device=CPU), Catch(seed=0)),
+    "DQNBuilder": lambda: (dqn.DQNBuilder(
+        _spec(), dqn.DQNConfig(batch_size=4, min_replay_size=10),
         seed=0, device=CPU), Catch(seed=0)),
 }
 

@@ -2,8 +2,10 @@
 flash-attention and SSD-scan kernels against their plain versions, their
 argument checks and launch counts, the kernel-backed engine against the
 plain one, an IMPALA learner step that launches V-trace once and syncs
-once, and the reduced Zamba2 and Mamba2 scoring steps on the kernels
-against the same steps on the plain versions.
+once, the reduced Zamba2 and Mamba2 scoring steps on the kernels against
+the same steps on the plain versions, gradients through flash attention
+and the SSD scan (their autograd Functions) against the plain route's, and
+a DQN learner step that syncs once and matches the CPU's.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -737,3 +739,183 @@ def test_reduced_scoring_step_kernel_route_matches_plain(cuda_device, name,
 
 def _plain_ssd_scan(x, dt, A, B, C, *, chunk=256, h0=None):
     return ref.ssd_scan_ref(x, dt, A, B, C, min(chunk, x.shape[1]), h0=h0)
+
+
+# ------------------------------------------- gradients through the kernels
+GRAD_TOL = 1e-4     # of each gradient's largest magnitude (f32 kernels)
+
+
+def _grads_of(outputs, inputs, seed=0):
+    rng = np.random.RandomState(seed)
+    loss = sum((out * torch.as_tensor(rng.randn(*out.shape),
+                                      dtype=out.dtype, device=out.device)
+                ).sum() for out in outputs)
+    return torch.autograd.grad(loss, inputs)
+
+
+def _assert_grads_close(actual, expected, tol=GRAD_TOL):
+    assert len(actual) == len(expected) > 0
+    for a, b in zip(actual, expected):
+        assert a is not None and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert _scaled_err(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,sq,sk,causal,window", [
+    (4, 4, 256, 256, True, None), (4, 4, 300, 300, True, 100),
+    (8, 2, 256, 256, True, None), (4, 2, 100, 200, False, None)],
+    ids=["causal", "window", "gqa", "cross"])
+def test_flash_grads_on_the_card_match_the_plain_route(cuda_device, h, kv,
+                                                       sq, sk, causal,
+                                                       window):
+    """ops.flash_attention on CUDA tensors that require grad: an output
+    with a grad_fn, one forward launch, and gradients equal to the plain
+    version's (the backward recomputes it)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    inputs = [t.requires_grad_() for t in _flash_inputs(
+        2, h, kv, sq, sk, 64, torch.float32, cuda_device, seed=sq)]
+    before = flash_attention.launches
+    out = ops.flash_attention(*inputs, causal=causal, window=window)
+    assert out.grad_fn is not None
+    grads = _grads_of([out], inputs)
+    assert flash_attention.launches == before + 1
+    plain = ref.flash_attention_ref(*inputs, causal=causal, window=window)
+    _assert_grads_close(grads, _grads_of([plain], inputs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_grads_on_the_card_match_the_plain_route(cuda_device, with_h0):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    tensors, h0 = _ssd_inputs(2, 512, 4, 64, 32, cuda_device, seed=5,
+                              h0=with_h0)
+    inputs = [t.requires_grad_() for t in tensors]
+    if h0 is not None:
+        inputs.append(h0.requires_grad_())
+    before = ssd_scan.launches
+    y, final = ops.ssd_scan(*inputs[:5], chunk=128, h0=h0)
+    assert y.grad_fn is not None and final.grad_fn is not None
+    grads = _grads_of([y, final], inputs)
+    assert ssd_scan.launches == before + 1
+    plain = ref.ssd_scan_ref(*inputs[:5], 128, h0=h0)
+    _assert_grads_close(grads, _grads_of(plain, inputs))
+
+
+def _param_grads(params, loss_fn):
+    from repro_torch import tree
+    leaves, treedef = tree.flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    return torch.autograd.grad(loss_fn(tree.unflatten(treedef, leaves)),
+                               leaves)
+
+
+@pytest.mark.cuda
+def test_q_sequence_grads_through_the_kernel_match_the_plain_route(
+        cuda_device):
+    """The transformer policy's learner forward at the served width: every
+    parameter gets a gradient through the flash kernel, within GRAD_TOL of
+    the plain route's; one forward launch per layer."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = TransformerPolicyConfig(num_layers=2, d_model=256, num_heads=4,
+                                  num_kv_heads=2, head_dim=64, d_ff=512,
+                                  window=8)
+    arch = network.make_arch(cfg, 3)
+    params = network.init(torch.Generator().manual_seed(0), arch, 50, 3,
+                          device=cuda_device)
+    obs = torch.as_tensor(np.random.RandomState(3).rand(32, 8, 50) < 0.2,
+                          dtype=torch.float32, device=cuda_device)
+    weights = torch.as_tensor(np.random.RandomState(4).randn(32, 8, 3),
+                              dtype=torch.float32, device=cuda_device)
+
+    def loss(p):
+        return (network.q_sequence(p, arch, obs) * weights).sum()
+
+    before = flash_attention.launches
+    grads = _param_grads(params, loss)
+    assert flash_attention.launches == before + arch.num_layers
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref):
+        plain = _param_grads(params, loss)
+    _assert_grads_close(grads, plain)
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_grads_through_the_kernels_match_the_plain_route(
+        cuda_device):
+    import dataclasses
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import layers, transformer
+    cfg = dataclasses.replace(configs.reduced(configs.get_arch(
+        "zamba2-1.2b")), num_layers=3, hybrid_attn_every=2)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device=cuda_device)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 256))
+    weights = torch.as_tensor(np.random.RandomState(1).randn(
+        2, 256, cfg.padded_vocab_size), dtype=torch.float32,
+        device=cuda_device)
+
+    def loss(p):
+        feats, _ = transformer.forward_features(p, cfg, {"tokens": tokens})
+        logits = layers.unembed(transformer.unembed_table(p, cfg), feats)
+        return (logits * weights).sum()
+
+    flash0, ssd0 = flash_attention.launches, ssd_scan.launches
+    grads = _param_grads(params, loss)
+    assert flash_attention.launches - flash0 == 1
+    assert ssd_scan.launches - ssd0 == cfg.num_layers
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref), \
+            mock.patch.object(ops, "ssd_scan", _plain_ssd_scan):
+        plain = _param_grads(params, loss)
+    _assert_grads_close(grads, plain)
+
+
+# --------------------------------------------------------------------- DQN
+@pytest.mark.cuda
+def test_dqn_learner_step_syncs_once_and_matches_the_cpu(cuda_device):
+    """The DQN learner on the card: each step's one copy to the host (loss,
+    step counter, |td| priorities) is its only sync, and after 3 steps from
+    the same init on the same batches its params match the CPU learner's."""
+    from repro_torch import tree
+    from repro_torch.agents import dqn
+    from repro_torch.core import make_environment_spec, types
+    from repro_torch.envs import Catch
+    from repro_torch.replay import ReplaySample, SampleInfo
+
+    rng = np.random.RandomState(0)
+    batches = [ReplaySample(
+        SampleInfo(np.arange(32) + 32 * i, rng.rand(32) * 0.01 + 1e-4),
+        types.Transition((rng.rand(32, 10, 5) < 0.1).astype(np.float32),
+                         rng.randint(0, 3, 32).astype(np.int32),
+                         rng.randint(-1, 2, 32).astype(np.float32),
+                         (rng.rand(32) > 0.2).astype(np.float32),
+                         (rng.rand(32, 10, 5) < 0.1).astype(np.float32), ()))
+        for i in range(4)]
+    cfg = dqn.DQNConfig(batch_size=32)
+    spec = make_environment_spec(Catch())
+    card, cpu = (dqn.make_learner(spec, cfg, iter(batches),
+                                  torch.Generator().manual_seed(0),
+                                  priority_update_cb=lambda k, p: None,
+                                  device=device)
+                 for device in (cuda_device, "cpu"))
+    card.step()
+    cpu.step()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                card.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu.step()
+        syncs = [w for w in caught if "synchronizing CUDA" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+    for a, b in zip(tree.leaves(card.state.params),
+                    tree.leaves(cpu.state.params)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)

@@ -64,6 +64,22 @@ def test_scoring_slice_imports_neither_jax_nor_repro():
     assert result.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.experiments", "repro_torch.agents.dqn",
+    "repro_torch.checkpoint", "repro_torch.resilience",
+    "repro_torch.telemetry.hub", "repro_torch.core.loggers"])
+def test_dqn_slice_imports_neither_jax_nor_repro(module):
+    """The DQN spine's modules, each on its own in a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys\nimport {module}\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

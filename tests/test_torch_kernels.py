@@ -666,3 +666,185 @@ def test_latency_probe_variants_edit_the_committed_sources(monkeypatch):
             if marks is not None:   # one mark per span's end, and the start
                 assert all(f"PROBE_MARK({i})" in text
                            for i in range(len(marks))), (kernel, name)
+
+
+# -------------------------------------------- gradients through the kernels
+class _PlainKernel:
+    """Stands in for a kernel wrapper on the CPU: the plain version's
+    forward, counted like a launch."""
+
+    def __init__(self, forward):
+        self.forward = forward
+        self.launches = 0
+
+    def __call__(self, *args):
+        self.launches += 1
+        return self.forward(*args)
+
+
+def _route_as_on_the_card(monkeypatch):
+    """CPU tensors dispatched as ``ops`` dispatches the card's, each
+    kernel's forward replaced by its plain version: what is left to test is
+    the dispatch and each ``torch.autograd.Function``'s backward."""
+    from repro_torch.kernels import flash_attention as flash_module
+    from repro_torch.kernels import ssd_scan as ssd_module
+    flash = _PlainKernel(lambda q, k, v, causal, window:
+                         ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window))
+    ssd = _PlainKernel(lambda x, dt, A, B, C, chunk, h0:
+                       ref.ssd_scan_ref(x, dt, A, B, C, chunk, h0=h0))
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(ops, "_flash", flash)
+    monkeypatch.setattr(flash_module, "flash_attention", flash)
+    monkeypatch.setattr(ops, "_ssd", ssd)
+    monkeypatch.setattr(ssd_module, "ssd_scan", ssd)
+    return flash, ssd
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    return _route_as_on_the_card(monkeypatch)
+
+
+def _grads(outputs, inputs, seed=0):
+    """Gradients of sum(out * g) over every output, with fixed random g."""
+    rng = np.random.RandomState(seed)
+    loss = sum((out * torch.as_tensor(rng.randn(*out.shape),
+                                      dtype=out.dtype)).sum()
+               for out in outputs)
+    return torch.autograd.grad(loss, inputs)
+
+
+def _assert_grads_equal(actual, expected):
+    assert len(actual) == len(expected) > 0
+    for a, b in zip(actual, expected):
+        assert a is not None and a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("h,kv,sq,sk,causal,window", [
+    (4, 4, 64, 64, True, None), (4, 4, 96, 96, True, 24),
+    (8, 2, 64, 64, True, None), (8, 2, 48, 80, False, None)],
+    ids=["causal", "window", "gqa", "cross"])
+def test_flash_function_backward_equals_plain_autograd(card_route, h, kv, sq,
+                                                       sk, causal, window):
+    """With grad on, ops.flash_attention goes through
+    FlashAttentionFunction: one forward launch, and a backward (the plain
+    recompute) whose gradients equal plain autograd's exactly."""
+    flash, _ = card_route
+    inputs = [torch.as_tensor(a).requires_grad_()
+              for a in _flash_arrays(2, h, kv, sq, sk, 32, seed=sq + h)]
+    out = ops.flash_attention(*inputs, causal=causal, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    grads = _grads([out], inputs)
+    assert flash.launches == 1                     # the forward only
+    plain = ref.flash_attention_ref(*inputs, causal=causal, window=window)
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+    _assert_grads_equal(grads, _grads([plain], inputs))
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
+def test_ssd_function_backward_equals_plain_autograd(card_route, with_h0):
+    """With grad on, ops.ssd_scan goes through SSDScanFunction; the
+    gradient of a loss over both outputs (y and the final state) with
+    respect to x, dt, A, B, C and h0 equals plain autograd's exactly."""
+    _, ssd = card_route
+    inputs = [torch.as_tensor(a).requires_grad_()
+              for a in _ssd_arrays(2, 128, 3, 16, 8, seed=9, h0=with_h0)]
+    h0 = inputs[5] if with_h0 else None
+    y, final = ops.ssd_scan(*inputs[:5], chunk=32, h0=h0)
+    assert type(y.grad_fn).__name__ == "SSDScanFunctionBackward"
+    grads = _grads([y, final], inputs)
+    assert ssd.launches == 1
+    plain = ref.ssd_scan_ref(*inputs[:5], 32, h0=h0)
+    _assert_grads_equal(grads, _grads(plain, inputs))
+
+
+def test_functions_return_grads_only_where_inputs_need_them(card_route):
+    q, k, v = map(torch.as_tensor, _flash_arrays(1, 2, 2, 16, 16, 32, 1))
+    q.requires_grad_()
+    (dq,) = _grads([ops.flash_attention(q, k, v)], [q])
+    assert dq is not None and k.grad is None and v.grad is None
+    x, dt, A, B, C = map(torch.as_tensor, _ssd_arrays(1, 64, 2, 16, 8, 2))
+    B.requires_grad_()
+    (dB,) = _grads(ops.ssd_scan(x, dt, A, B, C, chunk=32), [B])
+    assert dB.shape == B.shape and bool(dB.abs().sum() > 0)
+
+
+def test_kernels_run_without_autograd_when_no_grad_is_wanted(card_route):
+    """Without grad mode, or with no input that requires grad, ops calls
+    the kernel itself: no Function, nothing saved for a backward."""
+    flash, ssd = card_route
+    q, k, v = map(torch.as_tensor, _flash_arrays(1, 2, 2, 16, 16, 32, 3))
+    assert ops.flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert ops.flash_attention(q.requires_grad_(), k, v).grad_fn is None
+    arrays = list(map(torch.as_tensor, _ssd_arrays(1, 64, 2, 16, 8, 4)))
+    y, final = ops.ssd_scan(*arrays, chunk=32)
+    assert y.grad_fn is None and final.grad_fn is None
+    assert (flash.launches, ssd.launches) == (2, 1)
+
+
+def _all_grads(params, loss_fn):
+    from repro_torch import tree
+    leaves, treedef = tree.flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    return torch.autograd.grad(loss_fn(tree.unflatten(treedef, leaves)),
+                               leaves)
+
+
+def test_q_sequence_grads_through_the_functions_equal_the_plain_route(
+        monkeypatch):
+    """The transformer policy's full-sequence Q values (the learner's
+    forward pass, slice 5): every parameter's gradient through
+    FlashAttentionFunction equals the plain route's."""
+    from repro_torch.policies import TransformerPolicyConfig, network
+    cfg = TransformerPolicyConfig(num_layers=2, d_model=64, num_heads=4,
+                                  num_kv_heads=2, head_dim=32, d_ff=128,
+                                  window=8)
+    arch = network.make_arch(cfg, 3)
+    params = network.init(torch.Generator().manual_seed(0), arch, 50, 3,
+                          device="cpu")
+    obs = torch.as_tensor(np.random.RandomState(3).rand(5, 8, 50) < 0.2,
+                          dtype=torch.float32)
+    weights = torch.as_tensor(np.random.RandomState(4).randn(5, 8, 3),
+                              dtype=torch.float32)
+
+    def loss(p):
+        return (network.q_sequence(p, arch, obs) * weights).sum()
+
+    plain = _all_grads(params, loss)
+    flash, _ = _route_as_on_the_card(monkeypatch)
+    routed = _all_grads(params, loss)
+    assert flash.launches == arch.num_layers
+    _assert_grads_equal(routed, plain)
+
+
+def test_reduced_zamba2_grads_through_the_functions_equal_the_plain_route(
+        monkeypatch):
+    """A reduced Zamba2 forward to the logits (Mamba2 layers, a
+    shared-attention site and a tail): every parameter's gradient through
+    both Functions equals the plain route's; one forward launch per site
+    and per layer."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import layers, transformer
+    cfg = dataclasses.replace(configs.reduced(configs.get_arch(
+        "zamba2-1.2b")), num_layers=3, hybrid_attn_every=2)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 64))
+    weights = torch.as_tensor(np.random.RandomState(1).randn(
+        2, 64, cfg.padded_vocab_size), dtype=torch.float32)
+
+    def loss(p):
+        feats, _ = transformer.forward_features(p, cfg, {"tokens": tokens})
+        logits = layers.unembed(transformer.unembed_table(p, cfg), feats)
+        return (logits * weights).sum()
+
+    plain = _all_grads(params, loss)
+    flash, ssd = _route_as_on_the_card(monkeypatch)
+    routed = _all_grads(params, loss)
+    assert flash.launches == cfg.num_layers // cfg.hybrid_attn_every
+    assert ssd.launches == cfg.num_layers
+    _assert_grads_equal(routed, plain)

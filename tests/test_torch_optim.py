@@ -5,6 +5,8 @@ updates, params and optimizer state agree after 1 and 10 steps.
 Tolerance: atol 1e-6, rtol 1e-5 on f32 values of order 1 — the two
 frameworks round pow, sqrt and the global norm's sum in their own order,
 within a few ulps per step."""
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,6 +70,59 @@ def test_tree_flattens_in_jax_order():
     assert list(rebuilt) == sorted(params)       # dicts come back sorted
     assert tree.leaves(None) == [] and tree.leaves(()) == []
 
+
+
+_PairA = collections.namedtuple("_PairA", "x y")
+_PairB = collections.namedtuple("_PairB", "x y")
+
+# (first tree, second tree): jax.tree.map raises ValueError on the first
+# eight and maps the rest (a leaf of the first tree takes the second's
+# whole subtree there, None included).
+TREE_PAIRS = {
+    "dict_keys": ({"a": 1, "b": 2}, {"a": 1, "c": 3}),
+    "extra_key": ({"a": 1}, {"a": 1, "b": 2}),
+    "tuple_vs_list": ((1, 2), [1, 2]),
+    "namedtuple_types": (_PairA(1, 2), _PairB(1, 2)),
+    "namedtuple_vs_tuple": (_PairA(1, 2), (1, 2)),
+    "none_vs_leaf": ({"a": None, "b": 1}, {"a": 1, "b": 1}),
+    "none_vs_empty_tuple": (None, ()),
+    "list_length": ([1, 2], [1, 2, 3]),
+    "same": ({"b": [1, (2, None)], "a": _PairA(3, 4)},
+             {"b": [5, (6, None)], "a": _PairA(7, 8)}),
+    "leaf_vs_none": ({"a": 1, "b": 1}, {"a": None, "b": 2}),
+    "leaf_vs_subtree": ([1, 2], [(3, 4), 5]),
+}
+
+
+@pytest.mark.parametrize("first,second", TREE_PAIRS.values(),
+                         ids=TREE_PAIRS.keys())
+def test_tree_map_raises_where_jax_tree_map_raises(first, second):
+    """tree.map compares structures as jax.tree.map does: dict keys,
+    container types, NamedTuple types and where a None sits; it raises
+    ValueError exactly where jax.tree.map does, and otherwise builds the
+    same tree."""
+    try:
+        expected = jax.tree.map(lambda *xs: xs, first, second)
+    except ValueError:
+        expected = ValueError
+    if expected is ValueError:
+        with pytest.raises(ValueError):
+            tree.map(lambda *xs: xs, first, second)
+    else:
+        got = tree.map(lambda *xs: xs, first, second)
+        assert got == expected
+        assert type(got) is type(expected)
+
+
+def test_tree_stack_raises_on_mismatched_structures():
+    """The replay batcher's stack: a batch of items whose dict keys
+    differ raises, where it used to stack by leaf position."""
+    with pytest.raises(ValueError):
+        tree.stack([{"a": 1, "b": 2}, {"a": 1, "c": 3}])
+    with pytest.raises(ValueError):
+        tree.stack([(1, 2), [1, 2]])
+    stacked = tree.stack([{"a": 1, "b": (2, 3)}, {"a": 4, "b": (5, 6)}])
+    np.testing.assert_array_equal(stacked["b"][1], [3, 6])
 
 def _run(port_opt, ref_opt, steps, grad_scale):
     params = _params()
