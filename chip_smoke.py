@@ -20,9 +20,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    above the clips and discounts with zeros (max-abs error <= 1e-4 in
    float32, <= 2e-2 in bfloat16); flash attention at the sweep shapes of
    ``tests/test_kernels.py`` in both dtypes with the three mask cases, a
-   ragged length, rows past the last key and GQA, at one shared-
-   attention site of the Zamba2 path (b 4, h 32, s 2048, d 64, causal,
-   float32), and at the tensor-core design's edges: sq, sk around the warp
+   ragged length, rows past the last key, GQA and head dim 16, at one
+   shared-attention site of the Zamba2 path (b 4, h 32, s 2048, d 64,
+   causal, float32), at the transformer policy preset's head dim 16 (sq =
+   sk in {1, 7, 16, 33}, causal windows 4 and 8, both dtypes), and at the
+   tensor-core design's edges: sq, sk around the warp
    and block tiles, windows that end inside a key tile, the model's strided
    views (equal to contiguous copies) and one key per query with distinct
    V rows, which a wrong key order between P and V would show (the same
@@ -59,7 +61,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (100, 65536), beyond L2, in both layouts; flash attention fails the run
    if it is slower than ``scaled_dot_product_attention`` on the same
    inputs, and decode attention at the long cache if it is slower than its
-   plain version or than ``scaled_dot_product_attention``;
+   plain version or than ``scaled_dot_product_attention``; flash attention
+   is also timed at the transformer policy learner's shape (b 16, h 4,
+   kv 2, s 16, d 64, window 8) beside ``scaled_dot_product_attention``
+   with the same band as a mask;
 6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
    the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
    actor over a ``VectorEnv`` of 16 Catch envs in a
@@ -117,7 +122,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    grad's largest magnitude; counts zeroed before and read after each, one
    flash launch per site and one SSD launch per layer; then the
    backward's time beside the forward kernel's at the scoring path's
-   shapes.
+   shapes;
+14. the transformer policy learns Catch on the card: ``run_experiment``
+   with ``TransformerPolicyBuilder`` at the reference acceptance's preset
+   and schedule (``tests/conftest.py:67-70``, seed 0, 250 episodes, 20
+   eval episodes, backend "auto", head dim 16); launch counts are zeroed
+   just before and read just after: acting must launch the decode kernel
+   and every learner step flash attention twice a layer (the online pass
+   through ``FlashAttentionFunction``, the target pass), and the final
+   eval must beat the mean of the first 30 train returns (the reference's
+   acceptance); then the learner alone at the served width (T 16, B 16):
+   host ms a step (p50, p95), flash launches a step, and decode launches
+   and host ms of an acting call on the same weights;
+15. the transformer policy's learner on the card against the same learner
+   on the CPU on the same 10 batches, at the served width and at the
+   preset: step by step from the same state, losses, priorities and Adam's
+   moments within 1e-5 of the CPU's largest magnitude per leaf, params
+   within 1e-4 (a tenth of one Adam step), one sync a card step; then 10
+   free-running steps from the same init within 1e-4 (weights whose
+   gradient is near Adam's eps drift apart and feed later steps);
+16. R2D2, DQfD and R2D3 on the card, each held to the reference's learning
+   acceptance at its config and seeds (R2D2 on MemoryChain(5, seed 3):
+   last-60 mean > 0.3; DQfD on DeepSea(6, seed 1) with 20 demos and R2D3
+   on DeepSea(5, seed 1) with 15 demo sequences: the treasure in more
+   than a fifth of the last 50 episodes); no kernel launches; each
+   learner step's host ms.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line (with the launch floor beside the kernels), and
@@ -218,13 +247,48 @@ GRAD_POLICY_BATCH = 64
 GRAD_ZAMBA = dict(num_layers=7, hybrid_attn_every=2)
 GRAD_ZAMBA_TOKENS = (2, 512)
 
+# The transformer policy's training half (phases 14-16).  The reference
+# acceptance's preset and schedule (tests/conftest.py:67-70,
+# tests/test_policies.py::test_transformer_policy_learns_catch: seed 0,
+# 250 episodes, no periodic eval, 20 eval episodes) with backend "auto", so
+# acting decodes on the decode kernel and the learner runs flash attention
+# at head_dim 16.
+POLICY_PRESET = dict(num_layers=1, d_model=32, num_heads=2, num_kv_heads=1,
+                     head_dim=16, d_ff=64, window=4, sequence_length=10,
+                     period=10, batch_size=8, min_replay_size=10,
+                     samples_per_insert=0.0, backend="auto")
+POLICY_EPISODES = 250
+POLICY_EVAL_EPISODES = 20
+# the learner alone at the served width (POLICY) on T 16, B 16; a target
+# copy every 3 steps, so the 10 parity steps cover three copies
+POLICY_LEARNER = dict(POLICY, sequence_length=16, batch_size=16,
+                      target_update_period=3)
+POLICY_TIMED_STEPS = 50
+# card vs CPU learner, each step from the same state: loss, priorities and
+# Adam's moments within this of the CPU's largest magnitude per leaf;
+# params within POLICY_PARAM_ATOL, a tenth of one Adam step at the learning
+# rate 1e-3 (a gradient near Adam's eps moves its weight by lr g / (|g| +
+# eps), so summation-order noise in it moves the weight by up to ~lr / 50)
+POLICY_TOL = 1e-5
+POLICY_PARAM_ATOL = 1e-4
+# the same after 10 free-running steps from the same init, where those
+# weights feed later gradients (1.6e-5 seen on Adam's moments at fig17
+# width, NVIDIA H100 80GB HBM3)
+POLICY_DRIFT_TOL = 1e-4
+# flash attention at the learner's shape (fig17 width): b, h, kv, s, d
+POLICY_FLASH_SHAPE = (16, 4, 2, 16, 64)
+# flash attention at the preset's head dim 16: sq = sk, windows 4 and 8
+FLASH_D16_SEQS = [1, 7, 16, 33]
+FLASH_D16_WINDOWS = [4, 8]
+
 FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
                ("sweep", 2, 2, 2, 256, 256, 64),
                ("sweep", 1, 4, 4, 256, 512, 128),
                ("sweep", 2, 1, 1, 512, 512, 32),
                ("ragged", 2, 4, 4, 100, 100, 64),
                ("past_keys", 1, 2, 2, 300, 100, 64),
-               ("gqa", 2, 8, 2, 256, 256, 64)]
+               ("gqa", 2, 8, 2, 256, 256, 64),
+               ("d16", 2, 4, 2, 100, 100, 16)]
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
 # SSD scan, phase 2: (label, b, s, h, p, n, chunk)
 SSD_CASES = [("sweep", 1, 256, 2, 32, 16, 64),
@@ -647,6 +711,35 @@ def check_flash(kernel, ref, torch, cfg):
                       f"max_abs_err {err} > {TOL[name]}")
     worst["float32"] = max(worst["float32"],
                            check_flash_edges(kernel, ref, torch, rng))
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        err = check_flash_d16(kernel, ref, torch, rng, dtype)
+        worst[name] = max(worst[name], err)
+        log(f"  flash_attention d=16, sq=sk in {FLASH_D16_SEQS}, causal "
+            f"windows {FLASH_D16_WINDOWS}, {name}: max_abs_err={err:.3e}")
+    return worst
+
+
+def check_flash_d16(kernel, ref, torch, rng, dtype):
+    """Head dim 16 (the policy preset's): 64-byte f32 and 32-byte bf16 rows,
+    two k-steps of S = Q.K^T, windows of 4 and 8 that empty whole key
+    groups; GQA 2:1."""
+    name = str(dtype).split(".")[-1]
+    worst = 0.0
+    for s in FLASH_D16_SEQS:
+        for window in FLASH_D16_WINDOWS:
+            q, k, v = flash_inputs(3, 4, 2, s, s, 16, dtype, rng)
+            out = kernel(q, k, v, True, window)
+            torch.cuda.synchronize()
+            expected = ref.flash_attention_ref(q, k, v, causal=True,
+                                               window=window)
+            check(out.shape == expected.shape and out.dtype == dtype
+                  and bool(torch.isfinite(out).all()),
+                  f"flash_attention d=16 s={s} window={window}: bad output")
+            err = (out.float() - expected.float()).abs().max().item()
+            check(err <= TOL[name], f"flash_attention d=16 s={s} "
+                  f"window={window} {name}: max_abs_err {err} > {TOL[name]}")
+            worst = max(worst, err)
     return worst
 
 
@@ -757,6 +850,51 @@ def time_flash(kernel, ref, torch, cfg):
     check(timed["ms"] <= timed["library_ms"], f"flash_attention at the "
           f"scoring shape: {timed['ms']} ms, slower than "
           f"scaled_dot_product_attention's {timed['library_ms']} ms")
+    return timed
+
+
+def time_flash_policy(kernel, ref, torch):
+    """At the transformer policy learner's shape (fig17 width: b 16, h 4,
+    kv 2, s 16, d 64, causal, window 8), on the model's strided views: the
+    kernel, its plain version, and scaled_dot_product_attention with the
+    same band as a boolean mask over K/V repeated to the query heads (the
+    repeat made before timing)."""
+    import torch.nn.functional as F
+    b, h, kv, s, d = POLICY_FLASH_SHAPE
+    window = POLICY["window"]
+    q, k, v = flash_inputs(b, h, kv, s, s, d, torch.float32,
+                           np.random.RandomState(SEED + 14))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    rows = torch.arange(s, device="cuda")
+    band = (rows[:, None] >= rows[None, :]) & \
+        (rows[:, None] - rows[None, :] < window)
+    k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+    expected = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    err = (kernel(*views, True, window) - expected).abs().max().item()
+    lib_err = (F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                              attn_mask=band)
+               - expected).abs().max().item()
+    check(err <= TOL["float32"] and lib_err <= TOL["float32"],
+          f"flash_attention at the learner's shape: max_abs_err {err}, "
+          f"the library call's {lib_err}")
+    bound, bound_by, bound_tc = flash_bound(b, h, kv, s, s, d, True, window,
+                                            4)
+    timed = {"shape": {"b": b, "h": h, "kv": kv, "sq": s, "sk": s, "d": d,
+                       "causal": True, "window": window, "dtype": "float32",
+                       "layout": "model (b, s, heads, d) views"},
+             "max_abs_err_timed": err, "bound_ms": bound,
+             "bound_by": bound_by, "bound_tc_ms": bound_tc}
+    calls = {
+        "": lambda: kernel(*views, True, window),
+        "plain_": lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                  window=window),
+        "library_": lambda: F.scaled_dot_product_attention(
+            q, k_rep, v_rep, attn_mask=band),
+    }
+    for prefix, fn in calls.items():
+        timed[f"{prefix}ms"] = time_ms(fn, graph=True)
+        timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
     return timed
 
 
@@ -1165,6 +1303,13 @@ def sync_count(torch, fn):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return sum("synchronizing CUDA" in str(w.message) for w in caught)
+
+
+def rel_error(a, b):
+    """max |a - b| over max |b| (float64 on the host)."""
+    b = np.asarray(b, np.float64)
+    return float(np.abs(np.asarray(a, np.float64) - b).max()
+                 / max(np.abs(b).max(), 1e-30))
 
 
 def learner_parity(torch, vtrace_kernel):
@@ -1630,21 +1775,16 @@ def dqn_learner_parity(torch):
     check(all(n == 1 for n in syncs), f"DQN learner parity: a card step "
           f"synced {syncs} times; its one host copy should be its only sync")
 
-    def rel(a, b):
-        b = np.asarray(b, np.float64)
-        return float(np.abs(np.asarray(a, np.float64) - b).max()
-                     / max(np.abs(b).max(), 1e-30))
-
     card, cpu = learners["card"].state, learners["cpu"].state
-    worst = {"loss": max(rel(a, b) for a, b in losses),
-             "priorities": max(rel(a, b) for a, b in
+    worst = {"loss": max(rel_error(a, b) for a, b in losses),
+             "priorities": max(rel_error(a, b) for a, b in
                                zip(priorities["card"], priorities["cpu"]))}
     for name, a, b in (
             ("params", card.params, cpu.params),
             ("target_params", card.target_params, cpu.target_params),
             ("mu", card.opt_state.mu, cpu.opt_state.mu),
             ("nu", card.opt_state.nu, cpu.opt_state.nu)):
-        worst[name] = max(rel(x.cpu().numpy(), y.numpy()) for x, y in
+        worst[name] = max(rel_error(x.cpu().numpy(), y.numpy()) for x, y in
                           zip(tree.leaves(a), tree.leaves(b)))
     log(f"  card vs CPU over {len(batches)} steps, max |d| / max |cpu| "
         f"per leaf: {json.dumps(worst)}; last loss {losses[-1][0]:.8f} vs "
@@ -1667,9 +1807,6 @@ def dqn_step_profile(torch, steps=DQN_PROFILED_STEPS):
     launches and the device's busy time a call."""
     import itertools
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.agents import dqn
     from repro_torch.core import make_environment_spec
     from repro_torch.envs import Catch
@@ -1689,8 +1826,20 @@ def dqn_step_profile(torch, steps=DQN_PROFILED_STEPS):
         policy(learner.state.params, generator,
                torch.as_tensor(obs, device="cuda")).cpu()
 
+    return profile_calls(torch, {"learner_step": learner.step, "act": act},
+                         steps)
+
+
+def profile_calls(torch, calls, steps):
+    """For each named call: its host ms (mean over ``steps`` calls after 10
+    warm-up calls), then, traced by torch.profiler over ``steps`` more, the
+    device kernels and copies a call launches and the device's busy ms a
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
-    for name, fn in (("learner_step", learner.step), ("act", act)):
+    for name, fn in calls.items():
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
@@ -1909,6 +2058,383 @@ def kernel_grads(torch, kernels, zamba):
     return out
 
 
+# ------------------------------------------ the transformer policy learns
+def policy_catch_config():
+    """The reference acceptance's preset and schedule, on the card."""
+    from repro_torch.envs import Catch
+    from repro_torch.experiments import ExperimentConfig
+    from repro_torch.policies import (TransformerPolicyBuilder,
+                                      TransformerPolicyConfig)
+    return ExperimentConfig(
+        builder_factory=lambda spec: TransformerPolicyBuilder(
+            spec, TransformerPolicyConfig(**POLICY_PRESET), seed=SEED,
+            device="cuda"),
+        environment_factory=lambda seed: Catch(seed=seed), seed=SEED,
+        num_episodes=POLICY_EPISODES, eval_every=0,
+        eval_episodes=POLICY_EVAL_EPISODES, telemetry=True)
+
+
+def policy_path(torch, kernels):
+    """Phase 14, first part: run_experiment with TransformerPolicyBuilder
+    at the reference acceptance's preset on the card.  Acting decodes on
+    the decode kernel (prefill runs the plain path); every learner step
+    runs flash attention once a layer for the online pass (through
+    FlashAttentionFunction) and once for the target pass.  The final eval
+    must beat the mean of the first 30 train returns."""
+    from repro_torch import tree
+    from repro_torch.experiments import run_experiment
+    from repro_torch.telemetry import registry as telemetry
+
+    config = policy_catch_config()
+    try:
+        for kernel in kernels:
+            kernel["wrapper"].launches = 0
+        t0 = time.monotonic()
+        result = run_experiment(config)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    finally:
+        telemetry.unconfigure()
+    learner = result.learner
+    env_steps = result.actor_steps[-1]
+    step_ms = result.extras["telemetry"]["merged"].get("learner/step_ms", {})
+    early = float(np.mean(result.train_returns[:30]))
+    final = result.final_eval_return
+    layers = POLICY_PRESET["num_layers"]
+    log(f"  {len(result.train_returns)} episodes, {env_steps} env steps, "
+        f"{result.learner_steps} learner steps in {seconds:.3f} s "
+        f"({env_steps / seconds:.1f} env steps/s); learner step host time "
+        f"(ms): p50={step_ms.get('p50', 0):.3f} "
+        f"p95={step_ms.get('p95', 0):.3f}; launches={launches}")
+    log(f"  final eval {final} vs the mean of the first 30 train returns "
+        f"{early:.3f}")
+    check(launches["decode_attention"] > 0,
+          "policy path: acting never launched the decode kernel")
+    check(launches["flash_attention"] == 2 * layers * result.learner_steps
+          > 0, f"policy path: {launches['flash_attention']} flash launches "
+          f"for {result.learner_steps} learner steps of {layers} layer(s), "
+          f"expected two a layer a step")
+    check(launches["vtrace"] == launches["ssd_scan"] == 0,
+          f"policy path launched a kernel of another slice: {launches}")
+    check(all(t.device.type == "cuda" for t in tree.leaves(learner.state)),
+          "policy path: the learner's state is not on the card")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tree.leaves(learner.state.params)),
+          "policy path: non-finite params")
+    check(final is not None and np.isfinite(final) and final > early,
+          f"policy path (the reference's acceptance): final eval {final} "
+          f"does not beat the mean of the first 30 train returns {early}")
+    return {"launches": launches, "episodes": len(result.train_returns),
+            "env_steps": env_steps, "learner_steps": result.learner_steps,
+            "seconds": seconds, "env_steps_per_s": env_steps / seconds,
+            "learner_step_ms_p50": step_ms.get("p50"),
+            "learner_step_ms_p95": step_ms.get("p95"),
+            "first30": early, "final_eval": final}
+
+
+def policy_batches(cfg, count, seed=SEED):
+    """Replayed Catch windows as the SequenceAdder writes them: boards,
+    actions, rewards at episode ends, discounts, start-of-episode flags
+    (some rows mid-episode), the padding mask, keys and probabilities."""
+    from repro_torch.replay import ReplaySample, SampleInfo
+    B, T = cfg.batch_size, cfg.sequence_length
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(count):
+        lengths = rng.randint(2, T + 1, B)
+        mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+        obs = np.zeros((B, T) + OBS_SHAPE, np.float32)
+        rows, steps = np.meshgrid(np.arange(B), np.arange(T), indexing="ij")
+        obs[rows, steps, rng.randint(0, 9, (B, T)),
+            rng.randint(0, 5, (B, T))] = 1.0
+        obs[rows, steps, 9, rng.randint(0, 5, (B, T))] = 1.0
+        obs *= mask[..., None, None]
+        ended = np.zeros((B, T), bool)
+        ended[np.arange(B), lengths - 1] = rng.rand(B) < 0.6
+        starts = np.zeros((B, T), bool)
+        starts[:, 0] = rng.rand(B) < 0.5
+        data = {"observation": obs,
+                "action": (rng.randint(0, NUM_ACTIONS, (B, T)) * mask
+                           ).astype(np.int32),
+                "reward": np.where(ended, rng.choice([-1.0, 1.0], (B, T)),
+                                   0.0).astype(np.float32),
+                "discount": (mask * ~ended).astype(np.float32),
+                "start_of_episode": starts, "mask": mask}
+        out.append(ReplaySample(SampleInfo(
+            np.arange(B, dtype=np.int64) + i * B,
+            rng.rand(B) * 1e-2 + 1e-4), data))
+    return out
+
+
+def policy_learner_profile(torch, kernels):
+    """Phase 14, second part: the learner alone at the served width (fig17's
+    top policy, T 16, B 16): host ms a step (p50, p95 over
+    POLICY_TIMED_STEPS after 10 warm-up steps; each step ends in its one
+    host copy), flash launches a step, then a windowed actor on the same
+    weights for one Catch episode: decode launches and host ms a decode
+    call."""
+    import itertools
+
+    from repro_torch.core import VariableClient, make_environment_spec
+    from repro_torch.envs import Catch
+    from repro_torch.policies import (TransformerPolicyBuilder,
+                                      TransformerPolicyConfig, learning)
+
+    cfg = TransformerPolicyConfig(**POLICY_LEARNER)
+    spec = make_environment_spec(Catch())
+    learner = learning.make_learner(
+        spec, cfg, itertools.cycle(policy_batches(cfg, 10)),
+        torch.Generator().manual_seed(SEED),
+        priority_update_cb=lambda keys, priorities: None, device="cuda")
+    flash, decode = (next(k["wrapper"] for k in kernels if k["name"] == n)
+                     for n in ("flash_attention", "decode_attention"))
+    for _ in range(10):
+        learner.step()
+    torch.cuda.synchronize()
+    before = flash.launches
+    times = []
+    for _ in range(POLICY_TIMED_STEPS):
+        t0 = time.monotonic()
+        learner.step()
+        times.append((time.monotonic() - t0) * 1e3)
+    per_step = (flash.launches - before) / POLICY_TIMED_STEPS
+    check(per_step == 2 * cfg.num_layers, f"policy learner: {per_step} "
+          f"flash launches a step, expected {2 * cfg.num_layers}")
+
+    builder = TransformerPolicyBuilder(spec, cfg, seed=SEED, device="cuda")
+    actor = builder.make_actor(builder.make_policy(), VariableClient(learner),
+                               adder=None)
+    env = Catch(seed=SEED)
+    ts = env.reset()
+    actor.observe_first(ts)
+    actor.select_action(ts.observation)          # the episode's prefill
+    decode_launches, act_ms = [], []
+    while True:
+        ts = env.step(0)
+        if ts.last():
+            break
+        before = decode.launches
+        t0 = time.monotonic()
+        actor.select_action(ts.observation)
+        act_ms.append((time.monotonic() - t0) * 1e3)
+        decode_launches.append(decode.launches - before)
+    check(set(decode_launches) == {cfg.num_layers}, f"policy acting: decode "
+          f"launches a call {decode_launches}, expected {cfg.num_layers}")
+    out = {"learner_step_ms_p50": float(np.percentile(times, 50)),
+           "learner_step_ms_p95": float(np.percentile(times, 95)),
+           "flash_launches_per_learner_step": per_step,
+           "decode_launches_per_acting_call": cfg.num_layers,
+           "acting_call_ms_p50": float(np.percentile(act_ms, 50))}
+    log(f"  fig17-width learner (T {cfg.sequence_length}, B "
+        f"{cfg.batch_size}): {json.dumps(out)}")
+    # where a step's and an acting call's time goes (decode calls: each
+    # call is one step past the last, so it takes the decode path)
+    obs = np.zeros(OBS_SHAPE, np.float32)
+    out["profile"] = profile_calls(torch, {
+        "learner_step": learner.step,
+        "act": lambda: actor.select_action(obs)}, 20)
+    return out
+
+
+def policy_learner_parity(torch):
+    """Phase 15: the transformer policy's learner on the card (flash
+    attention on the kernel) against the same learner on the CPU (the plain
+    version) on the same 10 batches, at the served width and at the preset
+    (head_dim 16).  Step by step from the same state (the CPU's, copied to
+    the card before each step): losses, priorities and Adam's moments
+    within POLICY_TOL of the CPU's largest magnitude per leaf, params
+    within POLICY_PARAM_ATOL, one sync a card step.  Then 10 free-running
+    steps from the same init, gated at POLICY_DRIFT_TOL: there, weights
+    whose gradient is near Adam's eps differ by up to ~lr / 50 after a step
+    and feed later gradients, so differences grow step by step."""
+    from repro_torch import tree
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+    from repro_torch.policies import TransformerPolicyConfig, learning
+
+    spec = make_environment_spec(Catch())
+
+    def learners(cfg, batches, priorities):
+        return {side: learning.make_learner(
+            spec, cfg, iter(batches), torch.Generator().manual_seed(SEED),
+            priority_update_cb=lambda k, p, side=side:
+            priorities[side].append(p), device=device)
+            for side, device in (("card", "cuda"), ("cpu", "cpu"))}
+
+    def errors(card, cpu, losses, priorities, worst):
+        worst["loss"] = max([worst.get("loss", 0.0)] + [
+            rel_error(a, b) for a, b in losses])
+        worst["priorities"] = max([worst.get("priorities", 0.0)] + [
+            rel_error(a, b) for a, b in zip(priorities["card"],
+                                            priorities["cpu"])])
+        for name, a, b in (
+                ("params", card.params, cpu.params),
+                ("target_params", card.target_params, cpu.target_params),
+                ("mu", card.opt_state.mu, cpu.opt_state.mu),
+                ("nu", card.opt_state.nu, cpu.opt_state.nu)):
+            pairs = [(x.cpu().numpy(), y.numpy()) for x, y in
+                     zip(tree.leaves(a), tree.leaves(b))]
+            worst[name] = max([worst.get(name, 0.0)] + [
+                rel_error(x, y) for x, y in pairs])
+            if name in ("params", "target_params"):
+                worst["params_abs"] = max([worst.get("params_abs", 0.0)] + [
+                    float(np.abs(x - y).max()) for x, y in pairs])
+        return worst
+
+    def gate(worst, tol, what):
+        gated = {k: v for k, v in worst.items()
+                 if k not in ("params", "target_params", "params_abs")}
+        check(max(gated.values()) <= tol, f"{what}: {gated} > {tol}")
+        check(worst["params_abs"] <= POLICY_PARAM_ATOL, f"{what}: params "
+              f"differ by {worst['params_abs']} > {POLICY_PARAM_ATOL}")
+
+    out = {}
+    for label, kw in (("fig17", POLICY_LEARNER),
+                      ("preset_d16", dict(POLICY_PRESET,
+                                          target_update_period=3))):
+        cfg = TransformerPolicyConfig(**kw)
+        batches = policy_batches(cfg, 10, seed=SEED + 15)
+        # step by step from the CPU's state
+        priorities = {"card": [], "cpu": []}
+        pair = learners(cfg, batches, priorities)
+        syncs, per_step = [], {}
+        for _ in batches:
+            pair["card"].state = tree.map(lambda t: t.to("cuda"),
+                                          pair["cpu"].state)
+            syncs.append(sync_count(torch, pair["card"].step))
+            pair["cpu"].step()
+            errors(pair["card"].state, pair["cpu"].state,
+                   [(pair["card"].metrics["loss"],
+                     pair["cpu"].metrics["loss"])],
+                   {side: p[-1:] for side, p in priorities.items()},
+                   per_step)
+        check(all(n == 1 for n in syncs), f"policy learner parity {label}: "
+              f"a card step synced {syncs} times")
+        check(len(priorities["card"]) == len(batches),
+              f"policy learner parity {label}: priorities not sent a step")
+        gate(per_step, POLICY_TOL, f"policy learner parity {label}, step by "
+             f"step")
+        # free running from the same init
+        priorities = {"card": [], "cpu": []}
+        pair = learners(cfg, batches, priorities)
+        losses = []
+        for _ in batches:
+            pair["card"].step()
+            pair["cpu"].step()
+            losses.append((pair["card"].metrics["loss"],
+                           pair["cpu"].metrics["loss"]))
+        drift = errors(pair["card"].state, pair["cpu"].state, losses,
+                       priorities, {})
+        check(int(pair["card"].state.steps) == len(batches),
+              f"policy learner parity {label}: step counter")
+        log(f"  {label}: device syncs per card step {syncs}; max |d| / max "
+            f"|cpu| per leaf, step by step from the same state "
+            f"{json.dumps(per_step)}; after {len(batches)} free-running "
+            f"steps {json.dumps(drift)}; last loss {losses[-1][0]:.8f} vs "
+            f"{losses[-1][1]:.8f}")
+        gate(drift, POLICY_DRIFT_TOL, f"policy learner parity {label}, "
+             f"free running")
+        out[label] = {"syncs": syncs, "step_by_step": per_step,
+                      "free_running": drift}
+    return out
+
+
+# ------------------------------------------- R2D2, DQfD and R2D3 on the card
+def sequence_agents(torch, kernels):
+    """Phase 16: the reference's learning acceptances for R2D2
+    (tests/test_agents_learning.py), DQfD (the same file) and R2D3
+    (tests/test_r2d3.py), at their configs and seeds, on the card; their
+    learners run no kernel.  Prints each learner step's host ms."""
+    from repro_torch import tree
+    from repro_torch.agents import make_agent
+    from repro_torch.agents.dqfd import (DQfDBuilder, DQfDConfig,
+                                         generate_deep_sea_demos,
+                                         generate_sequence_demos)
+    from repro_torch.agents.r2d2 import R2D2Builder, R2D2Config
+    from repro_torch.agents.r2d3 import R2D3Builder, R2D3Config
+    from repro_torch.core import EnvironmentLoop, make_environment_spec
+    from repro_torch.envs import DeepSea, MemoryChain
+
+    def r2d2():
+        env = MemoryChain(memory_length=5, seed=3)
+        cfg = R2D2Config(sequence_length=6, period=3, burn_in=0,
+                         batch_size=16, min_replay_size=60,
+                         samples_per_insert=0, target_update_period=40,
+                         epsilon=0.15)
+        return env, R2D2Builder(make_environment_spec(env), cfg, seed=2,
+                                device="cuda"), 350
+
+    def dqfd():
+        env = DeepSea(size=6, seed=1)
+        demos = generate_deep_sea_demos(DeepSea(size=6, seed=1),
+                                        num_demos=20)
+        cfg = DQfDConfig(min_replay_size=60, samples_per_insert=0,
+                         batch_size=32, n_step=1, demo_ratio=0.5,
+                         epsilon=0.1)
+        return env, DQfDBuilder(make_environment_spec(env), demos, cfg,
+                                seed=0, device="cuda"), 250
+
+    def r2d3():
+        env = DeepSea(size=5, seed=1)
+        demos = generate_sequence_demos(
+            DeepSea(size=5, seed=1), lambda e: e.optimal_action(),
+            num_demos=15, sequence_length=5, period=4)
+        cfg = R2D3Config(sequence_length=5, period=4, burn_in=0,
+                         batch_size=16, min_replay_size=40,
+                         samples_per_insert=0, target_update_period=40,
+                         epsilon=0.1, demo_ratio=0.5)
+        return env, R2D3Builder(make_environment_spec(env), demos, cfg,
+                                seed=3, device="cuda"), 250
+
+    out = {}
+    for name, make in (("r2d2", r2d2), ("dqfd", dqfd), ("r2d3", r2d3)):
+        env, builder, episodes = make()
+        agent = make_agent(builder)
+        learner = agent.learner
+        step, step_ms = learner.step, []
+
+        def timed_step(step=step, step_ms=step_ms):
+            t0 = time.monotonic()
+            metrics = step()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            return metrics
+
+        learner.step = timed_step
+        for kernel in kernels:
+            kernel["wrapper"].launches = 0
+        loop = EnvironmentLoop(env, agent)
+        t0 = time.monotonic()
+        rets = [loop.run_episode()["episode_return"] for _ in range(episodes)]
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+        steps = int(learner.state.steps)
+        if name == "r2d2":
+            score, gate, what = float(np.mean(rets[-60:])), 0.3, \
+                "mean return of the last 60"
+        else:
+            score, gate, what = float(np.mean(np.asarray(rets[-50:]) > 0.5)), \
+                0.2, "treasure share of the last 50"
+        entry = {"episodes": episodes, "learner_steps": steps,
+                 "seconds": seconds, what: score,
+                 "learner_step_ms_p50": float(np.percentile(step_ms, 50)),
+                 "learner_step_ms_p95": float(np.percentile(step_ms, 95)),
+                 "launches": launches}
+        log(f"  {name}: {json.dumps(entry)}")
+        check(steps == len(step_ms) > 0, f"{name}: {steps} learner steps, "
+              f"{len(step_ms)} timed")
+        check(all(n == 0 for n in launches.values()),
+              f"{name} launched a kernel: {launches}")
+        check(all(t.device.type == "cuda"
+                  for t in tree.leaves(learner.state)),
+              f"{name}: the learner's state is not on the card")
+        check(score > gate, f"{name} (the reference's acceptance): {what} "
+              f"is {score}, not > {gate}")
+        out[name] = entry
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1920,6 +2446,11 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    start = time.monotonic()
+
+    def phase(message):
+        """A phase's heading, with the seconds since the script began."""
+        log(f"{message} [t = {time.monotonic() - start:.1f} s]")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1944,7 +2475,7 @@ def main() -> int:
                    (ssd_module, ssd_module.ssd_scan))]
     zamba = configs.get_arch(ZAMBA)
 
-    log("phase 1: build")
+    phase("phase 1: build")
     t0 = time.monotonic()
     report = build.build([k["name"] for k in kernels])
     log(f"  built {len(report)} kernel libraries in "
@@ -1955,7 +2486,7 @@ def main() -> int:
         log(f"  {name}: nvcc {entry['seconds']:.2f} s; ptxas: "
             f"{'; '.join(sorted(set(usage)))}")
 
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     decode = decode_module.decode_attention
     vtrace = vtrace_module.vtrace
     plan_splits = decode_module.plan_splits
@@ -1969,14 +2500,14 @@ def main() -> int:
 
     policy_cfg = TransformerPolicyConfig(
         **POLICY, epsilon=0.1, backend="auto")
-    log("phase 3: engine parity (kernel vs plain) at the served width")
+    phase("phase 3: engine parity (kernel vs plain) at the served width")
     engine_parity(torch, TransformerPolicyConfig(**POLICY, epsilon=0.0))
 
-    log(f"phase 4: serving path — {CLIENTS} Catch clients x {EPISODES} "
+    phase(f"phase 4: serving path — {CLIENTS} Catch clients x {EPISODES} "
         f"episodes through TransformerInferenceServer")
     path = serving_path(torch, policy_cfg, kernels)
 
-    log("phase 5: timing at the main paths' shapes")
+    phase("phase 5: timing at the main paths' shapes")
     floor = launch_floor(torch)
     log(f"  launch floor (one add_ on one element) {json.dumps(floor)}")
     stats = path["stats"]
@@ -2004,41 +2535,61 @@ def main() -> int:
             f"{entry['bound_ms'] / entry['ms']:.3f} of its bound")
     flash_timed = time_flash(flash, ref, torch, zamba)
     log(f"  flash_attention {json.dumps(flash_timed)}")
+    flash_policy = time_flash_policy(flash, ref, torch)
+    log(f"  flash_attention at the policy learner's shape "
+        f"{json.dumps(flash_policy)}; "
+        f"{flash_policy['ms'] / floor['launch_floor_ms']:.2f}x the launch "
+        f"floor")
     ssd_timed = time_ssd(ssd, ref, torch, zamba)
     log(f"  ssd_scan {json.dumps(ssd_timed)}")
 
-    log(f"phase 6: IMPALA path — make_agent(IMPALABuilder) over "
+    phase(f"phase 6: IMPALA path — make_agent(IMPALABuilder) over "
         f"{IMPALA_ENVS} Catch envs, {IMPALA_EPISODES} episodes")
     impala = impala_path(torch, kernels)
 
-    log("phase 7: IMPALA learner parity (V-trace kernel vs plain)")
+    phase("phase 7: IMPALA learner parity (V-trace kernel vs plain)")
     learner_parity(torch, vtrace)
 
-    log("phase 8: IMPALA learns Catch (the reference's acceptance)")
+    phase("phase 8: IMPALA learns Catch (the reference's acceptance)")
     learning(torch, vtrace)
 
-    log(f"phase 9: scoring path — make_prefill_step({ZAMBA}) at full width "
+    phase(f"phase 9: scoring path — make_prefill_step({ZAMBA}) at full width "
         f"and depth, {ZAMBA_BATCHES} batches of {ZAMBA_BATCH} x {ZAMBA_SEQ} "
         f"tokens")
     scoring = zamba2_path(torch, kernels, zamba)
 
-    log("phase 10: scoring path, kernel route vs plain route")
+    phase("phase 10: scoring path, kernel route vs plain route")
     zamba2_parity(torch, zamba, scoring)
 
-    log(f"phase 11: DQN path — run_experiment with the quickstart's config "
+    phase(f"phase 11: DQN path — run_experiment with the quickstart's config "
         f"on the card, {DQN_EPISODES} episodes")
     dqn = dqn_path(torch, kernels)
     dqn["profile"] = dqn_profile(torch)
     log(f"  dqn_path {json.dumps(dqn)}")
 
-    log("phase 12: DQN learner parity (card vs CPU), and where a step's "
+    phase("phase 12: DQN learner parity (card vs CPU), and where a step's "
         "time goes")
     dqn_learner_parity(torch)
     dqn["steps"] = dqn_step_profile(torch)
     log(f"  dqn_steps {json.dumps(dqn['steps'])}")
 
-    log("phase 13: gradients through flash attention and the SSD scan")
+    phase("phase 13: gradients through flash attention and the SSD scan")
     grads = kernel_grads(torch, kernels, zamba)
+
+    phase(f"phase 14: the transformer policy learns Catch on the card — "
+        f"run_experiment(TransformerPolicyBuilder), the reference "
+        f"acceptance's preset, {POLICY_EPISODES} episodes; then the learner "
+        f"at the served width")
+    policy = policy_path(torch, kernels)
+    policy["fig17_learner"] = policy_learner_profile(torch, kernels)
+    log(f"  policy_path {json.dumps(policy)}")
+
+    phase("phase 15: the transformer policy's learner, card vs CPU")
+    policy["parity"] = policy_learner_parity(torch)
+
+    phase("phase 16: R2D2, DQfD and R2D3 learn on the card (the reference's "
+        "acceptances)")
+    sequence_agents(torch, kernels)
 
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
@@ -2054,6 +2605,12 @@ def main() -> int:
         "eager_library_ms": timed["eager_library_ms"],
         "cuda_launches_per_call": timed["cuda_launches_per_call"],
         "shape": timed["shape"],
+        "launches_by_path": {
+            "serving": path["launches"]["decode_attention"],
+            "transformer_policy_catch": policy["launches"][
+                "decode_attention"]},
+        "launches_per_acting_call_fig17": policy["fig17_learner"][
+            "decode_launches_per_acting_call"],
         "long_cache": {key: long_cache[key] for key in (
             "shape", "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "cuda_launches_per_call", "device_ms_by_kernel",
@@ -2096,6 +2653,12 @@ def main() -> int:
             grads["q_sequence"]["launches"]["flash_attention"]
             + grads["zamba2_reduced"]["launches"]["flash_attention"]),
         "backward": grads["flash_attention"],
+        "launches_by_path": {
+            "scoring": scoring["launches"]["flash_attention"],
+            "transformer_policy_catch": policy["launches"][
+                "flash_attention"]},
+        "policy_learner": dict(flash_policy, launches_per_learner_step=(
+            policy["fig17_learner"]["flash_launches_per_learner_step"])),
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": kernels[3]["source"], "replaces": kernels[3]["replaces"],
@@ -2113,6 +2676,7 @@ def main() -> int:
             "ssd_scan"],
         "backward": grads["ssd_scan"],
     }]
+    log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))
     log(json.dumps({"ok": True, "device": {

@@ -224,8 +224,8 @@ class AgentBuilder(abc.ABC):
         """A custom inference service for ``inference="server"`` programs.
 
         The generic feed-forward ``InferenceServer`` and the distributed
-        programs that place it come with later slices (ROADMAP slices 4
-        and 7), so the default raises.
+        programs that place it come with ROADMAP slice 7, so the default
+        raises.
         """
         raise NotImplementedError(
             f"{type(self).__name__}: inference='server' needs the "
@@ -233,11 +233,11 @@ class AgentBuilder(abc.ABC):
 
     def make_inference_actor(self, inference, adder=None, adders=None):
         """The actor-side client for an inference service node; the default
-        raises until the inference client actor is ported (ROADMAP slice 4).
+        raises until the inference client actor is ported (ROADMAP slice 7).
         """
         raise NotImplementedError(
             f"{type(self).__name__}: the inference client actor comes with "
-            "ROADMAP slice 4")
+            "ROADMAP slice 7")
 
 
 def registered_builders() -> List[Type[AgentBuilder]]:

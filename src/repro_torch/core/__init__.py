@@ -2,7 +2,8 @@
 and the batching server (the parts the ported slices need)."""
 from repro_torch.builders import AgentBuilder, BuilderOptions  # noqa: F401
 from repro_torch.core.actors import (  # noqa: F401
-    BatchedFeedForwardActor, FeedForwardActor)
+    BatchedFeedForwardActor, BatchedRecurrentActor, FeedForwardActor,
+    RecurrentActor)
 from repro_torch.core.agent import Agent  # noqa: F401
 from repro_torch.core.interfaces import Actor, Learner, VariableSource, Worker  # noqa: F401
 from repro_torch.core.loop import (  # noqa: F401

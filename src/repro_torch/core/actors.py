@@ -1,10 +1,13 @@
-"""Generic actors (§2.3): feed-forward, and its batched form.
+"""Generic actors (§2.3): feed-forward, recurrent, and their batched forms.
 
 A ``FeedForwardActor`` evaluates a policy function and forwards its
-observations to an adder.  It pulls weights from a ``VariableClient`` on
-``update()`` — it never owns the learner.  The client hands out numpy
-trees; the actor keeps one copy of them on its device and copies again only
-when the client's params object changes.
+observations to an adder; a ``RecurrentActor`` additionally threads a
+recurrent core state between ``select_action`` calls and hands the state
+at episode starts to its adder as numpy extras (R2D2's stale-state
+mechanism).  Both pull weights from a ``VariableClient`` on ``update()`` —
+they never own the learner.  The client hands out numpy trees; an actor
+keeps one copy of them on its device and copies again only when the
+client's params object changes.
 
 A policy is written over a leading batch axis (``vmap`` of the reference,
 written out): ``policy(params, generator, obs)`` takes stacked observations
@@ -12,13 +15,15 @@ written out): ``policy(params, generator, obs)`` takes stacked observations
 tuple of tensors, each with N rows.  ``FeedForwardActor`` calls it with
 N = 1 and returns row 0; ``BatchedFeedForwardActor`` drives N environments
 through ONE call per step and fans transitions out to N per-env adders via
-the ``env_id`` argument on ``observe``/``observe_first``.
+the ``env_id`` argument on ``observe``/``observe_first``.  A recurrent
+policy takes and returns the core state too, ``policy(params, generator,
+obs, state) -> (actions, state)``, each state leaf with N rows.
 
 Random draws come from a ``torch.Generator`` on the actor's device, seeded
 with ``seed * STEP_MOD + step`` before each call, as the reference folds
 the step counter into its key on the device: a step's draws do not depend
 on the steps before it, and the step counter is the whole RNG state.
-Recurrent and inference-client actors come with later slices.
+The inference-client actor comes with the distributed slice.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.core.variable import VariableClient
 if TYPE_CHECKING:  # avoid core <-> adders circular import at runtime
     from repro_torch.adders.base import Adder
 
-PolicyFn = Callable[..., Any]   # (params, generator, obs) -> action(s)
+PolicyFn = Callable[..., Any]   # (params, generator, obs[, state]) -> ...
 
 # Batch and step counters wrap here, so a seed derived from them stays in
 # range however long a run lasts.
@@ -95,10 +100,10 @@ class _PolicyRunner:
             self._host_params = host
         return self._params
 
-    def __call__(self, observation):
+    def __call__(self, observation, *rest):
         self._generator.manual_seed(self._seed * STEP_MOD + self.steps)
         obs = torch.as_tensor(np.asarray(observation), device=self._device)
-        out = self._policy(self.params(), self._generator, obs)
+        out = self._policy(self.params(), self._generator, obs, *rest)
         self.steps = (self.steps + 1) % STEP_MOD
         return out
 
@@ -133,6 +138,57 @@ class FeedForwardActor(Actor):
     def state_dict(self):
         # steps is the whole RNG stream: each step's generator is seeded
         # from (seed, step).
+        return {"steps": self._run.steps, "client": self._client.state_dict()}
+
+    def load_state_dict(self, state):
+        self._run.steps = int(state["steps"])
+        self._client.load_state_dict(state["client"])
+
+
+class RecurrentActor(Actor):
+    """One environment through a recurrent policy: the core state, on the
+    actor's device, starts from ``initial_state_fn()`` (one row) at each
+    episode and goes through every ``select_action`` call."""
+
+    def __init__(self, policy: PolicyFn, initial_state_fn: Callable[[], Any],
+                 variable_client: VariableClient,
+                 adder: Optional["Adder"] = None, rng_seed: int = 0,
+                 store_state: bool = True, device="cuda"):
+        self._run = _PolicyRunner(policy, variable_client, rng_seed, device)
+        self._initial_state_fn = initial_state_fn
+        self._client = variable_client
+        self._adder = adder
+        self._adder_extras = adder_takes_extras(adder)
+        self._state = None
+        self._store_state = store_state
+
+    def select_action(self, observation):
+        if self._state is None:
+            self._state = self._initial_state_fn()
+        action, self._state = self._run(np.asarray(observation)[None],
+                                        self._state)
+        return to_host(action)[0]
+
+    def observe_first(self, timestep: TimeStep):
+        self._state = self._initial_state_fn()
+        if self._adder:
+            if self._adder_extras and self._store_state:
+                # the state at the sequence's start, as numpy
+                self._adder.add_first(timestep, to_host(self._state))
+            else:
+                self._adder.add_first(timestep)
+
+    def observe(self, action, next_timestep: TimeStep):
+        if self._adder:
+            self._adder.add(action, next_timestep)
+
+    def update(self, wait: bool = False):
+        self._client.update(wait)
+
+    def state_dict(self):
+        # Captured at an episode boundary, so the recurrent core state is
+        # about to be re-initialized by observe_first — only the RNG step
+        # counter and weight-fetch cadence need to survive.
         return {"steps": self._run.steps, "client": self._client.state_dict()}
 
     def load_state_dict(self, state):
@@ -184,3 +240,46 @@ class BatchedFeedForwardActor(Actor):
     def load_state_dict(self, state):
         self._run.steps = int(state["steps"])
         self._client.load_state_dict(state["client"])
+
+
+class BatchedRecurrentActor(BatchedFeedForwardActor):
+    """Batched recurrent acting: the core state of N envs, N rows a leaf,
+    threaded through one policy call; an env's row resets on that env's
+    ``observe_first`` (the auto-reset boundary)."""
+
+    def __init__(self, policy: PolicyFn, initial_state_fn: Callable[[], Any],
+                 variable_client: VariableClient,
+                 adders: Optional[Sequence[Optional["Adder"]]] = None,
+                 rng_seed: int = 0, store_state: bool = True,
+                 device="cuda"):
+        super().__init__(policy, variable_client, adders, rng_seed, device)
+        self._initial_state_fn = initial_state_fn
+        self._store_state = store_state
+        self._state = None
+        self._adders_extras = [adder_takes_extras(a) for a in self._adders]
+
+    def _stacked_initial_state(self, num_envs: int):
+        """``initial_state_fn()``'s one row, repeated for each env."""
+        return tree.map(lambda x: torch.cat([x] * num_envs),
+                        self._initial_state_fn())
+
+    def select_action(self, observation):
+        observation = np.asarray(observation)
+        if self._state is None:
+            self._state = self._stacked_initial_state(observation.shape[0])
+        actions, self._state = self._run(observation, self._state)
+        return to_host(actions)
+
+    def observe_first(self, timestep: TimeStep, env_id: int = 0):
+        if self._state is not None:
+            # reset just this env's row of the stacked core state
+            for row, init in zip(tree.leaves(self._state),
+                                 tree.leaves(self._initial_state_fn())):
+                row[env_id] = init[0]
+        adder = self._adder(env_id)
+        if adder:
+            if (env_id < len(self._adders_extras)
+                    and self._adders_extras[env_id] and self._store_state):
+                adder.add_first(timestep, to_host(self._initial_state_fn()))
+            else:
+                adder.add_first(timestep)

@@ -45,7 +45,10 @@
 //   column t stands for key 2t and column t + 4 for key 2t + 1, and V's
 //   rows are read in the same order;
 // - masks are applied only on tiles that need them, and key tiles that the
-//   causal mask or the window empties for the whole query tile are skipped.
+//   causal mask or the window empties for the whole query tile are skipped;
+// - head dims 16, 32, 64 and 128: at d = 16 a row is 64 bytes in f32 and
+//   32 in bf16, whole 16-byte cp.async chunks either way, and S = Q.K^T
+//   takes two k-steps of 8 (the transformer policy's preset runs there).
 // wgmma (which needs V transposed in shared memory for TF32), TMA and warp
 // specialisation are later work.
 
@@ -364,6 +367,9 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               int kv, int sq, int sk, int d, int causal,
                               int window, float scale, cudaStream_t stream) {
   switch (d) {
+    case 16:
+      return launch<T, 16>(q, k, v, out, strides, b, h, kv, sq, sk, causal,
+                           window, scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, out, strides, b, h, kv, sq, sk, causal,
                            window, scale, stream);

@@ -25,7 +25,7 @@ from repro_torch.kernels import build, ref
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:28"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535          # the grid's y (heads) and z (batch) extents
 _INT_MAX = 2 ** 31 - 1

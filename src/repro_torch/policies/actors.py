@@ -1,18 +1,19 @@
 """Actors that feed observation windows to a transformer policy.
 
-Both actors keep the same tiny piece of host state per environment — a
-``_WindowBuffer`` holding the last W observations left-aligned — and differ
-only in where the forward pass runs:
+All three actors keep the same tiny piece of host state per environment —
+a ``_WindowBuffer`` holding the last W observations left-aligned — and
+differ only in where the forward pass runs:
 
 - ``WindowedPolicyActor``: single env, local ``PolicyEngine`` (one cache
   slot) — incremental KV-cache decode without any server.
+- ``BatchedWindowedPolicyActor``: N envs through one engine call per tick
+  (the vectorized-acting contract of ``BatchedFeedForwardActor``).
 - ``WindowedInferenceClientActor``: SEED-style client; windows go to a
   ``TransformerInferenceServer`` which owns weights, caches, and the CUDA
   decode kernel.
 
-(The vectorized ``BatchedWindowedPolicyActor`` comes with the batched-acting
-slice.)  Cache-slot keys are stable per environment; episode ends need no
-RPC — the engine sees the position drop back to 0 (≠ ``slot.pos + 1``) and
+Cache-slot keys are stable per environment; episode ends need no RPC —
+the engine sees the position drop back to 0 (≠ ``slot.pos + 1``) and
 recycles the slot in place via the prefill path.
 """
 from __future__ import annotations
@@ -79,6 +80,45 @@ class WindowedPolicyActor(Actor):
     def observe(self, action, next_timestep: TimeStep):
         if self._adder:
             self._adder.add(action, next_timestep)
+
+    def update(self, wait: bool = False):
+        self._client.update(wait)
+
+
+class BatchedWindowedPolicyActor(Actor):
+    """N envs, one ``PolicyEngine.select`` per tick (vectorized acting)."""
+
+    def __init__(self, engine, variable_client, adders):
+        self._engine = engine
+        self._client = variable_client
+        self._adders = list(adders)
+        self._buffers = [_WindowBuffer(engine.window, engine.obs_shape)
+                         for _ in range(len(self._adders))]
+
+    def _adder(self, env_id: int):
+        return self._adders[env_id] if env_id < len(self._adders) else None
+
+    def select_action(self, observation):
+        obs = np.asarray(observation)
+        keys, windows, positions = [], [], []
+        for i in range(obs.shape[0]):
+            self._buffers[i].push(obs[i])
+            keys.append(f"env{i}")
+            windows.append(self._buffers[i].window_array())
+            positions.append(self._buffers[i].t)
+        return self._engine.select(self._client.params, keys,
+                                   np.stack(windows), positions)
+
+    def observe_first(self, timestep: TimeStep, env_id: int = 0):
+        self._buffers[env_id].reset()
+        adder = self._adder(env_id)
+        if adder:
+            adder.add_first(timestep)
+
+    def observe(self, action, next_timestep: TimeStep, env_id: int = 0):
+        adder = self._adder(env_id)
+        if adder:
+            adder.add(action, next_timestep)
 
     def update(self, wait: bool = False):
         self._client.update(wait)

@@ -1,14 +1,20 @@
-"""The acting half of ``repro.policies.builder``: ``TransformerPolicy``.
+"""``TransformerPolicyBuilder``: the transformer policy as an Acme agent.
 
-``TransformerPolicyBuilder`` (replay, adders, the sequence double-DQN
-learner) comes with the training slice; until then a caller builds the
-policy from ``network.make_arch`` and a ``TransformerPolicyConfig``.
+Implements the ``AgentBuilder`` protocol: a sequence adder through the
+prioritized replay, the sequence double-DQN learner over replayed windows
+(flash attention on the card), and windowed actors running incremental
+KV-cache decode through a ``PolicyEngine`` (decode attention on the card).
+The ``inference="server"`` hooks raise until the distributed programs are
+ported (ROADMAP slice 7).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.policies import network
+from repro_torch.builders import AgentBuilder, BuilderOptions
+from repro_torch.core.types import EnvironmentSpec
+from repro_torch.policies import learning, network
+from repro_torch.policies.config import TransformerPolicyConfig
 from repro_torch.policies.engine import PolicyEngine
 
 
@@ -56,3 +62,72 @@ class TransformerPolicy:
                             backend=self.backend,
                             slot_timeout_s=self.slot_timeout_s,
                             rng_seed=rng_seed, device=device)
+
+
+class TransformerPolicyBuilder(AgentBuilder):
+    """DQN-style agent whose Q-network is a windowed transformer."""
+
+    def __init__(self, spec: EnvironmentSpec,
+                 cfg: TransformerPolicyConfig = None, seed: int = 0,
+                 device="cuda"):
+        cfg = cfg or TransformerPolicyConfig()
+        super().__init__(BuilderOptions(
+            variable_update_period=10,
+            min_observations=cfg.min_replay_size,
+            observations_per_step=max(float(cfg.period), 1.0),
+            batch_size=cfg.batch_size), device=device)
+        self.spec = spec
+        self.cfg = cfg
+        self.seed = seed
+        self.num_actions = spec.actions.num_values
+        self.arch = network.make_arch(cfg, self.num_actions)
+
+    # ------------------------------------------------------- replay pipeline
+    def make_replay(self):
+        from repro_torch import replay as r
+        cfg = self.cfg
+        if cfg.samples_per_insert > 0:
+            limiter = r.SampleToInsertRatio(
+                cfg.samples_per_insert, cfg.min_replay_size // cfg.period + 1,
+                error_buffer=max(2 * cfg.samples_per_insert * cfg.batch_size,
+                                 100))
+        else:
+            limiter = r.MinSize(max(cfg.min_replay_size // cfg.period, 1))
+        return r.Table("replay", cfg.max_replay_size, r.Prioritized(),
+                       limiter)
+
+    def make_adder(self, table):
+        from repro_torch.adders.sequence import SequenceAdder
+        return SequenceAdder(table, self.cfg.sequence_length,
+                             period=self.cfg.period, priority=100.0)
+
+    def make_dataset(self, table):
+        from repro_torch.replay import as_iterator
+        return as_iterator(table, self.cfg.batch_size)
+
+    def make_learner(self, iterator, priority_update_cb=None):
+        return learning.make_learner(self.spec, self.cfg, iterator,
+                                     torch.Generator().manual_seed(self.seed),
+                                     priority_update_cb=priority_update_cb,
+                                     device=self.device)
+
+    # --------------------------------------------------------------- acting
+    def make_policy(self, evaluation: bool = False):
+        return TransformerPolicy(
+            self.arch, self.spec.observations.shape, self.num_actions,
+            epsilon=0.0 if evaluation else self.cfg.epsilon,
+            backend=self.cfg.backend, cache_slots=self.cfg.cache_slots,
+            slot_timeout_s=self.cfg.slot_timeout_s)
+
+    def make_actor(self, policy, variable_client, adder, seed: int = 0):
+        from repro_torch.policies.actors import WindowedPolicyActor
+        engine = policy.make_engine(num_slots=1, rng_seed=seed,
+                                    device=self.device)
+        return WindowedPolicyActor(engine, variable_client, adder)
+
+    def make_batched_actor(self, policy, variable_client, adders,
+                           seed: int = 0):
+        from repro_torch.policies.actors import BatchedWindowedPolicyActor
+        engine = policy.make_engine(num_slots=max(len(adders), 1),
+                                    rng_seed=seed, device=self.device)
+        return BatchedWindowedPolicyActor(engine, variable_client, adders)

@@ -21,7 +21,8 @@ Weight refresh detection is object identity on ``params`` (a
 ``VariableClient`` only rebinds ``.params`` when it actually fetched new
 weights): a refresh bumps the pool generation, so every live slot
 re-prefills before its next decode rather than mixing stale K/V into fresh
-queries.
+queries.  ``params`` may be tensors or the numpy trees a learner hands its
+clients; the engine copies them to its device once per refresh.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core.actors import STEP_MOD
 from repro_torch.models.config import ArchConfig
 from repro_torch.policies import network
@@ -70,6 +72,7 @@ class PolicyEngine:
         self._generator = torch.Generator(device=self.device)
         self._step = 0
         self._last_params = None
+        self._params = None           # _last_params on the device
         self._stats = {"prefill_rows": 0, "decode_rows": 0,
                        "prefill_batches": 0, "decode_batches": 0,
                        "cache_invalidations": 0, "stale_reprefills": 0}
@@ -132,6 +135,9 @@ class PolicyEngine:
                 self.pool.invalidate_all()
                 self._stats["cache_invalidations"] += 1
             self._last_params = params
+            self._params = tree.map(
+                lambda x: torch.as_tensor(x, device=self.device), params)
+        params = self._params
 
         windows = np.asarray(windows, np.float32)
         positions = np.asarray(positions, np.int64)

@@ -22,15 +22,16 @@ from repro.core import make_environment_spec as jax_spec
 from repro.envs import Catch as JaxCatch
 from repro.replay import ReplaySample as JaxReplaySample
 from repro.replay import SampleInfo as JaxSampleInfo
+import repro_torch.policies  # noqa: F401  (registers TransformerPolicyBuilder)
 from repro_torch import tree
-from repro_torch.agents import common, dqn, impala, make_agent
+from repro_torch.agents import common, dqfd, dqn, impala, make_agent, r2d2, r2d3
 from repro_torch.builders import (AgentBuilder, BuilderOptions,
                                   registered_builders)
 from repro_torch.core import (Agent, EnvironmentLoop, VariableClient,
                               VariableSource, VectorizedEnvironmentLoop,
                               make_environment_spec)
 from repro_torch.core.actors import BatchedFeedForwardActor, FeedForwardActor
-from repro_torch.envs import Catch, VectorEnv, split_timestep
+from repro_torch.envs import Catch, DeepSea, VectorEnv, split_timestep
 from repro_torch.replay import ReplaySample, SampleInfo
 
 CPU = "cpu"
@@ -489,6 +490,51 @@ def test_make_agent_takes_learner_average_period(period):
 
 
 # ------------------------------------------------------------- builder API
+def _make_dqfd():
+    demos = dqfd.generate_deep_sea_demos(DeepSea(size=4, seed=0),
+                                         num_demos=4)
+    cfg = dqfd.DQfDConfig(min_replay_size=8, samples_per_insert=0.0,
+                          batch_size=8, n_step=1, demo_ratio=0.5)
+    spec = make_environment_spec(DeepSea(size=4, seed=0))
+    return (dqfd.DQfDBuilder(spec, demos, cfg, seed=0, device=CPU),
+            DeepSea(size=4, seed=0))
+
+
+def _make_r2d2():
+    cfg = r2d2.R2D2Config(sequence_length=4, period=2, burn_in=0,
+                          batch_size=4, min_replay_size=4,
+                          samples_per_insert=0.0)
+    return r2d2.R2D2Builder(_spec(), cfg, seed=0, device=CPU), Catch(seed=0)
+
+
+def _make_r2d3():
+    env = DeepSea(size=4, seed=0)
+    demos = dqfd.generate_sequence_demos(DeepSea(size=4, seed=0),
+                                         lambda e: e.optimal_action(),
+                                         num_demos=4, sequence_length=4,
+                                         period=3)
+    cfg = r2d3.R2D3Config(sequence_length=4, period=3, burn_in=0,
+                          batch_size=4, min_replay_size=4,
+                          samples_per_insert=0.0, demo_ratio=0.5)
+    return (r2d3.R2D3Builder(make_environment_spec(env), demos, cfg, seed=0,
+                             device=CPU), DeepSea(size=4, seed=0))
+
+
+def _make_transformer_policy():
+    from repro_torch.policies import (TransformerPolicyBuilder,
+                                      TransformerPolicyConfig)
+    # the reference's factory uses backend "jnp", the port's "grouped"
+    cfg = TransformerPolicyConfig(num_layers=1, d_model=32, num_heads=2,
+                                  num_kv_heads=1, head_dim=16, d_ff=64,
+                                  window=4, sequence_length=4, period=2,
+                                  batch_size=4, min_replay_size=4,
+                                  samples_per_insert=0.0, backend="grouped")
+    return (TransformerPolicyBuilder(_spec(), cfg, seed=0, device=CPU),
+            Catch(seed=0))
+
+
+# The port's mirror of the reference's FACTORIES
+# (tests/test_builders_api.py), for the builders ported so far.
 FACTORIES = {
     "IMPALABuilder": lambda: (impala.IMPALABuilder(
         _spec(), impala.IMPALAConfig(sequence_length=3, batch_size=2),
@@ -496,6 +542,10 @@ FACTORIES = {
     "DQNBuilder": lambda: (dqn.DQNBuilder(
         _spec(), dqn.DQNConfig(batch_size=4, min_replay_size=10),
         seed=0, device=CPU), Catch(seed=0)),
+    "DQfDBuilder": _make_dqfd,
+    "R2D2Builder": _make_r2d2,
+    "R2D3Builder": _make_r2d3,
+    "TransformerPolicyBuilder": _make_transformer_policy,
 }
 
 

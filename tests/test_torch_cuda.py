@@ -415,8 +415,8 @@ def test_flash_kernel_rejects_unsupported_inputs(cuda_device):
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      flash_attention)
     before = flash_attention.launches
-    assert 16 not in HEAD_DIMS
-    q, k, v = _flash_inputs(1, 2, 2, 64, 64, 16, torch.float32, cuda_device)
+    assert 48 not in HEAD_DIMS
+    q, k, v = _flash_inputs(1, 2, 2, 64, 64, 48, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, k, v)
     q, k, v = _flash_inputs(1, 4, 3, 64, 64, 64, torch.float32, cuda_device)
@@ -919,3 +919,126 @@ def test_dqn_learner_step_syncs_once_and_matches_the_cpu(cuda_device):
                     tree.leaves(cpu.state.params)):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------ the transformer policy's learner
+FLASH_D16_SEQS = [1, 7, 16, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", FLASH_D16_SEQS)
+@pytest.mark.parametrize("window", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_16_matches_plain_version(cuda_device, s,
+                                                        window, dtype):
+    """d = 16, the reference acceptance preset's head dim: 64-byte f32 and
+    32-byte bf16 rows (whole 16-byte copies), two k-steps of S = Q.K^T,
+    windows of 4 and 8 that mask whole key groups, GQA 2:1."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+    assert 16 in HEAD_DIMS
+    q, k, v = _flash_inputs(3, 4, 2, s, s, 16, dtype, cuda_device,
+                            seed=s + window)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    expected = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), expected.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,window", [(10, 4), (16, 8), (33, 4)])
+def test_flash_grads_at_head_dim_16_match_the_plain_route(cuda_device, s,
+                                                          window):
+    """FlashAttentionFunction at d = 16: one forward launch and the plain
+    route's gradients."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    inputs = [t.requires_grad_() for t in _flash_inputs(
+        8, 2, 1, s, s, 16, torch.float32, cuda_device, seed=s)]
+    before = flash_attention.launches
+    out = ops.flash_attention(*inputs, causal=True, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    grads = _grads_of([out], inputs)
+    assert flash_attention.launches == before + 1
+    plain = ref.flash_attention_ref(*inputs, causal=True, window=window)
+    _assert_grads_close(grads, _grads_of([plain], inputs))
+
+
+def _policy_sequences(batch, T, seed):
+    from repro_torch.replay import ReplaySample, SampleInfo
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(2, T + 1, batch)
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    starts = np.zeros((batch, T), bool)
+    starts[:, 0] = rng.rand(batch) < 0.5
+    data = {"observation": ((rng.rand(batch, T, *OBS_SHAPE) < 0.04)
+                            * mask[..., None, None]).astype(np.float32),
+            "action": rng.randint(0, 3, (batch, T)).astype(np.int32),
+            "reward": rng.choice([-1.0, 0.0, 1.0], (batch, T)
+                                 ).astype(np.float32),
+            "discount": mask.copy(), "start_of_episode": starts,
+            "mask": mask}
+    return ReplaySample(SampleInfo(np.arange(batch) + batch * seed,
+                                   rng.rand(batch) * 0.01 + 1e-4), data)
+
+
+@pytest.mark.parametrize("head_dim", [16, 64])
+@pytest.mark.cuda
+def test_transformer_learner_on_the_card_matches_the_cpu(cuda_device,
+                                                         head_dim):
+    """The sequence double-DQN learner on the card (flash forward through
+    the kernel, one launch a layer for each of the online and the target
+    pass) against the same learner on the CPU, each step from the CPU's
+    state on the same batch: the loss and Adam's first moments within 1e-5
+    of their largest magnitude per leaf, the second moments (squared
+    gradients, so twice the relative error; 1.04e-5 seen at head_dim 16 on
+    a leaf whose largest is 9e-8, NVIDIA H100 80GB HBM3) within 2e-5,
+    params within 1e-4 (a tenth of one Adam step: a gradient near Adam's
+    eps moves its weight by lr g / (|g| + eps)); one sync a step."""
+    from repro_torch import tree
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.policies import learning
+
+    cfg = TransformerPolicyConfig(num_layers=2, d_model=64, num_heads=4,
+                                  num_kv_heads=2, head_dim=head_dim,
+                                  d_ff=128, window=8, sequence_length=16,
+                                  batch_size=16, target_update_period=3)
+    batches = [_policy_sequences(16, 16, i) for i in range(5)]
+    spec = make_environment_spec(Catch())
+    card, cpu = (learning.make_learner(spec, cfg, iter(batches),
+                                       torch.Generator().manual_seed(0),
+                                       priority_update_cb=lambda k, p: None,
+                                       device=device)
+                 for device in (cuda_device, "cpu"))
+    for i in range(len(batches)):
+        card.state = tree.map(lambda t: t.to(cuda_device), cpu.state)
+        torch.cuda.synchronize()
+        before = flash_attention.launches
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                card.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert flash_attention.launches - before == 2 * cfg.num_layers
+        syncs = [w for w in caught if "synchronizing CUDA" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+        cpu.step()
+        loss, cpu_loss = card.metrics["loss"], cpu.metrics["loss"]
+        assert abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+        for field, tol in (("mu", 1e-5), ("nu", 2e-5)):
+            for a, b in zip(tree.leaves(getattr(card.state.opt_state,
+                                                field)),
+                            tree.leaves(getattr(cpu.state.opt_state,
+                                                field))):
+                assert a.device.type == "cuda"
+                assert float((a.cpu() - b).abs().max()) <= \
+                    tol * float(b.abs().max())
+        for a, b in zip(tree.leaves(card.state.params),
+                        tree.leaves(cpu.state.params)):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)

@@ -224,3 +224,125 @@ def test_telemetry_registry_matches_reference():
     disabled = registry.MetricRegistry(enabled=False)
     assert not disabled.histogram("x")
     assert disabled.snapshot() == {}
+
+
+# ------------------------------------------ the envs beside Catch
+def _new_env_pairs():
+    """(name, port factory, reference factory, action draw) for every env
+    the port added beside Catch; each factory takes a seed."""
+    from repro import envs as jax_envs
+    from repro_torch import envs
+
+    def discrete(n):
+        return lambda rng: int(rng.randint(n))
+
+    def force(rng):
+        return rng.uniform(-1.5, 1.5, (1,)).astype(np.float32)
+
+    return [
+        ("deep_sea", lambda s: envs.DeepSea(size=6, seed=s),
+         lambda s: jax_envs.DeepSea(size=6, seed=s), discrete(2)),
+        ("deep_sea_stochastic",
+         lambda s: envs.DeepSea(size=6, stochastic=True, seed=s),
+         lambda s: jax_envs.DeepSea(size=6, stochastic=True, seed=s),
+         discrete(2)),
+        ("memory_chain", lambda s: envs.MemoryChain(memory_length=5, seed=s),
+         lambda s: jax_envs.MemoryChain(memory_length=5, seed=s),
+         discrete(2)),
+        ("bandit", lambda s: envs.Bandit(seed=s),
+         lambda s: jax_envs.Bandit(seed=s), discrete(11)),
+        ("cartpole", lambda s: envs.CartpoleSwingup(seed=s, episode_len=50),
+         lambda s: jax_envs.CartpoleSwingup(seed=s, episode_len=50), force),
+        ("pendulum", lambda s: envs.PendulumSwingup(seed=s, episode_len=50),
+         lambda s: jax_envs.PendulumSwingup(seed=s, episode_len=50), force),
+        ("token_chain",
+         lambda s: envs.TokenChain(vocab_size=16, episode_len=20, seed=s),
+         lambda s: jax_envs.TokenChain(vocab_size=16, episode_len=20, seed=s),
+         discrete(16)),
+    ]
+
+
+_NEW_ENVS = [name for name, *_ in _new_env_pairs()]
+
+
+def _episodes(env, actions_rng, draw, steps):
+    """``steps`` env steps over as many episodes as they span (a reset
+    after each last step), the actions drawn from ``actions_rng``."""
+    out, actions = [env.reset()], []
+    for _ in range(steps):
+        if out[-1].last():
+            out.append(env.reset())
+            continue
+        a = draw(actions_rng)
+        actions.append(a)
+        out.append(env.step(a))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 3, 7])
+@pytest.mark.parametrize("name", _NEW_ENVS)
+def test_new_env_streams_equal(name, seed):
+    """The same seed and actions give the reference's TimeStep stream
+    exactly, over several episodes, and the same specs."""
+    _, port, ref, draw = dict((p[0], p) for p in _new_env_pairs())[name]
+    ours = _episodes(port(seed), np.random.RandomState(seed), draw, 120)
+    theirs = _episodes(ref(seed), np.random.RandomState(seed), draw, 120)
+    assert len(ours) == len(theirs) and sum(t.last() for t in ours) > 0
+    for a, b in zip(ours, theirs):
+        assert a.step_type == b.step_type
+        assert a.reward == b.reward and a.discount == b.discount
+        assert type(a.reward) is type(b.reward)
+        np.testing.assert_array_equal(a.observation, b.observation)
+        assert np.asarray(a.observation).dtype == \
+            np.asarray(b.observation).dtype
+    for spec_fn in ("observation_spec", "action_spec"):
+        ours_spec, theirs_spec = (getattr(port(seed), spec_fn)(),
+                                  getattr(ref(seed), spec_fn)())
+        assert type(ours_spec).__name__ == type(theirs_spec).__name__
+        assert (ours_spec.shape, ours_spec.dtype, ours_spec.name) == \
+            (theirs_spec.shape, theirs_spec.dtype, theirs_spec.name)
+        assert getattr(ours_spec, "num_values", None) == \
+            getattr(theirs_spec, "num_values", None)
+
+
+@pytest.mark.parametrize("size", [4, 5, 6, 10])
+def test_deep_sea_optimal_action_matches_reference(size):
+    """``optimal_action`` reads the same per-cell action map: following it
+    reaches the treasure in both packages, cell by cell alike."""
+    from repro import envs as jax_envs
+    from repro_torch import envs
+    ours, theirs = envs.DeepSea(size=size, seed=1), \
+        jax_envs.DeepSea(size=size, seed=1)
+    ts, ref_ts = ours.reset(), theirs.reset()
+    total = 0.0
+    while not ts.last():
+        a = ours.optimal_action()
+        assert a == theirs.optimal_action()
+        ts, ref_ts = ours.step(a), theirs.step(a)
+        assert ts.reward == ref_ts.reward
+        total += ts.reward
+    assert total > 0.98
+
+
+@pytest.mark.parametrize("name", _NEW_ENVS)
+def test_new_env_contract(name):
+    """tests/test_envs.py's contract, on the port's env: a FIRST step with
+    no reward, observations that fit the spec, float rewards, and an
+    episode that ends with discount 0 or 1."""
+    from repro_torch.core import StepType, make_environment_spec
+    _, port, _, draw = dict((p[0], p) for p in _new_env_pairs())[name]
+    env = port(0)
+    spec = make_environment_spec(env)
+    ts = env.reset()
+    assert ts.step_type == StepType.FIRST
+    assert ts.reward is None
+    spec.observations.validate(ts.observation)
+    rng = np.random.RandomState(0)
+    steps = 0
+    while not ts.last() and steps < 2000:
+        ts = env.step(draw(rng))
+        assert isinstance(ts.reward, float) or np.isscalar(ts.reward)
+        spec.observations.validate(ts.observation)
+        steps += 1
+    assert ts.last(), "episode must terminate"
+    assert ts.discount == 0.0 or ts.discount == 1.0

@@ -67,9 +67,14 @@ def test_scoring_slice_imports_neither_jax_nor_repro():
 @pytest.mark.parametrize("module", [
     "repro_torch.experiments", "repro_torch.agents.dqn",
     "repro_torch.checkpoint", "repro_torch.resilience",
-    "repro_torch.telemetry.hub", "repro_torch.core.loggers"])
+    "repro_torch.telemetry.hub", "repro_torch.core.loggers",
+    "repro_torch.envs", "repro_torch.networks.lstm",
+    "repro_torch.agents.r2d2", "repro_torch.agents.dqfd",
+    "repro_torch.agents.r2d3", "repro_torch.policies.learning",
+    "repro_torch.policies.builder", "repro_torch.policies.actors"])
 def test_dqn_slice_imports_neither_jax_nor_repro(module):
-    """The DQN spine's modules, each on its own in a fresh interpreter."""
+    """The DQN spine's and the sequence learners' modules, each on its own
+    in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys\nimport {module}\n"
             "print(sorted(m for m in sys.modules "
