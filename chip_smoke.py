@@ -146,7 +146,41 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    last-60 mean > 0.3; DQfD on DeepSea(6, seed 1) with 20 demos and R2D3
    on DeepSea(5, seed 1) with 15 demo sequences: the treasure in more
    than a fifth of the last 50 episodes); no kernel launches; each
-   learner step's host ms.
+   learner step's host ms;
+17. continuous control on the card: the reference's D4PG acceptance
+   (``tests/test_agents_learning.py:40-50``: PendulumSwingup(seed 1, 120
+   steps), hidden 64, batch 64, min replay 300, SPI 0, n-step 3, 31 atoms
+   over [0, 120], sigma 0.3, target period 50, builder seed 3, 60
+   episodes; the mean of the last 10 returns beats the first 10's) and
+   the MPO and DMPO run-and-update checks (``:53-77``: learner steps > 0,
+   finite returns); env steps/s and each learner step's host ms p50/p95;
+18. the DDPG, D4PG, MPO and DMPO learners at ``ContinuousConfig()``'s full
+   width (hidden 256, batch 256, 51 atoms over [0, 1000], 16 MPO samples)
+   on the card against the same learners on the CPU, 10 batches step by
+   step from the same state, MPO and DMPO on one shared normal stream:
+   losses and the policy Adam's moments within 1e-5 of the CPU's largest
+   magnitude per leaf (the three 0-d MPO duals within 1e-3 of their own;
+   DMPO's, whose E-step weights softmax(Q / T) amplify f32 rounding of Q ~
+   500 by |Q| / T, within 1e-4; a step from a state where a hidden ReLU
+   pre-activation within 1e-5 of its layer's largest |z| of 0 has another
+   sign on the card than on the CPU, within 1e-3), params within 1e-4, one
+   sync a card step, the critic's Adam never stepped; then each learner step's host ms p50/p95, and its kernels,
+   copies and device ms (torch.profiler);
+19. offline and planning on the card: ``run_offline_experiment`` with
+   examples/offline_bc.py's config (120 expert Catch episodes,
+   ``BCConfig()``, 400 learner steps, 25 eval episodes: learner steps/s,
+   the final eval); the reference's BC and offline-DQN acceptance
+   (``tests/test_system.py:51-104``: BC eval > 0.3 after 300 steps on
+   20%-explore data; the DQN's loss over the last 50 of 400 steps below
+   the first 5's); the reference's MCTS acceptance
+   (``tests/test_agents_learning.py:93-116``: Catch(seed 4), 48
+   simulations, depth 12, temperature 0.25, mean return over 10 episodes
+   > 0.4; ms a search, and the first search must sync once per network
+   evaluation); 12 episodes of ``make_agent(MCTSBuilder(...))``, whose
+   learner must step.
+
+Phases 17-19 launch none of the four kernels: each zeros the launch
+counts before it and requires 0 after.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line (with the launch floor beside the kernels), and
@@ -280,6 +314,64 @@ POLICY_FLASH_SHAPE = (16, 4, 2, 16, 64)
 # flash attention at the preset's head dim 16: sq = sk, windows 4 and 8
 FLASH_D16_SEQS = [1, 7, 16, 33]
 FLASH_D16_WINDOWS = [4, 8]
+
+# Continuous control (phases 17-18).  Phase 17: the reference's D4PG
+# acceptance (tests/test_agents_learning.py:40-50) and its MPO and DMPO
+# run-and-update checks (:53-77), at their configs and seeds.
+D4PG_ACCEPT = dict(algo="d4pg", hidden=64, batch_size=64,
+                   min_replay_size=300, samples_per_insert=0, n_step=3,
+                   vmin=0.0, vmax=120.0, num_atoms=31, sigma=0.3,
+                   target_update_period=50)
+D4PG_EPISODES = 60
+MPO_CHECKS = {   # algo: (env seed, builder seed, config), 12 episodes of 60
+    "mpo": (2, 4, dict(algo="mpo", hidden=32, batch_size=32,
+                       min_replay_size=120, samples_per_insert=0,
+                       mpo_samples=8, target_update_period=25)),
+    "dmpo": (5, 5, dict(algo="dmpo", hidden=32, batch_size=32,
+                        min_replay_size=120, samples_per_insert=0,
+                        mpo_samples=8, vmin=0.0, vmax=60.0, num_atoms=21))}
+MPO_EPISODES = 12
+# Phase 18: ContinuousConfig()'s full width (hidden 256, batch 256, 51
+# atoms over [0, 1000], 16 MPO samples) on PendulumSwingup's spec, card vs
+# CPU step by step from the same state: losses and Adam's moments within
+# CONTINUOUS_TOL of the CPU's largest magnitude per leaf, params within
+# POLICY_PARAM_ATOL; the three 0-d MPO duals' moments within
+# CONTINUOUS_DUAL_TOL of their own magnitude: each dual's gradient is a
+# small difference of much larger terms (the temperature's of order max |Q|
+# / T, up to ~500 here, against ~0.1), so f32 rounding in those terms is
+# 1e-4 to 6e-4 of the gradient on any two devices (5.9e-4 seen on DMPO's
+# temperature, card vs CPU, NVIDIA H100 80GB HBM3).
+# A step from a state where a hidden ReLU's pre-activation lies within f32
+# rounding of 0 (|z| <= CONTINUOUS_KINK_Z of its layer's largest) on one
+# device and across it on the other takes that unit's gradient on one
+# device only: such a step's moments are held to CONTINUOUS_KINK_TOL (one
+# flip at z = -1.7e-8 moved DDPG's moments by 2.5e-4 of a leaf's largest,
+# NVIDIA H100 80GB HBM3), every other step's to CONTINUOUS_TOL.
+# DMPO's E-step weights softmax(Q / T) take Q from a C51 critic over [0,
+# 1000] (Q ~ 500 at T ~ 1), so f32 rounding of Q, ~1e-7 of |Q|, moves them
+# by ~|Q| / T times as much: its moments are held to 1e-4 (card vs CPU:
+# 1.06e-5 at one step, NVIDIA H100 80GB HBM3).  MPO's expected critic
+# keeps |Q| ~ 1.
+CONTINUOUS_ALGOS = ("ddpg", "d4pg", "mpo", "dmpo")
+CONTINUOUS_TOL = 1e-5
+CONTINUOUS_ALGO_TOL = {"dmpo": 1e-4}
+CONTINUOUS_KINK_Z = 1e-5
+CONTINUOUS_KINK_TOL = 1e-3
+CONTINUOUS_DUAL_TOL = 1e-3
+CONTINUOUS_DUALS = ("log_temp", "log_alpha_mean", "log_alpha_std")
+CONTINUOUS_BATCHES = 10
+CONTINUOUS_TIMED_STEPS = 50
+# Phase 19: examples/offline_bc.py (120 expert Catch episodes, BCConfig(),
+# 400 learner steps, 25 eval episodes); the reference's BC and offline DQN
+# acceptance (tests/test_system.py:51-104) and MCTS acceptance
+# (tests/test_agents_learning.py:93-116); then make_agent(MCTSBuilder).
+BC_EXAMPLE_EPISODES = 120
+BC_EXAMPLE_STEPS = 400
+BC_EXAMPLE_EVAL_EPISODES = 25
+MCTS_ACCEPT = dict(num_simulations=48, search_depth=12, temperature=0.25)
+MCTS_AGENT = dict(num_simulations=8, search_depth=6, batch_size=4,
+                  min_replay_size=4)
+MCTS_AGENT_EPISODES = 12
 
 FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
                ("sweep", 2, 2, 2, 256, 256, 64),
@@ -2392,15 +2484,7 @@ def sequence_agents(torch, kernels):
         env, builder, episodes = make()
         agent = make_agent(builder)
         learner = agent.learner
-        step, step_ms = learner.step, []
-
-        def timed_step(step=step, step_ms=step_ms):
-            t0 = time.monotonic()
-            metrics = step()
-            step_ms.append((time.monotonic() - t0) * 1e3)
-            return metrics
-
-        learner.step = timed_step
+        step_ms = time_learner_steps(learner)
         for kernel in kernels:
             kernel["wrapper"].launches = 0
         loop = EnvironmentLoop(env, agent)
@@ -2432,6 +2516,462 @@ def sequence_agents(torch, kernels):
         check(score > gate, f"{name} (the reference's acceptance): {what} "
               f"is {score}, not > {gate}")
         out[name] = entry
+    return out
+
+
+# ------------------------------- continuous control, offline and planning
+def kernel_launches(kernels):
+    return {k["name"]: k["wrapper"].launches for k in kernels}
+
+
+def zero_launches(kernels):
+    for kernel in kernels:
+        kernel["wrapper"].launches = 0
+
+
+def time_learner_steps(learner):
+    """Wrap ``learner.step`` to record each step's host ms (a step ends in
+    its one host copy); returns the list it appends to."""
+    step, step_ms = learner.step, []
+
+    def timed_step():
+        t0 = time.monotonic()
+        metrics = step()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        return metrics
+
+    learner.step = timed_step
+    return step_ms
+
+
+def continuous_control(torch, kernels):
+    """Phase 17: the reference's D4PG acceptance and its MPO and DMPO
+    run-and-update checks on the card, through ``make_agent`` and an
+    ``EnvironmentLoop`` on PendulumSwingup; no kernel launches.  Prints env
+    steps/s and each learner step's host ms p50/p95."""
+    from repro_torch import tree
+    from repro_torch.agents import make_agent
+    from repro_torch.agents.continuous import (ContinuousBuilder,
+                                               ContinuousConfig)
+    from repro_torch.core import EnvironmentLoop, make_environment_spec
+    from repro_torch.envs import PendulumSwingup
+
+    runs = {"d4pg": (1, 3, 120, D4PG_ACCEPT, D4PG_EPISODES)}
+    runs.update({algo: (env_seed, seed, 60, knobs, MPO_EPISODES)
+                 for algo, (env_seed, seed, knobs) in MPO_CHECKS.items()})
+    out = {}
+    for name, (env_seed, seed, length, knobs, episodes) in runs.items():
+        env = PendulumSwingup(seed=env_seed, episode_len=length)
+        agent = make_agent(ContinuousBuilder(
+            make_environment_spec(env), ContinuousConfig(**knobs), seed=seed,
+            device="cuda"))
+        learner = agent.learner
+        step_ms = time_learner_steps(learner)
+        zero_launches(kernels)
+        loop = EnvironmentLoop(env, agent)
+        t0 = time.monotonic()
+        results = [loop.run_episode() for _ in range(episodes)]
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = kernel_launches(kernels)
+        rets = [r["episode_return"] for r in results]
+        env_steps = sum(r["episode_length"] for r in results)
+        steps = int(learner.state.steps)
+        entry = {"episodes": episodes, "env_steps": env_steps,
+                 "learner_steps": steps, "seconds": seconds,
+                 "env_steps_per_s": env_steps / seconds,
+                 "learner_step_ms_p50": float(np.percentile(step_ms, 50)),
+                 "learner_step_ms_p95": float(np.percentile(step_ms, 95)),
+                 "first10": float(np.mean(rets[:10])),
+                 "last10": float(np.mean(rets[-10:])),
+                 "launches": launches}
+        log(f"  {name}: {json.dumps(entry)}")
+        check(steps == len(step_ms) > 0, f"{name}: {steps} learner steps, "
+              f"{len(step_ms)} timed")
+        check(all(n == 0 for n in launches.values()),
+              f"{name} launched a kernel: {launches}")
+        check(all(t.device.type == "cuda"
+                  for t in tree.leaves(learner.state)),
+              f"{name}: the learner's state is not on the card")
+        check(np.isfinite(rets).all(), f"{name}: non-finite returns {rets}")
+        if name == "d4pg":
+            check(entry["last10"] > entry["first10"], f"d4pg (the "
+                  f"reference's acceptance): the mean of the last 10 "
+                  f"returns {entry['last10']} does not beat the first 10's "
+                  f"{entry['first10']}")
+        out[name] = entry
+    return out
+
+
+def continuous_batches(count, batch):
+    """Replay batches as the n-step adder writes them on PendulumSwingup:
+    (cos, sin, velocity / 8) observations, (1,) actions in [-1, 1], 3-step
+    rewards (each step's in [0, 1]) and discounts, keys and
+    probabilities."""
+    from repro_torch.core.types import Transition
+    from repro_torch.replay import ReplaySample, SampleInfo
+    rng = np.random.RandomState(SEED + 18)
+    out = []
+    for i in range(count):
+        th = rng.uniform(-np.pi, np.pi, (2, batch))
+        thd = rng.uniform(-8, 8, (2, batch))
+        obs = np.stack([np.cos(th), np.sin(th), thd / 8.0], -1
+                       ).astype(np.float32)
+        data = Transition(
+            obs[0], rng.uniform(-1, 1, (batch, 1)).astype(np.float32),
+            (rng.rand(batch) * 3).astype(np.float32),
+            np.full(batch, 0.99 ** 3, np.float32), obs[1], ())
+        out.append(ReplaySample(SampleInfo(
+            np.arange(batch, dtype=np.int64) + i * batch,
+            np.full(batch, 1e-4)), data))
+    return out
+
+
+def shared_normal(torch):
+    """One normal stream for the card's learner and the CPU's: each draw is
+    made on the CPU from the seed the learner gave its generator (17 *
+    STEP_MOD + step) and the draw's rank (the critic's (B, A), then the
+    E-step's (S, B, A)), and reaches the card from pinned memory, a copy
+    queued without a wait."""
+    def learner_normal(generator, shape):
+        cpu = torch.Generator().manual_seed(
+            generator.initial_seed() * 4 + len(shape))
+        x = torch.randn(tuple(shape), generator=cpu)
+        if generator.device.type == "cuda":
+            return x.pin_memory().to(generator.device, non_blocking=True)
+        return x
+    return learner_normal
+
+
+def relu_kinks(torch, cfg, state, batch):
+    """Hidden ReLU units whose pre-activation has one sign on the card and
+    the other on the CPU, in the learner's differentiated forward paths
+    (the policy on the observations, the critic on the replayed actions,
+    and for DDPG and D4PG the critic on the policy's actions), computed from
+    the same params and batch on both: their count, and the largest |z|
+    among them over its layer's largest |z| (CPU)."""
+    from repro_torch.agents import continuous
+
+    def preacts(device):
+        params = {k: state.params[k] for k in ("policy", "critic")}
+        params = {k: [{n: w.to(device) for n, w in layer.items()}
+                      for layer in v] for k, v in params.items()}
+        obs = torch.as_tensor(batch.data.observation).to(device)
+        act = torch.as_tensor(batch.data.action).to(device)
+        out = []
+
+        def walk(layers, h):
+            for i, layer in enumerate(layers):
+                h = h @ layer["w"] + layer["b"]
+                if i < len(layers) - 1:
+                    out.append(h.cpu())
+                    h = torch.relu(h)
+            return h
+
+        head = walk(params["policy"], obs)
+        walk(params["critic"], torch.cat([obs, act], -1))
+        if not continuous._mpo_family(cfg):
+            walk(params["critic"], torch.cat([obs, torch.tanh(head)], -1))
+        return out
+
+    flips, worst = 0, 0.0
+    for card, cpu in zip(preacts("cuda"), preacts("cpu")):
+        flipped = (card > 0) != (cpu > 0)
+        if bool(flipped.any()):
+            flips += int(flipped.sum())
+            worst = max(worst, float(cpu[flipped].abs().max()
+                                     / cpu.abs().max()))
+    return flips, worst
+
+
+def continuous_parity(torch):
+    """Phase 18: DDPG, D4PG, MPO and DMPO learners at ContinuousConfig()'s
+    full width on the card against the same learners on the CPU, on the
+    same 10 batches, step by step from the CPU's state (MPO and DMPO on
+    one shared normal stream: CPU and CUDA generators differ): losses and
+    the policy Adam's moments within CONTINUOUS_TOL of the CPU's largest
+    magnitude per leaf (DMPO's within CONTINUOUS_ALGO_TOL, the 0-d duals
+    within CONTINUOUS_DUAL_TOL; a step with ReLU kink flips,
+    ``relu_kinks``, within CONTINUOUS_KINK_TOL),
+    params within POLICY_PARAM_ATOL, the critic's Adam never stepped, one
+    sync a card step.  Then each learner step at that width on the card: host ms
+    (p50, p95), kernels and copies a step and device ms (torch.profiler)."""
+    import itertools
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.agents import continuous
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import PendulumSwingup
+
+    spec = make_environment_spec(PendulumSwingup())
+    out = {}
+    for algo in CONTINUOUS_ALGOS:
+        cfg = continuous.ContinuousConfig(algo=algo)
+        batches = continuous_batches(CONTINUOUS_BATCHES, cfg.batch_size)
+        with mock.patch.object(continuous, "learner_normal",
+                               shared_normal(torch)):
+            pair = {side: continuous.make_learner(
+                spec, cfg, iter(batches), torch.Generator().manual_seed(SEED),
+                device=device) for side, device in (("card", "cuda"),
+                                                    ("cpu", "cpu"))}
+            card, cpu = pair["card"], pair["cpu"]
+            syncs, worst, kinks = [], {}, []
+            for step, batch in enumerate(batches):
+                flips, flip_z = relu_kinks(torch, cfg, cpu.state, batch)
+                card.state = tree.map(lambda t: t.to("cuda"), cpu.state)
+                syncs.append(sync_count(torch, card.step))
+                cpu.step()
+                here = {k: rel_error(card.metrics[k], cpu.metrics[k])
+                        for k in ("critic_loss", "policy_loss", "loss")}
+                (popt, copt), (cpu_popt, cpu_copt) = (card.state.opt_state,
+                                                      cpu.state.opt_state)
+                for field in ("mu", "nu"):
+                    mine, theirs = getattr(popt, field), getattr(cpu_popt,
+                                                                 field)
+                    for name in mine:
+                        key = (f"{field}.{name}" if name in CONTINUOUS_DUALS
+                               else field)
+                        here[key] = max([here.get(key, 0.0)] + [
+                            rel_error(x.cpu().numpy(), y.numpy())
+                            for x, y in zip(tree.leaves(mine[name]),
+                                            tree.leaves(theirs[name]))])
+                here["params_abs"] = max(
+                    float((x.cpu() - y).abs().max()) for x, y in zip(
+                        tree.leaves((card.state.params,
+                                     card.state.target_params)),
+                        tree.leaves((cpu.state.params,
+                                     cpu.state.target_params))))
+                duals = {k: v for k, v in here.items() if "." in k}
+                rest = {k: v for k, v in here.items()
+                        if "." not in k and k != "params_abs"}
+                tol = CONTINUOUS_ALGO_TOL.get(algo, CONTINUOUS_TOL)
+                if flips:
+                    kinks.append({"step": step, "flips": flips,
+                                  "max_abs_z_rel": flip_z,
+                                  "max_rel_err": max(rest.values())})
+                    check(flip_z <= CONTINUOUS_KINK_Z, f"{algo} step {step}: "
+                          f"a ReLU unit {flip_z} of its layer's largest "
+                          f"|z| from 0 has another sign on the card")
+                    tol = CONTINUOUS_KINK_TOL
+                check(max(rest.values()) <= tol, f"{algo} learner parity, "
+                      f"step {step} ({flips} ReLU kink flips): {rest} > "
+                      f"{tol}")
+                check(not duals or max(duals.values()) <= CONTINUOUS_DUAL_TOL,
+                      f"{algo} learner parity, step {step}: duals {duals} > "
+                      f"{CONTINUOUS_DUAL_TOL}")
+                check(here["params_abs"] <= POLICY_PARAM_ATOL,
+                      f"{algo} learner parity, step {step}: params differ by "
+                      f"{here['params_abs']} > {POLICY_PARAM_ATOL}")
+                check(int(copt.step) == int(cpu_copt.step) == 0,
+                      f"{algo}: the critic's Adam was stepped")
+                worst = {k: max(v, worst.get(k, 0.0)) for k, v in here.items()}
+        log(f"  {algo} card vs CPU, step by step from the same state: "
+            f"syncs {syncs}; max |d| / max |cpu| per leaf {json.dumps(worst)}"
+            f"; steps with ReLU kink flips {json.dumps(kinks)}")
+        check(all(n == 1 for n in syncs), f"{algo} learner parity: a card "
+              f"step synced {syncs} times")
+        check(int(card.state.steps) == len(batches),
+              f"{algo} learner parity: step counter")
+
+        # the learner step on the card, its own draws
+        learner = continuous.make_learner(
+            spec, cfg, itertools.cycle(batches),
+            torch.Generator().manual_seed(SEED), device="cuda")
+        for _ in range(10):
+            learner.step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(CONTINUOUS_TIMED_STEPS):
+            t0 = time.monotonic()
+            learner.step()
+            times.append((time.monotonic() - t0) * 1e3)
+        entry = {"syncs": syncs, "max_rel_err": worst, "kink_steps": kinks,
+                 "learner_step_ms_p50": float(np.percentile(times, 50)),
+                 "learner_step_ms_p95": float(np.percentile(times, 95))}
+        entry.update(profile_calls(torch, {f"{algo}_learner_step":
+                                           learner.step},
+                                   CONTINUOUS_TIMED_STEPS)[
+            f"{algo}_learner_step"])
+        check(all(bool(torch.isfinite(t).all())
+                  for t in tree.leaves(learner.state.params)),
+              f"{algo}: non-finite params after the timed steps")
+        out[algo] = entry
+    return out
+
+
+def catch_data(episodes, seed, explore):
+    """Transitions of the track-the-ball Catch policy, a random action
+    with probability ``explore`` (``examples/offline_bc.py``'s expert data
+    at 0, ``tests/test_system.py``'s at 0.2), through an n-step-1 adder."""
+    from repro_torch.adders import NStepTransitionAdder
+    from repro_torch.envs import Catch
+    from repro_torch.replay import MinSize, Table, Uniform
+
+    env = Catch(seed=seed)
+    table = Table("data", 1 << 20, Uniform(0), MinSize(1))
+    adder = NStepTransitionAdder(table, 1, 0.99)
+    rng = np.random.RandomState(seed)
+    for _ in range(episodes):
+        ts = env.reset()
+        adder.add_first(ts)
+        while not ts.last():
+            board = ts.observation
+            ball = int(np.argmax(board[:-1].max(axis=0)))
+            paddle = int(np.argmax(board[-1]))
+            a = int(1 + np.sign(ball - paddle))
+            if explore and rng.rand() < explore:
+                a = int(rng.randint(3))
+            ts = env.step(a)
+            adder.add(a, ts)
+    return [table._items[k].data for k in table._order]
+
+
+def offline_and_planning(torch, kernels):
+    """Phase 19: ``run_offline_experiment`` with examples/offline_bc.py's
+    config; the reference's BC and offline-DQN acceptance
+    (tests/test_system.py) and MCTS acceptance
+    (tests/test_agents_learning.py) on the card; a few episodes of
+    ``make_agent(MCTSBuilder)``.  No kernel launches.  Each MCTS search
+    must sync with the device once per network evaluation (the priors'
+    copy to the host)."""
+    from repro_torch import tree
+    from repro_torch.agents import bc, dqn, make_agent, mcts
+    from repro_torch.core import (EnvironmentLoop, FeedForwardActor,
+                                  VariableClient, VariableServer,
+                                  make_environment_spec)
+    from repro_torch.envs import Catch
+    from repro_torch.experiments import (ExperimentConfig,
+                                         run_offline_experiment)
+    from repro_torch.replay import dataset_from_list
+
+    out = {}
+    # examples/offline_bc.py through run_offline_experiment
+    items = catch_data(BC_EXAMPLE_EPISODES, 0, 0.0)
+    config = ExperimentConfig(
+        builder_factory=lambda spec: bc.BCBuilder(spec, items, bc.BCConfig(),
+                                                  seed=0, device="cuda"),
+        environment_factory=lambda seed: Catch(seed=seed), seed=0,
+        eval_episodes=BC_EXAMPLE_EVAL_EPISODES)
+    zero_launches(kernels)
+    t0 = time.monotonic()
+    result = run_offline_experiment(config, num_learner_steps=BC_EXAMPLE_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    walltime = result.learner.learner_walltime
+    out["offline_bc_example"] = entry = {
+        "dataset_size": result.extras["dataset_size"],
+        "learner_steps": result.learner_steps, "seconds": seconds,
+        "learner_walltime_s": walltime,
+        "learner_steps_per_s": result.learner_steps / walltime,
+        "final_eval": result.final_eval_return,
+        "launches": kernel_launches(kernels)}
+    log(f"  offline_bc example: {json.dumps(entry)}")
+    check(result.learner_steps == BC_EXAMPLE_STEPS
+          and entry["dataset_size"] == len(items),
+          f"offline BC: {result.learner_steps} learner steps over "
+          f"{entry['dataset_size']} items")
+    check(np.isfinite(entry["final_eval"]), "offline BC: no final eval")
+    check(all(t.device.type == "cuda"
+              for t in tree.leaves(result.learner.state)),
+          "offline BC: the learner's state is not on the card")
+
+    # the reference's acceptance: BC and offline DQN on 20%-explore data
+    spec = make_environment_spec(Catch(seed=5))
+    items = catch_data(120, 5, 0.2)
+    bcfg = bc.BCConfig()
+    bl = bc.make_learner(spec, bcfg, dataset_from_list(items, 64),
+                         torch.Generator().manual_seed(1), device="cuda")
+    for _ in range(300):
+        bl.step()
+    actor = FeedForwardActor(bc.make_eval_policy(spec, bcfg),
+                             VariableClient(bl), device="cuda")
+    loop = EnvironmentLoop(Catch(seed=9), actor)
+    bc_return = float(np.mean([loop.run_episode()["episode_return"]
+                               for _ in range(20)]))
+    qcfg = dqn.DQNConfig(prioritized=False)
+    ql = dqn.make_learner(spec, qcfg, dataset_from_list(items, 64),
+                          torch.Generator().manual_seed(0), device="cuda")
+    losses = [ql.step()["loss"] for _ in range(400)]
+    out["offline_acceptance"] = entry = {
+        "bc_eval": bc_return, "dqn_loss_first5": float(np.mean(losses[:5])),
+        "dqn_loss_last50": float(np.mean(losses[-50:])),
+        "launches": kernel_launches(kernels)}
+    log(f"  offline acceptance: {json.dumps(entry)}")
+    check(bc_return > 0.3, f"BC (the reference's acceptance): eval "
+          f"{bc_return}, not > 0.3")
+    check(np.isfinite(losses).all(), "offline DQN: non-finite losses")
+    check(entry["dqn_loss_last50"] < entry["dqn_loss_first5"],
+          f"offline DQN (the reference's acceptance): loss over the last 50 "
+          f"{entry['dqn_loss_last50']} not below the first 5's "
+          f"{entry['dqn_loss_first5']}")
+
+    # the reference's MCTS acceptance, the real env as the model
+    env = Catch(seed=4)
+    spec = make_environment_spec(env)
+    cfg = mcts.MCTSConfig(**MCTS_ACCEPT)
+    init, _, _, _ = mcts.make_network(spec, cfg, device="cuda")
+    server = VariableServer(policy=init(torch.Generator().manual_seed(0)))
+    actor = mcts.MCTSActor(spec, cfg, VariableClient(server), model_env=env,
+                           seed=0, device="cuda")
+    evaluate, evaluations = actor._evaluate, [0]
+
+    def counted(obs):
+        evaluations[0] += 1
+        return evaluate(obs)
+
+    actor._evaluate = counted
+    search_ms, search_evals, rets, first = [], [], [], None
+    for _ in range(10):
+        ts = env.reset()
+        total = 0.0
+        while not ts.last():
+            before = evaluations[0]
+            t0 = time.monotonic()
+            if first is None:       # the first search, under sync counting
+                action = []
+                first = sync_count(torch, lambda: action.append(
+                    actor.select_action(ts.observation)))
+                action = action[0]
+                first = (first, evaluations[0] - before)
+            else:
+                action = actor.select_action(ts.observation)
+            search_ms.append((time.monotonic() - t0) * 1e3)
+            search_evals.append(evaluations[0] - before)
+            ts = env.step(action)
+            total += ts.reward
+        rets.append(total)
+    out["mcts_acceptance"] = entry = {
+        "mean_return": float(np.mean(rets)), "searches": len(search_ms),
+        "search_ms_mean": float(np.mean(search_ms)),
+        "search_ms_p50": float(np.percentile(search_ms, 50)),
+        "search_ms_p95": float(np.percentile(search_ms, 95)),
+        "evaluations_per_search": float(np.mean(search_evals)),
+        "first_search_syncs_and_evaluations": first,
+        "launches": kernel_launches(kernels)}
+    log(f"  mcts acceptance: {json.dumps(entry)}")
+    check(first[0] == first[1] > 0, f"MCTS: the first search synced "
+          f"{first[0]} times for {first[1]} network evaluations")
+    check(entry["mean_return"] > 0.4, f"MCTS (the reference's acceptance): "
+          f"mean return {entry['mean_return']}, not > 0.4")
+
+    # the agent make_agent builds from MCTSBuilder
+    env = Catch(seed=0)
+    agent = make_agent(mcts.MCTSBuilder(
+        make_environment_spec(env), lambda seed: Catch(seed=seed),
+        mcts.MCTSConfig(**MCTS_AGENT), seed=0, device="cuda"))
+    loop = EnvironmentLoop(env, agent)
+    rets = [loop.run_episode()["episode_return"]
+            for _ in range(MCTS_AGENT_EPISODES)]
+    out["mcts_agent"] = entry = {
+        "episodes": MCTS_AGENT_EPISODES,
+        "learner_steps": int(agent.learner.state.steps),
+        "returns": rets, "launches": kernel_launches(kernels)}
+    log(f"  mcts agent: {json.dumps(entry)}")
+    check(entry["learner_steps"] > 0, "MCTS agent: the learner never stepped")
+    check(np.isfinite(rets).all(), "MCTS agent: non-finite returns")
+    check(all(n == 0 for n in entry["launches"].values()),
+          f"phase 19 launched a kernel: {entry['launches']}")
     return out
 
 
@@ -2590,6 +3130,25 @@ def main() -> int:
     phase("phase 16: R2D2, DQfD and R2D3 learn on the card (the reference's "
         "acceptances)")
     sequence_agents(torch, kernels)
+
+    # phases 17-19 run none of the four kernels: each zeros the launch
+    # counts before it and holds them at 0 after
+    for number, heading, run in (
+            (17, f"phase 17: continuous control on the card — the D4PG "
+             f"acceptance ({D4PG_EPISODES} episodes), MPO and DMPO",
+             continuous_control),
+            (18, "phase 18: DDPG, D4PG, MPO and DMPO learners at full width, "
+             "card vs CPU, and their step times",
+             lambda torch, kernels: continuous_parity(torch)),
+            (19, "phase 19: offline (BC, run_offline_experiment, offline "
+             "DQN) and planning (MCTS) on the card", offline_and_planning)):
+        phase(heading)
+        zero_launches(kernels)
+        result = run(torch, kernels)
+        launches = kernel_launches(kernels)
+        check(all(n == 0 for n in launches.values()),
+              f"phase {number} launched a kernel: {launches}")
+        log(f"  phase {number} {json.dumps(result)}")
 
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{

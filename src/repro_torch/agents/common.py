@@ -9,6 +9,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.interfaces import Learner
+from repro_torch.optim.optimizers import AdamState
 from repro_torch.telemetry import registry as _telemetry
 
 
@@ -110,6 +111,25 @@ def fresh_copy(params):
     """Copy a tree's tensors (so params and target params never share
     storage)."""
     return tree.map(torch.clone, params)
+
+
+def state_from_jax(state, device="cuda") -> LearnerState:
+    """The reference learner's ``LearnerState`` (numpy or JAX leaves) as
+    the port's: params and target params keep their trees (``()`` where the
+    agent has no target), each leaf a tensor on ``device``; Adam's state,
+    alone or in a tuple of states (the continuous learners carry one for the
+    policy and one for the critic), as the port's ``AdamState``."""
+    def tensors(x):
+        return tree.map(lambda a: torch.tensor(np.asarray(a), device=device),
+                        x)
+
+    def opt(x):
+        if hasattr(x, "_fields"):                    # an AdamState
+            return AdamState(*(tensors(field) for field in x))
+        return tuple(opt(s) for s in x)
+
+    return LearnerState(tensors(state.params), tensors(state.target_params),
+                        opt(state.opt_state), tensors(state.steps))
 
 
 def importance_weights(probs: torch.Tensor, beta: float = 0.6) -> torch.Tensor:

@@ -12,4 +12,4 @@ from repro_torch.core.types import (  # noqa: F401
     ArraySpec, BoundedArraySpec, DiscreteArraySpec, Environment,
     EnvironmentSpec, StepType, TimeStep, Transition, make_environment_spec,
     restart, termination, transition, truncation)
-from repro_torch.core.variable import VariableClient  # noqa: F401
+from repro_torch.core.variable import VariableClient, VariableServer  # noqa: F401

@@ -2,14 +2,19 @@
 through a VariableClient (Fig 4's proxy-actor pattern — pull, not push).
 
 The client only ever calls ``get_variables`` on its source, which may be the
-learner itself or any handle to it.
+learner itself, a ``VariableServer`` or any handle to either.  Serving a
+source over courier (``serve_variable_source``) comes with the distributed
+slice.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core.interfaces import VariableSource
 
 
 def _to_numpy(tree):
@@ -77,3 +82,26 @@ class VariableClient:
         self._calls = int(state["calls"])
         self._params = state.get("params")
         self._fresh = bool(state.get("fresh", False))
+
+
+class VariableServer(VariableSource):
+    """Thread-safe holder used by learners to publish weights.
+
+    ``get_variables`` with empty/omitted ``names`` returns ALL published
+    variables (insertion order) — consistent with ``VariableClient``'s
+    named-subset requests, which always pass explicit names.
+    """
+
+    def __init__(self, **named_vars):
+        self._lock = threading.Lock()
+        self._vars = dict(named_vars)
+
+    def publish(self, name: str, value):
+        with self._lock:
+            self._vars[name] = value
+
+    def get_variables(self, names: Sequence[str] = ()):
+        with self._lock:
+            if not names:
+                names = list(self._vars)
+            return [self._vars[n] for n in names]

@@ -6,10 +6,10 @@ agent (§2.2), with evaluation, run-wide checkpoints and exact resume on
 their cadences.  The builder decides the device its learner and actors run
 on (``device=`` of the port's builders).
 
-``run_distributed_experiment`` (the Launchpad-lite program graph, §2.4)
-and ``run_offline_experiment`` (a fixed dataset, no actors, §2.6) keep the
-JAX package's signatures and raise ``NotImplementedError`` until ROADMAP
-slices 7 and 6 port them.
+``run_offline_experiment`` drives an offline builder (a fixed dataset, no
+actors, §2.6).  ``run_distributed_experiment`` (the Launchpad-lite program
+graph, §2.4) keeps the JAX package's signature and raises
+``NotImplementedError`` until ROADMAP slice 7 ports it.
 """
 from __future__ import annotations
 
@@ -42,6 +42,13 @@ def _evaluate(config: ExperimentConfig, builder, variable_source,
     loop = EnvironmentLoop(env, actor, counter=counter, label="evaluator")
     return float(np.mean([loop.run_episode()["episode_return"]
                           for _ in range(episodes)]))
+
+
+def _make_checkpointer(config: ExperimentConfig):
+    if not config.checkpoint_dir:
+        return None
+    from repro_torch.checkpoint import Checkpointer
+    return Checkpointer(config.checkpoint_dir)
 
 
 def _make_run_checkpointer(config: ExperimentConfig):
@@ -236,7 +243,39 @@ def run_distributed_experiment(config: ExperimentConfig, num_actors: int,
 
 def run_offline_experiment(config: ExperimentConfig,
                            num_learner_steps: int = 1000) -> ExperimentResult:
-    """The offline run (a fixed dataset, no actors, §2.6): not ported yet."""
-    raise NotImplementedError(
-        "run_offline_experiment is not ported yet (ROADMAP slice 6, the "
-        "remaining agents: behaviour cloning and offline DQN)")
+    """Offline run (§2.6): no actors — step the learner over the builder's
+    fixed dataset, then evaluate the resulting policy.  The learner's step
+    counter is read on the host once, at the end."""
+    spec = make_environment_spec(config.environment_factory(config.seed))
+    builder = config.builder_factory(spec)
+    if not builder.options.offline:
+        raise ValueError(
+            f"{type(builder).__name__} is not an offline builder "
+            f"(options.offline is False)")
+    table = builder.make_replay()
+    iterator = builder.make_dataset(table)
+    learner = builder.make_learner(
+        iterator, priority_update_cb=table.update_priorities)
+    logger = (config.logger_factory("learner")
+              if config.logger_factory else None)
+    checkpointer = _make_checkpointer(config)
+    evals = []
+    t0 = time.time()
+    for step in range(num_learner_steps):
+        metrics = learner.step()
+        if logger:
+            logger(metrics)
+        if config.eval_every and config.eval_episodes > 0 \
+                and (step + 1) % config.eval_every == 0:
+            evals.append((step + 1, _evaluate(config, builder, learner)))
+    if config.eval_episodes > 0 and (not evals
+                                     or evals[-1][0] != num_learner_steps):
+        evals.append((num_learner_steps, _evaluate(config, builder, learner)))
+    learner_steps = int(learner.state.steps)
+    if checkpointer:
+        checkpointer.save(learner.state, learner_steps)
+    return ExperimentResult(
+        train_returns=[], actor_steps=[], walltime=[time.time() - t0],
+        eval_returns=evals, counts={}, learner_steps=learner_steps,
+        learner=learner, builder=builder,
+        extras={"dataset_size": table.size()})

@@ -11,6 +11,7 @@ from repro_torch.agents.dqfd import (DQfDBuilder, DQfDConfig,
                                      generate_deep_sea_demos)
 from repro_torch.core import EnvironmentLoop, make_environment_spec
 from repro_torch.envs import DeepSea
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_dqfd_uses_demos_on_deep_sea():

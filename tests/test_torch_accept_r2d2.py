@@ -9,6 +9,7 @@ from repro_torch.agents.builders import make_agent
 from repro_torch.agents.r2d2 import R2D2Builder, R2D2Config
 from repro_torch.core import EnvironmentLoop, make_environment_spec
 from repro_torch.envs import MemoryChain
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_r2d2_solves_memory_task():

@@ -10,6 +10,7 @@ from repro_torch.agents.dqfd import generate_sequence_demos
 from repro_torch.agents.r2d3 import R2D3Builder, R2D3Config
 from repro_torch.core import EnvironmentLoop, make_environment_spec
 from repro_torch.envs import DeepSea
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_r2d3_learns_deep_sea_with_demos():

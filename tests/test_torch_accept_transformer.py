@@ -12,6 +12,7 @@ from repro_torch.envs import Catch
 from repro_torch.experiments import ExperimentConfig, run_experiment
 from repro_torch.policies import (TransformerPolicyBuilder,
                                   TransformerPolicyConfig)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The reference's decode backend "jnp" is the port's "grouped".
 BACKENDS = {"jnp": "grouped"}

@@ -24,15 +24,18 @@ from repro.replay import ReplaySample as JaxReplaySample
 from repro.replay import SampleInfo as JaxSampleInfo
 import repro_torch.policies  # noqa: F401  (registers TransformerPolicyBuilder)
 from repro_torch import tree
-from repro_torch.agents import common, dqfd, dqn, impala, make_agent, r2d2, r2d3
+from repro_torch.agents import (bc, common, continuous, dqfd, dqn, impala,
+                                make_agent, mcts, r2d2, r2d3)
 from repro_torch.builders import (AgentBuilder, BuilderOptions,
                                   registered_builders)
 from repro_torch.core import (Agent, EnvironmentLoop, VariableClient,
                               VariableSource, VectorizedEnvironmentLoop,
                               make_environment_spec)
 from repro_torch.core.actors import BatchedFeedForwardActor, FeedForwardActor
-from repro_torch.envs import Catch, DeepSea, VectorEnv, split_timestep
+from repro_torch.envs import (Catch, DeepSea, PendulumSwingup, VectorEnv,
+                              split_timestep)
 from repro_torch.replay import ReplaySample, SampleInfo
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 FWD_TOL = 1e-5
@@ -533,8 +536,52 @@ def _make_transformer_policy():
             Catch(seed=0))
 
 
+def _collect_catch_transitions(n_episodes=10):
+    """The reference factory's dataset: n-step-1 Catch transitions of a
+    seeded random policy."""
+    from repro_torch.adders import NStepTransitionAdder
+    from repro_torch.replay import MinSize, Table, Uniform
+
+    env = Catch(seed=0)
+    table = Table("tmp", 10_000, Uniform(0), MinSize(1))
+    adder = NStepTransitionAdder(table, 1, 0.99)
+    rng = np.random.RandomState(0)
+    for _ in range(n_episodes):
+        ts = env.reset()
+        adder.add_first(ts)
+        while not ts.last():
+            a = int(rng.randint(3))
+            ts = env.step(a)
+            adder.add(a, ts)
+    return [table._items[k].data for k in table._order]
+
+
+def _make_mcts():
+    cfg = mcts.MCTSConfig(num_simulations=4, search_depth=4, batch_size=2,
+                          min_replay_size=2)
+    return (mcts.MCTSBuilder(_spec(), lambda seed: Catch(seed=seed), cfg,
+                             seed=0, device=CPU), Catch(seed=0))
+
+
+def _make_continuous():
+    cfg = continuous.ContinuousConfig(algo="d4pg", hidden=32, batch_size=8,
+                                      min_replay_size=8,
+                                      samples_per_insert=0.0, n_step=1,
+                                      num_atoms=11, vmax=30.0)
+    env = PendulumSwingup(seed=0, episode_len=30)
+    return (continuous.ContinuousBuilder(make_environment_spec(env), cfg,
+                                         seed=0, device=CPU),
+            PendulumSwingup(seed=0, episode_len=30))
+
+
+def _make_bc():
+    items = _collect_catch_transitions(4)
+    return (bc.BCBuilder(_spec(), items, bc.BCConfig(batch_size=8), seed=0,
+                         device=CPU), Catch(seed=0))
+
+
 # The port's mirror of the reference's FACTORIES
-# (tests/test_builders_api.py), for the builders ported so far.
+# (tests/test_builders_api.py).
 FACTORIES = {
     "IMPALABuilder": lambda: (impala.IMPALABuilder(
         _spec(), impala.IMPALAConfig(sequence_length=3, batch_size=2),
@@ -546,6 +593,9 @@ FACTORIES = {
     "R2D2Builder": _make_r2d2,
     "R2D3Builder": _make_r2d3,
     "TransformerPolicyBuilder": _make_transformer_policy,
+    "MCTSBuilder": _make_mcts,
+    "ContinuousBuilder": _make_continuous,
+    "BCBuilder": _make_bc,
 }
 
 

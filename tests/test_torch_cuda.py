@@ -1042,3 +1042,202 @@ def test_transformer_learner_on_the_card_matches_the_cpu(cuda_device,
         for a, b in zip(tree.leaves(card.state.params),
                         tree.leaves(cpu.state.params)):
             torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+# ------------------------------- continuous control, BC and MCTS learners
+PARITY_TOL = 1e-5        # losses and moments, of the CPU's largest per leaf
+PARITY_DUAL_TOL = 1e-3   # the 0-d MPO duals (see chip_smoke.py phase 18)
+PARITY_PARAM_ATOL = 1e-4
+
+
+def _sync_count(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA" in str(w.message) for w in caught)
+
+
+def _pendulum_batch(batch, seed):
+    from repro_torch.core.types import Transition
+    from repro_torch.replay import ReplaySample, SampleInfo
+    rng = np.random.RandomState(seed)
+    th, thd = rng.uniform(-np.pi, np.pi, (2, batch)), rng.uniform(-8, 8, (2, batch))
+    obs = np.stack([np.cos(th), np.sin(th), thd / 8.0], -1).astype(np.float32)
+    return ReplaySample(
+        SampleInfo(np.arange(batch, dtype=np.int64), np.full(batch, 1e-3)),
+        Transition(obs[0], rng.uniform(-1, 1, (batch, 1)).astype(np.float32),
+                   (rng.rand(batch) * 3).astype(np.float32),
+                   np.full(batch, 0.97, np.float32), obs[1], ()))
+
+
+def _catch_transitions(batch, seed):
+    from repro_torch.core.types import Transition
+    from repro_torch.replay import ReplaySample, SampleInfo
+    rng = np.random.RandomState(seed)
+    obs = np.zeros((2, batch) + OBS_SHAPE, np.float32)
+    for k in range(2):
+        obs[k, np.arange(batch), rng.randint(0, 9, batch),
+            rng.randint(0, 5, batch)] = 1.0
+        obs[k, np.arange(batch), 9, rng.randint(0, 5, batch)] = 1.0
+    return ReplaySample(
+        SampleInfo(np.arange(batch, dtype=np.int64), np.full(batch, 1e-3)),
+        Transition(obs[0], rng.randint(0, 3, batch).astype(np.int32),
+                   np.zeros(batch, np.float32), np.ones(batch, np.float32),
+                   obs[1], ()))
+
+
+def _mcts_sequences(batch, seed, T=10):
+    from repro_torch.replay import ReplaySample, SampleInfo
+    rng = np.random.RandomState(seed)
+    mask = (np.arange(T)[None] < rng.randint(1, T + 1, batch)[:, None]
+            ).astype(np.float32)
+    visits = rng.randint(0, 12, (batch, T, 3)).astype(np.float32) + 1e-3
+    data = {"observation": ((rng.rand(batch, T, *OBS_SHAPE) < 0.04)
+                            * mask[..., None, None]).astype(np.float32),
+            "action": rng.randint(0, 3, (batch, T)).astype(np.int32),
+            "reward": rng.choice([-1.0, 0.0, 1.0], (batch, T)
+                                 ).astype(np.float32),
+            "discount": mask.copy(),
+            "start_of_episode": np.arange(T)[None].repeat(batch, 0) == 0,
+            "search_probs": visits / visits.sum(-1, keepdims=True),
+            "mask": mask}
+    return ReplaySample(SampleInfo(np.arange(batch), np.ones(batch)), data)
+
+
+def _shared_normal(generator, shape):
+    """The same normal draws for the card's learner and the CPU's (their
+    generators differ): made on the CPU from the learner's seed and the
+    draw's rank, sent to the card from pinned memory (no sync)."""
+    cpu = torch.Generator().manual_seed(generator.initial_seed() * 4
+                                        + len(shape))
+    x = torch.randn(tuple(shape), generator=cpu)
+    if generator.device.type == "cuda":
+        return x.pin_memory().to(generator.device, non_blocking=True)
+    return x
+
+
+def _learner_pair(make, batches, cuda_device):
+    return tuple(make(iter(batches), device)
+                 for device in (cuda_device, "cpu"))
+
+
+def _assert_card_matches_cpu(card, cpu, batches, duals=()):
+    """Each step from the CPU's state on the same batch: one sync; the
+    metrics and Adam's moments within PARITY_TOL of the CPU's largest
+    magnitude per leaf (``duals``, 0-d leaves, within PARITY_DUAL_TOL),
+    params within PARITY_PARAM_ATOL."""
+    from repro_torch import tree
+    for _ in batches:
+        card.state = tree.map(lambda t: t.to("cuda"), cpu.state)
+        assert _sync_count(card.step) == 1
+        cpu.step()
+        for name, value in cpu.metrics.items():
+            if name != "learner_walltime":
+                assert abs(card.metrics[name] - value) <= \
+                    PARITY_TOL * max(abs(value), 1e-30), name
+        adams = card.state.opt_state, cpu.state.opt_state
+        if not hasattr(adams[0], "mu"):       # (policy Adam, critic Adam)
+            adams = adams[0][0], adams[1][0]
+        for field in ("mu", "nu"):
+            mine, theirs = (getattr(a, field) for a in adams)
+            for name in (mine if isinstance(mine, dict) else range(
+                    len(mine))):
+                tol = PARITY_DUAL_TOL if name in duals else PARITY_TOL
+                for a, b in zip(tree.leaves(mine[name]),
+                                tree.leaves(theirs[name])):
+                    assert a.device.type == "cuda"
+                    assert float((a.cpu() - b).abs().max()) <= \
+                        tol * float(b.abs().max()), (field, name)
+        for a, b in zip(tree.leaves(card.state.params),
+                        tree.leaves(cpu.state.params)):
+            torch.testing.assert_close(a.cpu(), b, atol=PARITY_PARAM_ATOL,
+                                       rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ddpg", "d4pg", "mpo", "dmpo"])
+def test_continuous_learner_on_the_card_matches_the_cpu(cuda_device, algo,
+                                                        monkeypatch):
+    """A continuous-control learner on the card against its CPU twin, step
+    by step from the same state, MPO and DMPO on one shared normal
+    stream."""
+    from repro_torch.agents import continuous
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import PendulumSwingup
+    monkeypatch.setattr(continuous, "learner_normal", _shared_normal)
+    cfg = continuous.ContinuousConfig(algo=algo, hidden=64, batch_size=32,
+                                      num_atoms=21, vmax=60.0,
+                                      mpo_samples=8, target_update_period=2)
+    spec = make_environment_spec(PendulumSwingup())
+    batches = [_pendulum_batch(32, i) for i in range(3)]
+    card, cpu = _learner_pair(
+        lambda it, device: continuous.make_learner(
+            spec, cfg, it, torch.Generator().manual_seed(0), device=device),
+        batches, cuda_device)
+    _assert_card_matches_cpu(card, cpu, batches,
+                             duals=("log_temp", "log_alpha_mean",
+                                    "log_alpha_std"))
+    assert int(card.state.opt_state[1].step) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["discrete", "continuous", "mcts"])
+def test_bc_and_mcts_learners_on_the_card_match_the_cpu(cuda_device, kind):
+    from repro_torch.agents import bc, mcts
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch, PendulumSwingup
+    if kind == "mcts":
+        spec = make_environment_spec(Catch())
+        batches = [_mcts_sequences(8, i) for i in range(3)]
+
+        def make(it, device):
+            return mcts.make_learner(spec, mcts.MCTSConfig(batch_size=8), it,
+                                     torch.Generator().manual_seed(0),
+                                     device=device)
+    else:
+        continuous = kind == "continuous"
+        spec = make_environment_spec(PendulumSwingup() if continuous
+                                     else Catch())
+        batches = [(_pendulum_batch if continuous else _catch_transitions)(
+            32, i) for i in range(3)]
+
+        def make(it, device):
+            return bc.make_learner(spec, bc.BCConfig(continuous=continuous),
+                                   it, torch.Generator().manual_seed(0),
+                                   device=device)
+    card, cpu = _learner_pair(make, batches, cuda_device)
+    _assert_card_matches_cpu(card, cpu, batches)
+
+
+@pytest.mark.cuda
+def test_mcts_evaluate_on_the_card_gives_the_cpus_priors(cuda_device):
+    """The search's network evaluation on the card: the CPU's priors and
+    value within 1e-6, and one sync (the priors' copy to the host)."""
+    from repro_torch.agents import mcts
+    from repro_torch.core import (VariableClient, VariableServer,
+                                  make_environment_spec)
+    from repro_torch.envs import Catch
+    spec = make_environment_spec(Catch())
+    cfg = mcts.MCTSConfig()
+    init, _, _, _ = mcts.make_network(spec, cfg, device="cpu")
+    params = {k: [{n: w.numpy() for n, w in layer.items()} for layer in v]
+              for k, v in init(torch.Generator().manual_seed(0)).items()}
+    card, cpu = (mcts.MCTSActor(spec, cfg, VariableClient(VariableServer(
+        policy=params)), device=device) for device in (cuda_device, "cpu"))
+    env = Catch(seed=3)
+    ts = env.reset()
+    card._evaluate(ts.observation)                 # params to the card
+    while not ts.last():
+        out = []
+        assert _sync_count(lambda: out.append(
+            card._evaluate(ts.observation))) == 1
+        priors, value = out[0]
+        cpu_priors, cpu_value = cpu._evaluate(ts.observation)
+        np.testing.assert_allclose(priors, cpu_priors, atol=1e-6, rtol=0)
+        assert abs(value - cpu_value) <= 1e-6
+        ts = env.step(1)

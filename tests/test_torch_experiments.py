@@ -29,6 +29,7 @@ from repro_torch.envs import Catch
 from repro_torch.experiments import (ExperimentConfig, run_distributed_experiment,
                                      run_experiment, run_offline_experiment)
 from repro_torch.resilience import RunCheckpointer
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 PACKAGES = ["repro", "repro_torch"]
@@ -161,7 +162,8 @@ def test_unported_entry_points_raise():
     config = _config(num_episodes=1)
     with pytest.raises(NotImplementedError, match="slice 7"):
         run_distributed_experiment(config, num_actors=2)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # run_offline_experiment is ported: an online builder is refused
+    with pytest.raises(ValueError, match="offline"):
         run_offline_experiment(config, num_learner_steps=1)
 
 
