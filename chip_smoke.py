@@ -179,8 +179,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    evaluation); 12 episodes of ``make_agent(MCTSBuilder(...))``, whose
    learner must step.
 
-Phases 17-19 launch none of the four kernels: each zeros the launch
-counts before it and requires 0 after.
+20. fig17's inference placement on the card
+   (``benchmarks/fig17_transformer_serving.py:60-77,141-152``): its
+   transformer policy at d_model 256 (2 layers, 4 query and 2 KV heads of
+   64, d_ff 512, window 8, sequence 16, period 8, batch 16, SPI 0) trains
+   on Catch through ``run_distributed_experiment`` with 4 actor processes
+   (the multiprocess launcher) for 3000 actor steps, once with
+   ``inference="server"`` and once with ``"local"``, telemetry on; launch
+   counts are zeroed just before each run and read just after, in this
+   process: in server mode the inference node here must launch the decode
+   kernel once a layer a decode batch, and in both modes the learner here
+   flash attention twice a layer a step (local-mode actors decode in their
+   own processes); prints env steps/s, the server's batches, rows a batch,
+   decode and prefill rows, learner steps and the learner step's host ms
+   beside phase 14's learner alone, and which mode moved more env steps a
+   second (not gated); then the reference's two server acceptances
+   (``tests/test_policies.py:327-360``) at phase 14's preset on the local
+   and the multiprocess launcher;
+21. distributed DQN on the card: the reference's multiprocess acceptance
+   (``tests/test_distributed.py:631-662``: 2 actor processes, an evaluator
+   process, 2 replay shards, 4000 actor steps, final eval > -0.6, 1 <
+   effective SPI < 8) and two-replica acceptance
+   (``tests/test_multi_learner.py:409-434``: 2 learner replicas averaging
+   every 10 steps, on both launchers), then a one-replica
+   ``MultiLearner`` against the plain learner on the card over 10 batches,
+   bit for bit; env steps/s, learner steps/s, averaging rounds and the
+   effective SPI.
+
+Phases 17-19 and 21 launch none of the four kernels: each zeros the
+launch counts before it and requires 0 after.  The actor processes of
+phases 20-21 re-import this file to unpickle ``CardBuilder`` and
+``catch_env``, so its work stays under ``__main__``.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line (with the launch floor beside the kernels), and
@@ -372,6 +401,31 @@ MCTS_ACCEPT = dict(num_simulations=48, search_depth=12, temperature=0.25)
 MCTS_AGENT = dict(num_simulations=8, search_depth=6, batch_size=4,
                   min_replay_size=4)
 MCTS_AGENT_EPISODES = 12
+# Phase 20: fig17's inference placement (benchmarks/
+# fig17_transformer_serving.py:60-77,141-152) at its top width: 4 actor
+# processes, 3000 actor steps, no eval, each mode once; then the
+# reference's two server acceptances (tests/test_policies.py:327-360) at
+# the preset of phase 14 (backend "auto", so the server decodes on the
+# kernel).
+FIG17_POLICY = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+                    head_dim=64, d_ff=512, window=8, sequence_length=16,
+                    period=8, batch_size=16, min_replay_size=100,
+                    samples_per_insert=0.0, backend="auto")
+FIG17_ACTORS = 4
+FIG17_STEPS = 3000
+FIG17_TIMEOUT_S = 300.0
+# Phase 21: the reference's distributed DQN acceptances on the card:
+# tests/test_distributed.py:631-662 (2 replay shards, an evaluator, 4000
+# actor steps) and tests/test_multi_learner.py:409-434 (2 replicas
+# averaging every 10 steps, both launchers), at conftest's DQN preset
+# (tests/conftest.py:32-46).
+DQN_SMOKE = dict(min_replay_size=50, samples_per_insert=4.0, batch_size=16,
+                 n_step=1, epsilon=0.2)
+DIST_ACTORS = 2
+DIST_STEPS = 4000
+DIST_TIMEOUT_S = 240.0
+CATCH_FLOOR = -0.6
+ONE_REPLICA_STEPS = 10
 
 FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
                ("sweep", 2, 2, 2, 256, 256, 64),
@@ -2975,6 +3029,253 @@ def offline_and_planning(torch, kernels):
     return out
 
 
+# ----------------------------------------------- distributed execution
+class CardBuilder:
+    """``spec -> builder`` on the card: ``kind`` "policy" gives a
+    ``TransformerPolicyBuilder`` over ``cfg`` (``TransformerPolicyConfig``
+    fields), "dqn" a ``DQNBuilder`` over ``DQNConfig`` fields; builder seed
+    SEED.  At the script's top level, so that the actor processes the
+    multiprocess launcher spawns can unpickle it: they re-import this file
+    (its work stays under ``__main__``) and build their own builder."""
+
+    def __init__(self, kind, **cfg):
+        self.kind = kind
+        self.cfg = cfg
+
+    def __call__(self, spec):
+        if self.kind == "dqn":
+            from repro_torch.agents.dqn import DQNBuilder, DQNConfig
+            return DQNBuilder(spec, DQNConfig(**self.cfg), seed=SEED,
+                              device="cuda")
+        from repro_torch.policies import (TransformerPolicyBuilder,
+                                          TransformerPolicyConfig)
+        return TransformerPolicyBuilder(
+            spec, TransformerPolicyConfig(**self.cfg), seed=SEED,
+            device="cuda")
+
+
+def catch_env(seed):
+    """``seed -> Catch``, at top level for the spawned actor processes."""
+    from repro_torch.envs import Catch
+    return Catch(seed=seed)
+
+
+def distributed_run(torch, kernels, config, **kwargs):
+    """``run_distributed_experiment`` with the launch counts zeroed just
+    before and read just after (in this process: the learner, replay,
+    parameter server and inference server live here; actors are spawned
+    processes under the multiprocess launcher); the telemetry registry is
+    released after."""
+    from repro_torch.experiments import run_distributed_experiment
+    from repro_torch.telemetry import registry as telemetry
+
+    try:
+        zero_launches(kernels)
+        t0 = time.monotonic()
+        result = run_distributed_experiment(config, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = kernel_launches(kernels)
+    finally:
+        telemetry.unconfigure()
+    steps = int(result.counts.get("actor_steps", 0))
+    wall = result.extras["walltime"]
+    entry = {"actor_steps": steps, "learner_steps": result.learner_steps,
+             "walltime_s": wall, "seconds_with_setup": seconds,
+             "env_steps_per_s": steps / wall,
+             "learner_steps_per_s": result.learner_steps / wall,
+             "spi_effective": result.extras["spi_effective"],
+             "launches": launches}
+    merged = (result.extras.get("telemetry") or {}).get("merged", {})
+    for name, key in (("learner/step_ms", "learner_step_ms"),
+                      ("inference/queue_wait_ms", "inference_queue_wait_ms"),
+                      ("courier/server/inference/select_action/latency_ms",
+                       "select_action_rpc_ms")):
+        if name in merged:
+            entry[f"{key}_p50"] = merged[name].get("p50")
+            entry[f"{key}_p95"] = merged[name].get("p95")
+    if "inference" in result.extras:
+        stats = result.extras["inference"]
+        entry["inference"] = {key: stats.get(key) for key in (
+            "batches", "requests", "rows", "avg_rows_per_batch",
+            "decode_rows", "prefill_rows", "decode_batches",
+            "prefill_batches", "padded_rows") if key in stats}
+    if "learners" in result.extras:
+        entry["learners"] = result.extras["learners"]
+    if "replay" in result.extras:
+        entry["per_shard_inserts"] = [
+            s["inserts"] for s in result.extras["replay"]["per_shard"]]
+        entry["per_shard_samples"] = [
+            s["samples"] for s in result.extras["replay"]["per_shard"]]
+    entry["final_eval"] = result.final_eval_return
+    return result, entry
+
+
+def fig17_placement(torch, kernels, policy):
+    """Phase 20: fig17's tier 2 at d_model 256 on the card, once per
+    inference mode, then the reference's two server acceptances.  In
+    "server" mode the inference node (this process) decodes on the decode
+    kernel — one launch a layer a decode batch — and the learner (this
+    process) runs flash attention twice a layer a step; the actors hold no
+    network.  In "local" mode each actor process decodes on its own copy of
+    the policy on the card, so this process launches flash attention only.
+    Which mode moves more env steps a second is printed, not gated (fig17's
+    claim that the server wins at the top width is a TPU-era one)."""
+    from repro_torch.experiments import ExperimentConfig
+
+    layers = FIG17_POLICY["num_layers"]
+    out = {}
+    for mode in ("server", "local"):
+        config = ExperimentConfig(
+            builder_factory=CardBuilder("policy", **FIG17_POLICY),
+            environment_factory=catch_env, seed=SEED, eval_episodes=0,
+            launcher="multiprocess", inference=mode, telemetry=True)
+        result, entry = distributed_run(
+            torch, kernels, config, num_actors=FIG17_ACTORS,
+            max_actor_steps=FIG17_STEPS, timeout_s=FIG17_TIMEOUT_S)
+        launches = entry["launches"]
+        log(f"  fig17 placement, inference={mode!r}: {json.dumps(entry)}")
+        check(entry["actor_steps"] >= FIG17_STEPS, f"fig17 {mode}: "
+              f"{entry['actor_steps']} actor steps in {FIG17_TIMEOUT_S} s")
+        check(entry["learner_steps"] > 0, f"fig17 {mode}: the learner never "
+              f"stepped")
+        check(launches["flash_attention"]
+              == 2 * layers * entry["learner_steps"], f"fig17 {mode}: "
+              f"{launches['flash_attention']} flash launches for "
+              f"{entry['learner_steps']} learner steps of {layers} layers")
+        check(launches["vtrace"] == launches["ssd_scan"] == 0,
+              f"fig17 {mode} launched a kernel of another slice: {launches}")
+        if mode == "server":
+            # the stats are read before the program stops, the counts
+            # after: a decode batch may land between the two
+            stats = entry["inference"]
+            decoded = launches["decode_attention"]
+            check(decoded % layers == 0
+                  and decoded >= layers * stats["decode_batches"] > 0,
+                  f"fig17 server: {decoded} decode launches for "
+                  f"{stats['decode_batches']} decode batches of {layers} "
+                  f"layers")
+        else:
+            check(launches["decode_attention"] == 0, f"fig17 local: this "
+                  f"process decoded ({launches['decode_attention']} "
+                  f"launches); the actors should")
+        out[mode] = entry
+    faster = max(out, key=lambda m: out[m]["env_steps_per_s"])
+    alone = policy["fig17_learner"]["learner_step_ms_p50"]
+    log(f"  fig17 at d_model 256: {faster!r} moves more env steps a second "
+        f"(server {out['server']['env_steps_per_s']:.1f}, local "
+        f"{out['local']['env_steps_per_s']:.1f}); learner step host ms p50: "
+        f"{out['server'].get('learner_step_ms_p50')} beside the server, "
+        f"{out['local'].get('learner_step_ms_p50')} beside local actors, "
+        f"{alone} alone (phase 14)")
+    out["faster_mode"] = faster
+    out["learner_step_ms_p50_alone"] = alone
+
+    # the reference's acceptances: the local launcher with two vectorized
+    # actors (400 steps), then the multiprocess launcher (300 steps)
+    for launcher, steps, timeout in (("local", 400, 120.0),
+                                     ("multiprocess", 300, 400.0)):
+        config = ExperimentConfig(
+            builder_factory=CardBuilder("policy", **POLICY_PRESET),
+            environment_factory=catch_env, seed=SEED, launcher=launcher,
+            inference="server", num_envs_per_actor=2)
+        result, entry = distributed_run(torch, kernels, config,
+                                        num_actors=2, max_actor_steps=steps,
+                                        timeout_s=timeout)
+        stats = entry["inference"]
+        log(f"  server acceptance, {launcher} launcher: {json.dumps(entry)}")
+        check(entry["actor_steps"] > 0, f"server acceptance ({launcher}): "
+              f"no actor steps")
+        check(stats["decode_rows"] > 0 and stats["prefill_rows"] > 0,
+              f"server acceptance ({launcher}): {stats}")
+        if launcher == "local":
+            check(entry["learner_steps"] > 0 and stats["batches"] > 0
+                  and stats["decode_rows"] > stats["prefill_rows"],
+                  f"server acceptance (local): {entry}")
+        check(entry["launches"]["decode_attention"] > 0,
+              f"server acceptance ({launcher}): no decode launches")
+        out[f"acceptance_{launcher}"] = entry
+    return out
+
+
+def distributed_dqn(torch, kernels):
+    """Phase 21: the reference's distributed DQN acceptances on the card —
+    the multiprocess smoke (2 shards, an evaluator) and the two-replica
+    run on both launchers — then a one-replica MultiLearner against the
+    plain learner on the card over ONE_REPLICA_STEPS batches, bit for bit.
+    DQN runs none of the four kernels."""
+    from repro_torch import tree
+    from repro_torch.experiments import ExperimentConfig
+    from repro_torch.learners import MultiLearner
+
+    out = {}
+    runs = [("multiprocess_smoke", dict(num_replay_shards=2,
+                                        launcher="multiprocess"), True)]
+    runs += [(f"two_replicas_{launcher}",
+              dict(num_learner_replicas=2, learner_average_period=10,
+                   launcher=launcher), False)
+             for launcher in ("local", "multiprocess")]
+    for name, knobs, evaluator in runs:
+        config = ExperimentConfig(
+            builder_factory=CardBuilder("dqn", **DQN_SMOKE),
+            environment_factory=catch_env, seed=SEED, eval_episodes=20,
+            telemetry=True, **knobs)
+        result, entry = distributed_run(
+            torch, kernels, config, num_actors=DIST_ACTORS,
+            max_actor_steps=DIST_STEPS, timeout_s=DIST_TIMEOUT_S,
+            with_evaluator=evaluator)
+        log(f"  {name}: {json.dumps(entry)}")
+        check(all(n == 0 for n in entry["launches"].values()),
+              f"{name} launched a kernel: {entry['launches']}")
+        check(entry["actor_steps"] >= DIST_STEPS and
+              entry["learner_steps"] > 50, f"{name}: {entry}")
+        check(all(t.device.type == "cuda"
+                  for t in tree.leaves(result.learner.state)),
+              f"{name}: the learner's state is not on the card")
+        final = result.final_eval_return
+        check(final is not None and final > CATCH_FLOOR,
+              f"{name}: final eval {final}, not > {CATCH_FLOOR}")
+        if evaluator:
+            check(1.0 < entry["spi_effective"] < 8.0,
+                  f"{name}: spi_effective {entry['spi_effective']}")
+            check(len(result.extras["evaluator_returns"]) >= 1,
+                  f"{name}: the evaluator reported no return")
+            check(all(n > 0 for n in entry["per_shard_inserts"]),
+                  f"{name}: a shard saw no insert")
+        else:
+            learners = entry["learners"]
+            check(learners["num_replicas"] == 2 and learners["rounds"] >= 1
+                  and all(n > 0 for n in learners["per_replica_steps"])
+                  and all(n > 0 for n in entry["per_shard_samples"]),
+                  f"{name}: {learners}, samples a shard "
+                  f"{entry['per_shard_samples']}")
+        out[name] = entry
+
+    # one replica is the plain learner, bit for bit, on the card
+    from repro_torch.agents.dqn import DQNBuilder, DQNConfig
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+    spec = make_environment_spec(Catch(seed=0))
+    builder = DQNBuilder(spec, DQNConfig(**DQN_QUICKSTART), seed=SEED,
+                         device="cuda")
+    batches = dqn_batches(ONE_REPLICA_STEPS)
+    plain = builder.make_learner(iter(list(batches)))
+    multi = MultiLearner([builder.make_learner(iter(list(batches)))],
+                         average_period=4)
+    for _ in range(ONE_REPLICA_STEPS):
+        plain.step()
+        multi.step()
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(plain.state), tree.leaves(multi.state)))
+    check(same and multi.param_server.rounds == ONE_REPLICA_STEPS // 4,
+          "one-replica MultiLearner differs from the plain learner on the "
+          "card")
+    out["one_replica_bit_identical_steps"] = ONE_REPLICA_STEPS
+    log(f"  one-replica MultiLearner == plain learner after "
+        f"{ONE_REPLICA_STEPS} steps on the card, bit for bit")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3150,6 +3451,21 @@ def main() -> int:
               f"phase {number} launched a kernel: {launches}")
         log(f"  phase {number} {json.dumps(result)}")
 
+    phase(f"phase 20: fig17's inference placement at d_model 256 — "
+          f"{FIG17_ACTORS} actor processes, {FIG17_STEPS} actor steps, "
+          f"inference 'server' then 'local'; the reference's server "
+          f"acceptances")
+    fig17 = fig17_placement(torch, kernels, policy)
+
+    phase("phase 21: distributed DQN on the card — the reference's "
+          "multiprocess and two-replica acceptances, one replica vs the "
+          "plain learner")
+    zero_launches(kernels)
+    dist_dqn = distributed_dqn(torch, kernels)
+    launches = kernel_launches(kernels)
+    check(all(n == 0 for n in launches.values()),
+          f"phase 21 launched a kernel: {launches}")
+
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
         "name": "decode_attention", "route": "cuda",
@@ -3167,6 +3483,9 @@ def main() -> int:
         "launches_by_path": {
             "serving": path["launches"]["decode_attention"],
             "transformer_policy_catch": policy["launches"][
+                "decode_attention"],
+            "fig17_server": fig17["server"]["launches"]["decode_attention"],
+            "fig17_local_parent": fig17["local"]["launches"][
                 "decode_attention"]},
         "launches_per_acting_call_fig17": policy["fig17_learner"][
             "decode_launches_per_acting_call"],
@@ -3215,7 +3534,9 @@ def main() -> int:
         "launches_by_path": {
             "scoring": scoring["launches"]["flash_attention"],
             "transformer_policy_catch": policy["launches"][
-                "flash_attention"]},
+                "flash_attention"],
+            "fig17_server": fig17["server"]["launches"]["flash_attention"],
+            "fig17_local": fig17["local"]["launches"]["flash_attention"]},
         "policy_learner": dict(flash_policy, launches_per_learner_step=(
             policy["fig17_learner"]["flash_launches_per_learner_step"])),
     }, {
@@ -3235,6 +3556,7 @@ def main() -> int:
             "ssd_scan"],
         "backward": grads["ssd_scan"],
     }]
+    log(f"  phase 21 {json.dumps(dist_dqn)}")
     log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

@@ -6,11 +6,11 @@ replaces each Pallas TPU kernel on a ported path with a kernel written by
 hand for Hopper (``repro_torch.kernels``).  Entry points take ``device=``
 and default to ``"cuda"``; the CPU is used only when a caller asks for it.
 
-Ported so far: transformer-policy serving on Catch — specs, Catch, the
-environment loop, the variable client, the telemetry registry, the dense
-transformer stack, the KV-cache pool, the policy engine, the windowed actors
-and the batching inference server, with decode attention as a CUDA kernel;
-and the IMPALA learner on Catch — vectorized envs and acting, replay and
-adders, the functional optimizers, the agent and its builder, with V-trace
-as a CUDA kernel.  ``repro_torch.tree`` walks trees in JAX's leaf order.
+Ported so far (``ROADMAP.md`` lists the modules): transformer-policy
+serving with decode attention as a CUDA kernel; the IMPALA learner with
+V-trace as one; batched scoring of Zamba2 with flash attention and the
+SSD scan; the DQN experiment loop; the sequence learners; the remaining
+agents; and distributed execution — courier, program graph, launchers,
+sharded replay, learner replicas and the inference servers.
+``repro_torch.tree`` walks trees in JAX's leaf order.
 """

@@ -221,23 +221,30 @@ class AgentBuilder(abc.ABC):
     def make_inference_server(self, variable_source, *, max_batch_size: int,
                               max_wait_ms: float, update_period: int,
                               rng_seed: int = 0):
-        """A custom inference service for ``inference="server"`` programs.
+        """A custom inference service for ``inference="server"`` programs, or
+        None to let the execution layer batch ``make_policy`` through the
+        generic ``InferenceServer``.
 
-        The generic feed-forward ``InferenceServer`` and the distributed
-        programs that place it come with ROADMAP slice 7, so the default
-        raises.
+        Not abstract: builders whose serving path is stateful (KV caches,
+        recurrent cores) override this to return a server exposing an
+        ``INTERFACE`` tuple of RPC method names plus ``stop()``/``stats()``.
         """
-        raise NotImplementedError(
-            f"{type(self).__name__}: inference='server' needs the "
-            "distributed programs of ROADMAP slice 7")
+        return None
 
     def make_inference_actor(self, inference, adder=None, adders=None):
-        """The actor-side client for an inference service node; the default
-        raises until the inference client actor is ported (ROADMAP slice 7).
+        """The actor-side client for an inference service node.
+
+        Not abstract: the default speaks the generic ``InferenceServer``
+        protocol (stateless ``select_action`` rows).  Builders overriding
+        ``make_inference_server`` override this to match their interface.
+        Exactly one of ``adder`` (single env) / ``adders`` (vectorized)
+        is given.
         """
-        raise NotImplementedError(
-            f"{type(self).__name__}: the inference client actor comes with "
-            "ROADMAP slice 7")
+        from repro_torch.core.actors import InferenceClientActor
+        if adders is not None:
+            return InferenceClientActor(inference, adders=adders,
+                                        batched=True)
+        return InferenceClientActor(inference, adder=adder)
 
 
 def registered_builders() -> List[Type[AgentBuilder]]:

@@ -23,7 +23,11 @@ Random draws come from a ``torch.Generator`` on the actor's device, seeded
 with ``seed * STEP_MOD + step`` before each call, as the reference folds
 the step counter into its key on the device: a step's draws do not depend
 on the steps before it, and the step counter is the whole RNG state.
-The inference-client actor comes with the distributed slice.
+
+``InferenceClientActor`` is the SEED-style client: ``select_action`` is an
+RPC to a central ``InferenceServer`` that coalesces requests from many actor
+workers into one batched forward pass; the client holds no weights at all,
+and no tensor: it never touches a device.
 """
 from __future__ import annotations
 
@@ -283,3 +287,49 @@ class BatchedRecurrentActor(BatchedFeedForwardActor):
                 adder.add_first(timestep, to_host(self._initial_state_fn()))
             else:
                 adder.add_first(timestep)
+
+
+class InferenceClientActor(Actor):
+    """SEED-style actor: policy evaluation lives in a remote
+    ``InferenceServer``; this client only steps environments and feeds
+    adders.
+
+    ``inference`` is any handle exposing ``select_action(observations)``
+    with a leading batch axis — the in-memory ``Handle`` under the local
+    launcher, a courier ``RemoteHandle`` under multiprocess.  ``update`` is
+    a no-op: the server owns the weights and refreshes them itself.
+    """
+
+    def __init__(self, inference,
+                 adder: Optional["Adder"] = None,
+                 adders: Optional[Sequence[Optional["Adder"]]] = None,
+                 batched: bool = False):
+        if adder is not None and adders is not None:
+            raise ValueError("pass either adder= or adders=, not both")
+        self._inference = inference
+        self._adders = list(adders) if adders is not None \
+            else ([adder] if adder is not None else [])
+        self._batched = batched
+
+    def _adder(self, env_id: int) -> Optional["Adder"]:
+        return self._adders[env_id] if env_id < len(self._adders) else None
+
+    def select_action(self, observation):
+        obs = np.asarray(observation)
+        if not self._batched:
+            obs = obs[None]
+        actions = np.asarray(self._inference.select_action(obs))
+        return actions if self._batched else actions[0]
+
+    def observe_first(self, timestep: TimeStep, env_id: int = 0):
+        adder = self._adder(env_id)
+        if adder:
+            adder.add_first(timestep)
+
+    def observe(self, action, next_timestep: TimeStep, env_id: int = 0):
+        adder = self._adder(env_id)
+        if adder:
+            adder.add(action, next_timestep)
+
+    def update(self, wait: bool = False):
+        pass   # the InferenceServer owns and refreshes the weights

@@ -1,9 +1,12 @@
-"""SEED-style batched inference: the request-coalescing server.
+"""SEED-style batched inference service (the Tier-2 half of batched acting).
 
-Actors stop evaluating the policy themselves: their client actor forwards
-``select_action`` to ONE server, which coalesces concurrent requests from
-many actors into a single batched forward pass — one model dispatch per
-coalescing window instead of one per actor per env step.
+Remote actor workers stop evaluating the policy themselves: their
+``InferenceClientActor`` forwards ``select_action(observations)`` to ONE
+``InferenceServer`` service node, which coalesces concurrent requests from
+many workers into a single batched forward pass on the server's device.  N
+actor processes then cost one model call per coalescing window instead of
+one per actor per env step — the SEED-RL economics, on the Launchpad-lite
+graph.
 
 Coalescing window semantics
 ---------------------------
@@ -17,22 +20,56 @@ A batcher thread collects requests under two bounds:
   pays at most ``max_wait_ms`` extra latency; a busy service fills batches
   before the deadline and the wait never triggers.
 
-``stop()`` fails pending and future callers with ``CourierClosed``.
+Observation batches are zero-padded up to the next power-of-two bucket
+(<= ``max_batch_size``) so the device sees a handful of shapes, not one per
+distinct request mix; padded rows are dropped before replies fan back out.
 
-The machinery is ``_BatchingServer``; a service supplies ``_execute``
-(``repro_torch.policies.serving`` runs the stateful KV-cache policy engine
-there).  The feed-forward ``InferenceServer`` comes with the DQN slice.
+The server owns the weights: a ``VariableClient`` on the learner is
+refreshed once per ``update_period`` BATCHES (not per request), so weight
+traffic scales with forward passes, not with actors; the numpy params go to
+the device once per refresh.  Exploration draws come from a
+``torch.Generator`` seeded with ``(rng_seed, batch counter)`` before each
+pass, as the batched actors seed theirs from their step counter.
+``stop()`` fails pending and future callers with ``CourierClosed`` — a
+ConnectionError, which launcher shutdown-noise classification already
+treats as benign once a stop is in flight.
+
+The coalescing machinery is factored into ``_BatchingServer`` so services
+with richer request shapes (``repro_torch.policies``' stateful KV-cache
+serving) reuse the window/queue/shutdown semantics and only supply
+``_execute``.
 """
 from __future__ import annotations
 
+import inspect
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.actors import _PolicyRunner
+from repro_torch.core.variable import VariableClient
 from repro_torch.distributed.courier import CourierClosed
 from repro_torch.telemetry import registry as _telemetry
+
+# The RPC surface a Program node wrapping this server should declare.
+INFERENCE_INTERFACE = ("select_action", "stats")
+
+
+def policy_is_feed_forward(policy: Callable) -> bool:
+    """True when ``policy`` has the (params, generator, obs) arity the
+    batched inference path can call; recurrent policies carry a 4th state
+    argument the server would have to track per client (not supported)."""
+    try:
+        params = inspect.signature(policy).parameters
+    except (TypeError, ValueError):
+        return True   # builtins and C callables: assume feed-forward
+    positional = [p for p in params.values()
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    if any(p.kind == p.VAR_POSITIONAL for p in params.values()):
+        return True
+    return len(positional) == 3
 
 
 class _Request:
@@ -190,3 +227,63 @@ class _BatchingServer:
                 if self._stopped:
                     break
         self._fail_pending()
+
+
+class InferenceServer(_BatchingServer):
+    """Coalesce ``select_action`` requests into one batched forward pass.
+
+    ``policy`` is the batched behaviour policy ``(params, generator, obs)
+    -> actions`` every builder already provides; ``variable_source`` is
+    anything with ``get_variables`` (the learner, or a handle to it).  The
+    pass runs on ``device``.
+    """
+
+    def __init__(self, policy: Callable, variable_source,
+                 max_batch_size: int = 64, max_wait_ms: float = 2.0,
+                 update_period: int = 10, rng_seed: int = 0,
+                 device="cuda"):
+        if not policy_is_feed_forward(policy):
+            raise ValueError(
+                "InferenceServer batches feed-forward policies "
+                "(params, generator, obs); recurrent policies would need "
+                "per-client state tracking — use inference='local' for "
+                "those agents")
+        self._client = VariableClient(variable_source,
+                                      update_period=max(update_period, 1))
+        # the batched actors' scheme: the generator is seeded from
+        # (rng_seed, batch counter) before each pass
+        self._run = _PolicyRunner(policy, self._client, rng_seed, device)
+        super().__init__(max_batch_size=max_batch_size,
+                         max_wait_ms=max_wait_ms)
+        with self._cond:
+            self._stats.setdefault("padded_rows", 0)
+
+    def select_action(self, observations) -> np.ndarray:
+        """Batch in, batch out: ``(k, *obs_shape) -> (k, *action_shape)``.
+
+        Blocks until this request's rows come back from a coalesced forward
+        pass.  Raises ``CourierClosed`` once the server is stopped.
+        """
+        obs = np.asarray(observations)
+        return self._submit(obs, obs.shape[0])
+
+    def _execute(self, batch: List[_Request]):
+        rows = sum(r.rows for r in batch)
+        obs = np.concatenate([r.payload for r in batch], axis=0)
+        # pad to a power-of-two bucket: a bounded set of shapes
+        bucket = 1
+        while bucket < rows:
+            bucket *= 2
+        bucket = min(bucket, self._max_batch)
+        if obs.shape[0] < bucket:
+            pad = np.zeros((bucket - obs.shape[0],) + obs.shape[1:],
+                           obs.dtype)
+            obs = np.concatenate([obs, pad], axis=0)
+        self._client.update()   # period counts BATCHES, not requests
+        actions = self._run(obs).cpu().numpy()
+        results = []
+        offset = 0
+        for request in batch:
+            results.append(actions[offset:offset + request.rows])
+            offset += request.rows
+        return results, {"padded_rows": bucket - rows}

@@ -1,10 +1,12 @@
 """Variable distribution: the learner is a VariableSource; actors poll it
 through a VariableClient (Fig 4's proxy-actor pattern — pull, not push).
 
-The client only ever calls ``get_variables`` on its source, which may be the
-learner itself, a ``VariableServer`` or any handle to either.  Serving a
-source over courier (``serve_variable_source``) comes with the distributed
-slice.
+The source may be the learner object itself, an in-memory program
+``Handle`` to it, or a courier ``RemoteHandle`` when the actor lives in
+another process — the client only ever calls ``get_variables`` and cannot
+tell the difference.  ``serve_variable_source`` is the one-liner that
+exports any ``VariableSource`` over courier RPC.  What crosses courier is
+numpy: learners hand out their params as numpy trees.
 """
 from __future__ import annotations
 
@@ -105,3 +107,13 @@ class VariableServer(VariableSource):
             if not names:
                 names = list(self._vars)
             return [self._vars[n] for n in names]
+
+
+def serve_variable_source(source: VariableSource, name: str = "variables"):
+    """Export ``source`` over a courier server; returns ``(server, handle)``.
+
+    The handle is a picklable RPC stub restricted to ``get_variables`` —
+    hand it to actors in other processes as their ``VariableClient`` source.
+    """
+    from repro_torch.distributed.courier import serve
+    return serve(source, interface=("get_variables",), name=name)

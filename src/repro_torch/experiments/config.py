@@ -6,11 +6,10 @@ An ``ExperimentConfig`` is the single declarative object from which both
 shared unchanged between the two execution modes, which is the paper's
 central modularity claim.
 
-The port keeps every field and check of the JAX package's config.  The
-three fields whose types live in the distributed runtime
-(``restart_policy``, ``chaos`` and ``rpc_retry``) raise
-``NotImplementedError`` when set, until that runtime is ported (ROADMAP
-slice 7).
+The port keeps every field and check of the JAX package's config.
+``restart_policy`` and ``chaos`` raise ``NotImplementedError`` when set,
+until elastic supervision, service failover and chaos injection are ported
+(ROADMAP slice 7b).
 """
 from __future__ import annotations
 
@@ -95,16 +94,16 @@ class ExperimentConfig:
         runs restore the same state but re-interleave asynchronously (see
         ROADMAP "Elastic & resumable runs").  No snapshot present = start
         fresh.  Requires ``checkpoint_dir``.
-    restart_policy: a ``RestartPolicy`` (slice 7) enabling elastic
+    restart_policy: a ``RestartPolicy`` (slice 7b) enabling elastic
         actor pools under the multiprocess launcher — dead ``role="worker"``
         replicas are classified (crash / preemption / shutdown) and
         respawned with exponential backoff under a per-worker budget,
         instead of failing the run.  None = fail-fast (the default).
-    chaos: a ``ChaosPolicy`` (slice 7) injecting seeded faults
+    chaos: a ``ChaosPolicy`` (slice 7b) injecting seeded faults
         (worker kills after N steps, service kills by activity, courier
         RPC delay/drop) into distributed runs — the harness the chaos
         acceptance tests drive.  None = no injection.
-    rpc_retry: a ``RetryConfig`` (slice 7) tuning courier
+    rpc_retry: a ``repro_torch.distributed.RetryConfig`` tuning courier
         client-side retry/backoff — how long calls reconnect through a
         service's restart window before raising ``ServiceUnavailable``,
         and how many attempts idempotent methods get when a response is
@@ -216,11 +215,16 @@ class ExperimentConfig:
                              f"got {self.telemetry_push_period_s}")
         if self.resume and not self.checkpoint_dir:
             raise ValueError("resume=True requires checkpoint_dir")
-        for name in ("restart_policy", "chaos", "rpc_retry"):
+        for name in ("restart_policy", "chaos"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"ExperimentConfig.{name} is not ported yet (ROADMAP "
-                    f"slice 7, distributed execution)")
+                    f"slice 7b, service failover and chaos)")
+        if self.rpc_retry is not None:
+            from repro_torch.distributed import RetryConfig
+            if not isinstance(self.rpc_retry, RetryConfig):
+                raise ValueError(f"rpc_retry must be a RetryConfig, "
+                                 f"got {self.rpc_retry!r}")
         if self.barrier_timeout_s is not None and self.barrier_timeout_s <= 0:
             raise ValueError(f"barrier_timeout_s must be > 0, "
                              f"got {self.barrier_timeout_s}")

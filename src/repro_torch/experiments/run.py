@@ -6,10 +6,11 @@ agent (§2.2), with evaluation, run-wide checkpoints and exact resume on
 their cadences.  The builder decides the device its learner and actors run
 on (``device=`` of the port's builders).
 
-``run_offline_experiment`` drives an offline builder (a fixed dataset, no
-actors, §2.6).  ``run_distributed_experiment`` (the Launchpad-lite program
-graph, §2.4) keeps the JAX package's signature and raises
-``NotImplementedError`` until ROADMAP slice 7 ports it.
+``run_distributed_experiment`` drives the SAME builder through the
+Launchpad-lite program graph (§2.4): actors in threads or spawned
+processes, the learner, replay and inference services in this process on
+the builder's device.  ``run_offline_experiment`` drives an offline
+builder (a fixed dataset, no actors, §2.6).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.agents.builders import make_agent
+from repro_torch.agents.builders import make_agent, make_distributed_agent
 from repro_torch.core import (Counter, EnvironmentLoop, VariableClient,
                               make_environment_spec)
 from repro_torch.experiments.config import ExperimentConfig, ExperimentResult
@@ -234,11 +235,139 @@ def run_distributed_experiment(config: ExperimentConfig, num_actors: int,
                                timeout_s: float = 300.0,
                                with_evaluator: bool = False,
                                poll_s: float = 0.2) -> ExperimentResult:
-    """The distributed run (Launchpad-lite program graph, §2.4): not ported
-    yet."""
-    raise NotImplementedError(
-        "run_distributed_experiment is not ported yet (ROADMAP slice 7, "
-        "distributed execution)")
+    """Distributed run: the SAME builder, unchanged, on the Launchpad-lite
+    graph (Fig 4) — N actor nodes + learner + rate-limited replay.  The
+    execution backend comes from ``config.launcher`` (``"local"`` threads or
+    ``"multiprocess"`` OS processes with courier RPC edges); multiprocess
+    runs need module-level factories in the config, since spawned children
+    rebuild the builder and environments from their pickles.  The learner
+    and the services run on the builder's device; the learner's step
+    counter is read on the host every ``poll_s`` only when checkpointing on
+    a cadence.  ``config.rpc_retry`` tunes courier retries in every
+    worker."""
+    if num_actors < 1:
+        raise ValueError(f"num_actors must be >= 1, got {num_actors}")
+    spec = make_environment_spec(config.environment_factory(config.seed))
+    builder = config.builder_factory(spec)
+    target = (config.max_actor_steps if max_actor_steps is None
+              else max_actor_steps)
+    checkpointer = _make_run_checkpointer(config)
+
+    restore = None
+    if config.resume and checkpointer is not None:
+        def restore(learner, table, counter):
+            # Called by the assembly layer once the services exist but
+            # before any worker launches: the restored learner/replay/
+            # counter state is the first state anything observes.  Workers
+            # then re-interleave asynchronously — same state, not the same
+            # schedule.
+            snapshot = checkpointer.restore(learner.state)
+            if snapshot is None:
+                return
+            learner.state = snapshot.learner_state
+            if snapshot.replay is not None:
+                table.load_state_dict(snapshot.replay)
+            if snapshot.counts is not None:
+                counter.set_counts(snapshot.counts)
+
+    dist = make_distributed_agent(builder, config.environment_factory,
+                                  num_actors=num_actors, seed=config.seed,
+                                  with_evaluator=with_evaluator,
+                                  num_replay_shards=config.num_replay_shards,
+                                  prefetch_size=config.prefetch_size,
+                                  launcher=config.launcher,
+                                  builder_factory=config.builder_factory,
+                                  spec=spec,
+                                  num_envs_per_actor=config.num_envs_per_actor,
+                                  inference=config.inference,
+                                  inference_max_batch_size=(
+                                      config.inference_max_batch_size),
+                                  inference_max_wait_ms=(
+                                      config.inference_max_wait_ms),
+                                  num_learner_replicas=(
+                                      config.num_learner_replicas),
+                                  learner_average_period=(
+                                      config.learner_average_period),
+                                  telemetry=config.telemetry,
+                                  telemetry_push_period_s=(
+                                      config.telemetry_push_period_s),
+                                  telemetry_jsonl=config.telemetry_jsonl,
+                                  restart_policy=config.restart_policy,
+                                  chaos=config.chaos,
+                                  rpc_retry=config.rpc_retry,
+                                  barrier_timeout_s=config.barrier_timeout_s,
+                                  min_quorum=config.min_quorum,
+                                  learner_sync=config.learner_sync,
+                                  replay_routing=config.replay_routing,
+                                  restore=restore)
+    last_ckpt_step: Optional[int] = None
+
+    def _save_run(at_step, counts):
+        # Services (learner, replay, counter) are parent-resident under
+        # both backends, so the parent can snapshot them directly; workers
+        # hold no durable state (their experience is already in replay).
+        checkpointer.save(at_step, dist.learner.state,
+                          replay=dist.table.state_dict(),
+                          counts=counts,
+                          meta={"mode": "distributed",
+                                "launcher": config.launcher})
+
+    t0 = time.time()
+    try:
+        while time.time() - t0 < timeout_s:
+            counts = dist.counter.get_counts()
+            if target is not None and counts.get("actor_steps", 0) >= target:
+                break
+            if checkpointer and config.checkpoint_every:
+                learner_steps = int(dist.learner.state.steps)
+                if learner_steps - (last_ckpt_step or 0) \
+                        >= config.checkpoint_every:
+                    _save_run(learner_steps, counts)
+                    last_ckpt_step = learner_steps
+            time.sleep(poll_s)
+        counts = dist.counter.get_counts()
+        rl = dist.table.rate_limiter
+        extras = {
+            "num_actors": num_actors,
+            "launcher": config.launcher,
+            "inserts": rl.inserts,
+            "samples": rl.samples,
+            "min_size_to_sample": rl.min_size_to_sample,
+            "spi_effective": rl.samples / max(
+                rl.inserts - rl.min_size_to_sample, 1),
+            "walltime": time.time() - t0,
+        }
+        if hasattr(dist.table, "stats"):   # ShardedReplay: per-shard view
+            extras["replay"] = dist.table.stats()
+        if dist.inference_server is not None:
+            extras["inference"] = dist.inference_server.stats()
+        learner_stats = dist.learner_stats()
+        if learner_stats is not None:   # multi-learner: replica steps/rounds
+            extras["learners"] = learner_stats
+        restart_stats = getattr(dist.launcher, "restart_stats", None)
+        if callable(restart_stats):   # elastic supervisor bookkeeping
+            extras["resilience"] = restart_stats()
+        if with_evaluator:
+            extras["evaluator_returns"] = dist.evaluator_returns()
+    finally:
+        dist.stop()
+    # After stop(): worker processes pushed their final snapshots during
+    # teardown and the parent pusher flushed post-join, so the merged view
+    # covers every node's end-of-run state.
+    telemetry_snapshot = dist.telemetry_snapshot()
+    if telemetry_snapshot is not None:
+        extras["telemetry"] = telemetry_snapshot
+
+    total_steps = int(counts.get("actor_steps", 0))
+    evals = ([(total_steps, _evaluate(config, builder, dist.learner))]
+             if config.eval_episodes > 0 else [])
+    learner_steps = int(dist.learner.state.steps)
+    if checkpointer and learner_steps != last_ckpt_step:
+        _save_run(learner_steps, counts)
+    return ExperimentResult(
+        train_returns=[], actor_steps=[total_steps], walltime=[extras["walltime"]],
+        eval_returns=evals, counts=counts, learner_steps=learner_steps,
+        learner=dist.learner, builder=builder, extras=extras)
 
 
 def run_offline_experiment(config: ExperimentConfig,

@@ -4,8 +4,9 @@ Implements the ``AgentBuilder`` protocol: a sequence adder through the
 prioritized replay, the sequence double-DQN learner over replayed windows
 (flash attention on the card), and windowed actors running incremental
 KV-cache decode through a ``PolicyEngine`` (decode attention on the card).
-The ``inference="server"`` hooks raise until the distributed programs are
-ported (ROADMAP slice 7).
+With ``inference="server"`` one ``TransformerInferenceServer`` on the
+builder's device serves every actor's windows, and the actors hold no
+network.
 """
 from __future__ import annotations
 
@@ -131,3 +132,23 @@ class TransformerPolicyBuilder(AgentBuilder):
         engine = policy.make_engine(num_slots=max(len(adders), 1),
                                     rng_seed=seed, device=self.device)
         return BatchedWindowedPolicyActor(engine, variable_client, adders)
+
+    # -------------------------------------------------------------- serving
+    def make_inference_server(self, variable_source, *, max_batch_size: int,
+                              max_wait_ms: float, update_period: int,
+                              rng_seed: int = 0):
+        from repro_torch.policies.serving import TransformerInferenceServer
+        policy = self.make_policy(evaluation=False)
+        engine = policy.make_engine(
+            num_slots=max(self.cfg.cache_slots, max_batch_size),
+            rng_seed=rng_seed, device=self.device)
+        return TransformerInferenceServer(
+            engine, variable_source, max_batch_size=max_batch_size,
+            max_wait_ms=max_wait_ms, update_period=update_period)
+
+    def make_inference_actor(self, inference, adder=None, adders=None):
+        from repro_torch.policies.actors import WindowedInferenceClientActor
+        if adders is not None:
+            return WindowedInferenceClientActor(inference, adders=adders,
+                                                batched=True)
+        return WindowedInferenceClientActor(inference, adder=adder)

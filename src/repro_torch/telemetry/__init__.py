@@ -1,7 +1,8 @@
-"""repro_torch.telemetry — the per-process metric registry and the
-run-wide ``MetricsHub`` (copies of ``repro.telemetry.registry`` and of the
-hub in ``repro.telemetry.hub``, which import no jax; the port keeps its
-own).  The hub's pusher thread comes with the distributed slice."""
+"""repro_torch.telemetry — the per-process metric registry, the run-wide
+``MetricsHub`` every worker pushes snapshots to, and the worker-side
+``MetricsPusher`` and its picklable ``WorkerTelemetry`` bootstrap (copies
+of ``repro.telemetry.registry`` and ``repro.telemetry.hub``, which import
+no jax; the port keeps its own)."""
 
 from repro_torch.telemetry.registry import (  # noqa: F401
     DEFAULT_RESERVOIR,
@@ -28,4 +29,10 @@ from repro_torch.telemetry.registry import (  # noqa: F401
     timer,
     unconfigure,
 )
-from repro_torch.telemetry.hub import MetricsHub, format_report  # noqa: F401
+from repro_torch.telemetry.hub import (  # noqa: F401
+    HUB_INTERFACE,
+    MetricsHub,
+    MetricsPusher,
+    WorkerTelemetry,
+    format_report,
+)

@@ -28,13 +28,14 @@ from repro_torch.agents import (bc, common, continuous, dqfd, dqn, impala,
                                 make_agent, mcts, r2d2, r2d3)
 from repro_torch.builders import (AgentBuilder, BuilderOptions,
                                   registered_builders)
-from repro_torch.core import (Agent, EnvironmentLoop, VariableClient,
+from repro_torch.core import (Actor, Agent, EnvironmentLoop, VariableClient,
                               VariableSource, VectorizedEnvironmentLoop,
                               make_environment_spec)
 from repro_torch.core.actors import BatchedFeedForwardActor, FeedForwardActor
 from repro_torch.envs import (Catch, DeepSea, PendulumSwingup, VectorEnv,
                               split_timestep)
-from repro_torch.replay import ReplaySample, SampleInfo
+from repro_torch.learners import MultiLearner
+from repro_torch.replay import ReplaySample, SampleInfo, ShardedReplay
 from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
@@ -465,31 +466,41 @@ def test_vectorized_impala_agent_trains_through_the_loop():
 
 
 def test_make_agent_rejects_paths_not_ported():
+    """Sharded replay and learner replicas are ported; async learner sync
+    and shard-affine routing come with slice 7b."""
     cfg = impala.IMPALAConfig(sequence_length=3, batch_size=2)
     builder = impala.IMPALABuilder(_spec(), cfg, device=CPU)
-    for kwargs in (dict(num_replay_shards=2), dict(num_learner_replicas=2),
-                   dict(learner_sync="async"),
+    for kwargs in (dict(learner_sync="async"),
                    dict(replay_routing="affinity")):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(NotImplementedError, match="slice 7b"):
             make_agent(builder, **kwargs)
     with pytest.raises(ValueError):
         make_agent(builder, learner_sync="bogus")
     agent = make_agent(builder, num_learner_replicas=1)
-    assert isinstance(agent.learner, common.TorchLearner)
+    assert isinstance(agent.learner, MultiLearner)
+    assert isinstance(make_agent(builder).learner, common.TorchLearner)
+    sharded = make_agent(builder, num_replay_shards=2)
+    assert isinstance(sharded.table, ShardedReplay)
+    assert isinstance(sharded.learner, common.TorchLearner)
+    replicas = make_agent(builder, num_learner_replicas=2)
+    assert isinstance(replicas.learner, MultiLearner)
+    assert replicas.table.num_shards == 2
 
 
 @pytest.mark.parametrize("period", [None, 1, 10])
 def test_make_agent_takes_learner_average_period(period):
     """run_experiment passes learner_average_period on, as the reference
-    does; with one replica it changes nothing, and with more the replica
-    error still fires."""
+    does; without replicas it changes nothing, and two replicas average
+    every ``period`` steps (the builder's default of 50 when None)."""
     cfg = impala.IMPALAConfig(sequence_length=3, batch_size=2)
     builder = impala.IMPALABuilder(_spec(), cfg, device=CPU)
     agent = make_agent(builder, learner_average_period=period)
     assert isinstance(agent.learner, common.TorchLearner)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        make_agent(builder, num_learner_replicas=2,
-                   learner_average_period=period)
+    agent = make_agent(builder, num_learner_replicas=2,
+                       learner_average_period=period)
+    assert agent.learner.average_period == (
+        builder.options.learner_average_period if period is None
+        else period)
 
 
 # ------------------------------------------------------------- builder API
@@ -631,8 +642,8 @@ def test_builder_conformance(cls):
     assert not table.rate_limiter.would_block_sample()
     assert table.size() >= builder.options.batch_size
     assert np.isfinite(learner.step()["loss"])
-    with pytest.raises(NotImplementedError):
-        builder.make_inference_actor(None, adder=adder)
+    # the inference="server" client: an actor holding no weights
+    assert isinstance(builder.make_inference_actor(None, adder=adder), Actor)
 
 
 def test_builder_options_validation():

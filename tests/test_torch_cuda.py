@@ -4,14 +4,17 @@ argument checks and launch counts, the kernel-backed engine against the
 plain one, an IMPALA learner step that launches V-trace once and syncs
 once, the reduced Zamba2 and Mamba2 scoring steps on the kernels against
 the same steps on the plain versions, gradients through flash attention
-and the SSD scan (their autograd Functions) against the plain route's, and
-a DQN learner step that syncs once and matches the CPU's.
+and the SSD scan (their autograd Functions) against the plain route's, a
+DQN learner step that syncs once and matches the CPU's, and the
+distributed slice: the inference servers on the card, replica averaging
+on the card, and a server-mode actor process that never touches it.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
 import warnings
 
 import numpy as np
@@ -1241,3 +1244,110 @@ def test_mcts_evaluate_on_the_card_gives_the_cpus_priors(cuda_device):
         np.testing.assert_allclose(priors, cpu_priors, atol=1e-6, rtol=0)
         assert abs(value - cpu_value) <= 1e-6
         ts = env.step(1)
+
+
+# ------------------------------------------------------ distributed slice
+def _dqn_inference_servers(device_a, device_b):
+    """Two generic InferenceServers on two devices over the same numpy DQN
+    params, at epsilon 0."""
+    from repro_torch import tree
+    from repro_torch.agents import dqn
+    from repro_torch.core import (InferenceServer, VariableServer,
+                                  make_environment_spec)
+    from repro_torch.envs import Catch
+    spec = make_environment_spec(Catch(seed=0))
+    cfg = dqn.DQNConfig(epsilon=0.0)
+    init, _, _, _ = dqn.make_q_network(spec, cfg, device="cpu")
+    params = tree.map(lambda x: x.numpy(),
+                      init(torch.Generator().manual_seed(4)))
+    return [InferenceServer(dqn.make_behavior_policy(spec, cfg),
+                            VariableServer(policy=params), max_batch_size=16,
+                            max_wait_ms=1.0, device=device)
+            for device in (device_a, device_b)]
+
+
+@pytest.mark.cuda
+def test_inference_server_on_the_card_gives_the_cpus_greedy_actions(
+        cuda_device):
+    card, cpu = _dqn_inference_servers(cuda_device, "cpu")
+    rng = np.random.RandomState(0)
+    try:
+        for rows in (1, 5, 16):
+            obs = np.zeros((rows, 10, 5), np.float32)
+            obs[np.arange(rows), rng.randint(0, 9, rows),
+                rng.randint(0, 5, rows)] = 1.0
+            obs[np.arange(rows), 9, rng.randint(0, 5, rows)] = 1.0
+            np.testing.assert_array_equal(card.select_action(obs),
+                                          cpu.select_action(obs))
+        assert card.stats()["padded_rows"] == cpu.stats()["padded_rows"]
+    finally:
+        card.stop()
+        cpu.stop()
+
+
+@pytest.mark.cuda
+def test_average_states_on_the_card_equals_the_cpus(cuda_device):
+    """Replica states on the card average to the same bits as their CPU
+    copies, leaf for leaf, on the card."""
+    from repro_torch import tree
+    from repro_torch.learners import average_states
+    rng = np.random.RandomState(0)
+    states = [{"params": {"w": rng.randn(64, 33).astype(np.float32),
+                          "b": rng.randn(33).astype(np.float32)},
+               "mu": (rng.randn(7) * 1e-4).astype(np.float32),
+               "steps": np.int32(rng.randint(2 ** 24, 2 ** 25))}
+              for _ in range(3)]
+    cpu = average_states([tree.map(torch.as_tensor, s) for s in states])
+    card = average_states([tree.map(
+        lambda x: torch.as_tensor(x).to(cuda_device), s) for s in states])
+    for x, y in zip(tree.leaves(card), tree.leaves(cpu)):
+        assert x.device.type == "cuda" and x.dtype == y.dtype
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+def test_spawned_server_mode_actor_leaves_cuda_uninitialised(cuda_device,
+                                                             tmp_path):
+    """inference='server' on the card: the learner and the server use the
+    card in this process; the spawned actor holds no network and never
+    starts a CUDA context."""
+    from repro_torch.experiments import run_distributed_experiment
+    from torch_factories import ProbedCatchFactory, make_dqn_catch_config
+    config = make_dqn_catch_config(
+        seed=0, device="cuda", launcher="multiprocess", inference="server",
+        eval_episodes=0, env_factory=ProbedCatchFactory(tmp_path))
+    result = run_distributed_experiment(config, num_actors=1,
+                                        max_actor_steps=200, timeout_s=180)
+    assert result.counts["actor_steps"] >= 200
+    assert result.extras["inference"]["batches"] > 0
+    reports = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
+    assert reports == [{"modules": [], "cuda_initialized": False}], reports
+
+
+@pytest.mark.cuda
+def test_transformer_inference_server_decodes_through_the_kernel(
+        cuda_device):
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+    from repro_torch.policies import TransformerPolicyBuilder
+    cfg = TransformerPolicyConfig(num_layers=2, d_model=64, num_heads=4,
+                                  num_kv_heads=2, head_dim=16, d_ff=128,
+                                  window=WINDOW, backend="auto")
+    builder = TransformerPolicyBuilder(make_environment_spec(Catch(seed=0)),
+                                       cfg, device="cuda")
+    learner = builder.make_learner(iter(()))
+    server = builder.make_inference_server(
+        learner, max_batch_size=4, max_wait_ms=1.0, update_period=100)
+    try:
+        assert server._engine.device.type == "cuda"
+        actor = builder.make_inference_actor(server, adders=[None] * 4)
+        obs = np.zeros((4,) + OBS_SHAPE, np.float32)
+        actor.select_action(obs)                       # prefill
+        before = decode_attention.launches
+        for _ in range(3):
+            actions = actor.select_action(obs)
+        assert actions.shape == (4,)
+        assert decode_attention.launches - before == 3 * cfg.num_layers
+        assert server.stats()["decode_rows"] == 12
+    finally:
+        server.stop()

@@ -159,12 +159,20 @@ def test_logger_factory_and_telemetry(tmp_path):
 
 
 def test_unported_entry_points_raise():
-    config = _config(num_episodes=1)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        run_distributed_experiment(config, num_actors=2)
-    # run_offline_experiment is ported: an online builder is refused
+    """Every entry point is ported: run_distributed_experiment runs (here on
+    threads, on the CPU) and run_offline_experiment refuses an online
+    builder, as the reference's do; only the slice-7b knobs raise."""
+    config = _config(num_episodes=1, eval_episodes=0)
+    result = run_distributed_experiment(config, num_actors=2,
+                                        max_actor_steps=200, timeout_s=60)
+    assert result.counts["actor_steps"] >= 200
+    assert result.extras["launcher"] == "local"
     with pytest.raises(ValueError, match="offline"):
         run_offline_experiment(config, num_learner_steps=1)
+    for knobs in (dict(learner_sync="async"),
+                  dict(replay_routing="affinity")):
+        with pytest.raises(NotImplementedError, match="slice 7b"):
+            run_distributed_experiment(_config(**knobs), num_actors=1)
 
 
 # ------------------------------------------------------------------- resume
@@ -365,8 +373,16 @@ def test_config_checks_match_reference(knobs):
 
 @pytest.mark.parametrize("field", ["restart_policy", "chaos", "rpc_retry"])
 def test_distributed_only_fields_raise_until_ported(field):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        _config(**{field: object()})
+    """restart_policy and chaos wait for slice 7b; rpc_retry is ported and
+    takes a RetryConfig only, as the reference's does."""
+    from repro_torch.distributed import RetryConfig
+    if field == "rpc_retry":
+        with pytest.raises(ValueError, match="RetryConfig"):
+            _config(rpc_retry=object())
+        assert _config(rpc_retry=RetryConfig()).rpc_retry == RetryConfig()
+    else:
+        with pytest.raises(NotImplementedError, match="slice 7b"):
+            _config(**{field: object()})
 
 
 def test_result_reports_the_final_eval():

@@ -85,6 +85,51 @@ def test_dqn_slice_imports_neither_jax_nor_repro(module):
     assert result.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.distributed", "repro_torch.learners",
+    "repro_torch.replay.service", "repro_torch.agents.builders"])
+def test_distributed_slice_imports_neither_jax_nor_repro(module):
+    """The distributed slice's modules, each on its own in a fresh
+    interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys\nimport {module}\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
+def test_spawned_actor_child_imports_neither_jax_nor_repro(tmp_path):
+    """An actor the multiprocess launcher spawns (here with
+    ``inference="server"``, so it holds no network) loads neither jax nor
+    the reference package, whatever its parent has loaded, and starts no
+    CUDA context."""
+    import json
+
+    import torch
+
+    from repro_torch.experiments import run_distributed_experiment
+    from torch_factories import ProbedCatchFactory, make_dqn_catch_config
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        config = make_dqn_catch_config(
+            seed=0, launcher="multiprocess", inference="server",
+            eval_episodes=0, env_factory=ProbedCatchFactory(tmp_path))
+        result = run_distributed_experiment(config, num_actors=1,
+                                            max_actor_steps=100,
+                                            timeout_s=120)
+    finally:
+        torch.set_num_threads(threads)
+    assert result.counts["actor_steps"] >= 100
+    reports = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
+    assert len(reports) == 1, reports
+    assert reports[0] == {"modules": [], "cuda_initialized": False}
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -98,7 +143,8 @@ def _imported_roots(path: pathlib.Path):
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
                             ROOT / "scripts" / "tensor_core_probe.py",
-                            ROOT / "scripts" / "latency_probe.py"],
+                            ROOT / "scripts" / "latency_probe.py",
+                            ROOT / "scripts" / "acceptance_repeats.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     roots = set(_imported_roots(path))

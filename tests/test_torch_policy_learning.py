@@ -324,8 +324,9 @@ def test_batched_windowed_actor_greedy_actions_match_reference(name):
 def test_builder_matches_reference_builder():
     """Options, config, replay table and limiter, and the adder as the
     reference builds them; the windowed actors on engines over the
-    builder's device; the inference hooks raise until the distributed
-    programs are ported."""
+    builder's device; the inference hooks give a server whose engine is on
+    the builder's device with the reference's slot count, and its windowed
+    client."""
     for spi in (0.0, 4.0):
         cfg, jcfg = _configs("preset", samples_per_insert=spi)
         builder = TransformerPolicyBuilder(make_environment_spec(Catch()),
@@ -351,11 +352,15 @@ def test_builder_matches_reference_builder():
     actor = builder.make_actor(policy, None, adder)
     assert actor._engine.device == torch.device(CPU)
     assert actor._engine.pool.num_slots == 1
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        builder.make_inference_server(None, max_batch_size=4,
-                                      max_wait_ms=1.0, update_period=1)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        builder.make_inference_actor(None, adder=adder)
+    server = builder.make_inference_server(None, max_batch_size=4,
+                                           max_wait_ms=1.0, update_period=1)
+    try:
+        assert server._engine.device == torch.device(CPU)
+        assert server._engine.pool.num_slots == max(cfg.cache_slots, 4)
+    finally:
+        server.stop()
+    client = builder.make_inference_actor(server, adder=adder)
+    assert client._inference is server and client._adders == [adder]
 
 
 def test_vectorized_agent_trains_through_the_loop():
