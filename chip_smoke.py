@@ -204,12 +204,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    every 10 steps, on both launchers), then a one-replica
    ``MultiLearner`` against the plain learner on the card over 10 batches,
    bit for bit; env steps/s, learner steps/s, averaging rounds and the
-   effective SPI.
+   effective SPI;
+22. fault tolerance on the card: phase 20's policy in server mode with
+   two learner replicas exchanging through the async parameter service
+   every 10 steps (``learner_sync="async"``), once under the reference's
+   ``RestartPolicy(max_restarts=3)`` with a chaos kill of
+   ``learner/replica_1`` and ``learner/param_service`` at their 10th step
+   or push/pull, and once without either: each target restored once from
+   its snapshot, no worker restarted, the rounds and both replicas'
+   steps growing after the restores, flash launches exactly twice a layer
+   a learner step executed and decode launches once a layer a decode
+   batch (both counted by the run's telemetry after the stop); prints env
+   steps/s, learner steps/s a replica, the snapshot and restore ms (all
+   services and each), the learner step's host ms p50 with and without
+   failover beside phase 20's and phase 14's, pushes, pulls and the
+   staleness histograms.  Then the reference's four resilience acceptances
+   (``tests/test_resilience.py:572-594,1148-1181,1232-1265``,
+   ``tests/test_async_learner.py:584-616``) with the port's DQN on the
+   card and their mechanics (the -0.6 learning gate on the one that
+   restores two services, kill-shard-and-replica); fig20's async vs
+   barrier learner steps a second with a straggling replica
+   (``benchmarks/fig20_async_learner.py``, its 6 s smoke window, at least
+   1.5x); ``weighted_average_states`` and the async service's three merges
+   of three DQN states on the card equal to the CPU's bit for bit, and a
+   one-replica async ``MultiLearner`` on the card equal to the plain
+   learner after 10 steps.
 
-Phases 17-19 and 21 launch none of the four kernels: each zeros the
-launch counts before it and requires 0 after.  The actor processes of
-phases 20-21 re-import this file to unpickle ``CardBuilder`` and
-``catch_env``, so its work stays under ``__main__``.
+Phases 17-19, 21 and 22's DQN parts launch none of the four kernels: each
+zeros the launch counts before it and requires 0 after.  The actor
+processes of phases 20-22 re-import this file to unpickle ``CardBuilder``
+and ``catch_env``, so its work stays under ``__main__``.  The last phase
+heading is followed by the script's total seconds.
 
 The last three lines are the card's name and power limit (from nvidia-smi),
 a JSON ``kernels`` line (with the launch floor beside the kernels), and
@@ -426,6 +451,57 @@ DIST_STEPS = 4000
 DIST_TIMEOUT_S = 240.0
 CATCH_FLOOR = -0.6
 ONE_REPLICA_STEPS = 10
+# Phase 22: fault tolerance.  fig17's policy of phase 20 (inference
+# "server", 4 actor processes, FIG17_STEPS actor steps) with two learner
+# replicas exchanging through the async parameter service every 10 steps,
+# run once with the reference's RestartPolicy(max_restarts=3) and a chaos
+# kill of replica 1 and of the parameter service, and once without either
+# (the like-for-like run the learner step's host ms is compared with).
+# The replicas start once each shard holds min_replay_size sequences; the
+# kill fires at replica 1's 10th step and at the service's 10th push or
+# pull (5 exchanges), both in the first third of the replicas' steps.
+FIG17_FAILOVER = dict(num_learner_replicas=2, learner_average_period=10,
+                      learner_sync="async")
+FIG17_KILL_AFTER = 10
+FIG17_KILL_TARGETS = ("learner/replica_1", "learner/param_service")
+# Then the reference's four resilience acceptances at its configs
+# (tests/test_resilience.py:572-594,1148-1181,1232-1265 and
+# tests/test_async_learner.py:584-616), conftest's DQN preset, 2 actors,
+# 4000 actor steps, 20 eval episodes: (restart policy and chaos, other
+# knobs, timeout s, whether the -0.6 learning gate applies on the card).
+RESILIENCE_ACCEPTANCES = {
+    "chaos_kill_actor": (dict(kill_after_steps=400,
+                              kill_targets=("actor/0",)), {}, 240.0, False),
+    "failover_kill_shard_and_replica": (
+        dict(kill_after_steps=300,
+             kill_targets=("replay/shard_0", "learner/replica_0")),
+        dict(num_learner_replicas=2, learner_average_period=10,
+             barrier_timeout_s=2.0, min_quorum=1), 300.0, True),
+    "failover_kill_async_param_service": (
+        dict(kill_after_steps=20, kill_targets=("learner/param_service",)),
+        dict(num_learner_replicas=2, learner_average_period=10,
+             learner_sync="async"), 300.0, False),
+    "two_replica_async_multiprocess": (
+        None, dict(num_learner_replicas=2, learner_average_period=10,
+                   learner_sync="async"), 240.0, False),
+}
+# fig20's method and constants (benchmarks/fig20_async_learner.py:31-43,
+# 47-52): two DQN replicas (min replay 32, SPI 0, batch 16, n-step 1), the
+# first sleeping SLOW_STEP_S a step, one actor on threads; aggregate
+# learner steps over the smoke window after every replica's warm-up steps,
+# barrier then async; async must move SMOKE_MIN_SPEEDUP times as many.
+FIG20_DQN = dict(min_replay_size=32, samples_per_insert=0.0, batch_size=16,
+                 n_step=1)
+FIG20_AVERAGE_PERIOD = 10
+FIG20_SLOW_STEP_S = 0.05
+FIG20_WARMUP_STEPS = 2
+FIG20_WARMUP_TIMEOUT_S = 120.0
+FIG20_MEASURE_S = 6.0
+FIG20_MIN_SPEEDUP = 1.5
+# The blends: three DQN states (stepped apart on the CPU) blended on the
+# card and on the CPU, pushed at these steps, blended with these weights.
+BLEND_STEPS = (12, 9, 10)
+BLEND_WEIGHTS = (1e-3, 7.0, 2.5)
 
 FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
                ("sweep", 2, 2, 2, 256, 256, 64),
@@ -3276,6 +3352,375 @@ def distributed_dqn(torch, kernels):
     return out
 
 
+# ------------------------------------------------------- fault tolerance
+def histogram_summary(merged, name):
+    """count, p50, p95 and max of a merged telemetry histogram (None when
+    the run recorded none)."""
+    entry = merged.get(name)
+    if not entry or not entry.get("count"):
+        return None
+    return {key: entry.get(key) for key in ("count", "p50", "p95", "max")}
+
+
+class RestoreLog:
+    """Records, right after each service restore of the watchdog, the
+    async service's rounds and every replica's steps (wraps
+    ``ServiceWatchdog._respawn`` while in a ``with``)."""
+
+    def __init__(self, replicas):
+        self.replicas = replicas
+        self.restores = []
+
+    def __enter__(self):
+        from repro_torch.resilience import failover
+        self._original = original = failover.ServiceWatchdog._respawn
+        log = self
+
+        def respawn(watchdog, name):
+            original(watchdog, name)
+            if name in watchdog._down:      # the re-bind is retried later
+                return
+            program = watchdog._launcher.program
+            log.restores.append({
+                "service": name,
+                "rounds": program.resolve("learner/param_service").rounds,
+                "replica_steps": [
+                    program.resolve(f"learner/replica_{i}").steps_taken
+                    for i in range(log.replicas)]})
+        failover.ServiceWatchdog._respawn = respawn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.resilience import failover
+        failover.ServiceWatchdog._respawn = self._original
+
+
+def fig17_failover(torch, kernels, fig17):
+    """Phase 22, part 1: fig17's policy with two async learner replicas on
+    the card, with a chaos kill of replica 1 and of the parameter service
+    under the reference's restart policy, then the same run without
+    either.  Each replica's learner runs flash attention (twice a layer a
+    step) and the inference node decodes (once a layer a decode batch), in
+    this process: both counts are held exactly to the steps and batches the
+    run's telemetry counted after the stop (a replica restored from a
+    snapshot redoes the steps it lost, so its launches exceed the steps it
+    reports)."""
+    from repro_torch.experiments import ExperimentConfig
+    from repro_torch.resilience import ChaosPolicy, RestartPolicy
+
+    layers = FIG17_POLICY["num_layers"]
+    replicas = FIG17_FAILOVER["num_learner_replicas"]
+    out = {}
+    for name, resilience in (
+            ("with_failover", dict(
+                restart_policy=RestartPolicy(max_restarts=3),
+                chaos=ChaosPolicy(kill_after_steps=FIG17_KILL_AFTER,
+                                  kill_targets=FIG17_KILL_TARGETS,
+                                  max_kills=1))),
+            ("without_failover", {})):
+        config = ExperimentConfig(
+            builder_factory=CardBuilder("policy", **FIG17_POLICY),
+            environment_factory=catch_env, seed=SEED, eval_episodes=0,
+            launcher="multiprocess", inference="server", telemetry=True,
+            **FIG17_FAILOVER, **resilience)
+        with RestoreLog(replicas) as restores:
+            result, entry = distributed_run(
+                torch, kernels, config, num_actors=FIG17_ACTORS,
+                max_actor_steps=FIG17_STEPS, timeout_s=FIG17_TIMEOUT_S)
+        merged = result.extras["telemetry"]["merged"]
+        learners = result.extras["learners"]
+        executed = merged["learner/step_ms"]["count"]
+        decode_batches = merged["inference/engine/decode_ms"]["count"]
+        entry.update({
+            "resilience": result.extras.get("resilience"),
+            "restores": restores.restores,
+            "learner_steps_executed": executed,
+            "decode_batches": decode_batches,
+            "learner_steps_per_s_a_replica": [
+                n / entry["walltime_s"]
+                for n in learners["per_replica_steps"]],
+            "pushes": learners["service"]["pushes"],
+            "pulls": learners["service"]["pulls"],
+            "push_staleness": histogram_summary(
+                merged, "learner/push_staleness"),
+            "pull_age_steps": histogram_summary(
+                merged, "learner/pull_age_steps"),
+            "snapshot_ms": histogram_summary(merged,
+                                             "resilience/snapshot_ms"),
+            "snapshot_ms_by_service": {
+                key.rsplit("resilience/snapshot_ms/", 1)[1]:
+                    histogram_summary(merged, key)
+                for key in merged
+                if key.startswith("resilience/snapshot_ms/")},
+            "restore_ms": histogram_summary(merged, "resilience/restore_ms"),
+        })
+        log(f"  fig17 async, {name}: {json.dumps(entry)}")
+        launches = entry["launches"]
+        check(entry["actor_steps"] >= FIG17_STEPS, f"fig17 {name}: "
+              f"{entry['actor_steps']} actor steps")
+        check(all(n > 0 for n in learners["per_replica_steps"])
+              and learners["sync"] == "async" and learners["rounds"] >= 1,
+              f"fig17 {name}: {learners}")
+        check(launches["flash_attention"] == 2 * layers * executed
+              and executed >= sum(learners["per_replica_steps"]),
+              f"fig17 {name}: {launches['flash_attention']} flash launches "
+              f"for {executed} learner steps executed "
+              f"({learners['per_replica_steps']} kept) of {layers} layers")
+        check(launches["decode_attention"] == layers * decode_batches > 0,
+              f"fig17 {name}: {launches['decode_attention']} decode "
+              f"launches for {decode_batches} decode batches")
+        check(launches["vtrace"] == launches["ssd_scan"] == 0,
+              f"fig17 {name} launched a kernel of another slice: {launches}")
+        if resilience:
+            stats = entry["resilience"]
+            check(stats["service_restarts"]
+                  == {target: 1 for target in FIG17_KILL_TARGETS}
+                  and stats["restarts"] == {},
+                  f"fig17 {name}: restarts {stats}")
+            check(sorted(r["service"] for r in restores.restores)
+                  == sorted(FIG17_KILL_TARGETS),
+                  f"fig17 {name}: restores {restores.restores}")
+            last = restores.restores[-1]
+            service = next(r for r in restores.restores
+                           if r["service"] == "learner/param_service")
+            check(learners["rounds"] > service["rounds"],
+                  f"fig17 {name}: rounds {learners['rounds']} not past "
+                  f"{service['rounds']} at the service's restore")
+            check(all(n > at for n, at in zip(learners["per_replica_steps"],
+                                              last["replica_steps"])),
+                  f"fig17 {name}: a replica did not step after the last "
+                  f"restore: {learners['per_replica_steps']} vs "
+                  f"{last['replica_steps']}")
+            check(entry["snapshot_ms"] is not None
+                  and entry["restore_ms"]["count"] == 2,
+                  f"fig17 {name}: snapshots {entry['snapshot_ms']}, "
+                  f"restores {entry['restore_ms']}")
+        out[name] = entry
+    alone = fig17["learner_step_ms_p50_alone"]
+    out["learner_step_ms_p50"] = {
+        "with_failover": out["with_failover"].get("learner_step_ms_p50"),
+        "without_failover": out["without_failover"].get(
+            "learner_step_ms_p50"),
+        "phase_20_server": fig17["server"].get("learner_step_ms_p50"),
+        "phase_14_alone": alone}
+    log(f"  fig17 async: learner step host ms p50 "
+        f"{json.dumps(out['learner_step_ms_p50'])}; snapshot ms "
+        f"{json.dumps(out['with_failover']['snapshot_ms'])}")
+    return out
+
+
+def resilience_acceptances(torch, kernels):
+    """Phase 22, part 2: the reference's four resilience acceptances with
+    the port's DQN on the card, their mechanics held as the reference's
+    tests hold them; the -0.6 learning gate where RESILIENCE_ACCEPTANCES
+    says, and every final eval printed."""
+    from repro_torch.experiments import ExperimentConfig
+    from repro_torch.resilience import CRASH, ChaosPolicy, RestartPolicy
+
+    out = {}
+    for name, (chaos, knobs, timeout, gated) in \
+            RESILIENCE_ACCEPTANCES.items():
+        if chaos is not None:
+            knobs = dict(knobs, restart_policy=RestartPolicy(max_restarts=3),
+                         chaos=ChaosPolicy(max_kills=1, **chaos))
+        config = ExperimentConfig(
+            builder_factory=CardBuilder("dqn", **DQN_SMOKE),
+            environment_factory=catch_env, seed=SEED, eval_episodes=20,
+            launcher="multiprocess", telemetry=True, **knobs)
+        result, entry = distributed_run(
+            torch, kernels, config, num_actors=DIST_ACTORS,
+            max_actor_steps=DIST_STEPS, timeout_s=timeout)
+        stats = result.extras.get("resilience", {})
+        entry["resilience"] = stats
+        log(f"  {name}: {json.dumps(entry)}")
+        check(entry["actor_steps"] >= DIST_STEPS, f"{name}: {entry}")
+        check(all(n == 0 for n in entry["launches"].values()),
+              f"{name} launched a kernel: {entry['launches']}")
+        learners = entry.get("learners", {})
+        if name == "chaos_kill_actor":
+            check(stats["restarts"].get("actor/0") == 1
+                  and CRASH in stats["exit_kinds"]["actor/0"],
+                  f"{name}: {stats}")
+        elif name == "failover_kill_shard_and_replica":
+            check(all(stats["service_restarts"].get(target) == 1
+                      and CRASH in stats["service_exit_kinds"][target]
+                      for target in chaos["kill_targets"])
+                  and stats["restarts"] == {} and learners["rounds"] > 0,
+                  f"{name}: {stats}, {learners}")
+        elif name == "failover_kill_async_param_service":
+            check(stats["service_restarts"].get("learner/param_service") == 1
+                  and stats["restarts"] == {}
+                  and learners["sync"] == "async" and learners["rounds"] > 0
+                  and all(n > 0 for n in learners["per_replica_steps"]),
+                  f"{name}: {stats}, {learners}")
+        else:
+            check(entry["learner_steps"] > 50
+                  and learners["num_replicas"] == 2
+                  and learners["sync"] == "async" and learners["rounds"] >= 1
+                  and learners["service"]["pushes"] >= 2
+                  and all(n > 0 for n in learners["per_replica_steps"])
+                  and all(n > 0 for n in entry["per_shard_samples"]),
+                  f"{name}: {learners}, {entry.get('per_shard_samples')}")
+        final = result.final_eval_return
+        check(final is not None, f"{name}: no final eval")
+        if gated:
+            check(final > CATCH_FLOOR,
+                  f"{name}: final eval {final}, not > {CATCH_FLOOR}")
+        out[name] = entry
+    return out
+
+
+class SlowLearner:
+    """fig20's straggler: a learner whose every step sleeps first."""
+
+    def __init__(self, inner, sleep_s):
+        self.inner = inner
+        self.sleep_s = sleep_s
+
+    def step(self):
+        time.sleep(self.sleep_s)
+        return self.inner.step()
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    @state.setter
+    def state(self, value):
+        self.inner.state = value
+
+    def get_variables(self, names=("policy",)):
+        return self.inner.get_variables(names)
+
+
+class SlowFirstReplicaBuilder:
+    """fig20's builder: the first learner it makes (replica 0) is a
+    ``SlowLearner``; everything else passes through."""
+
+    def __init__(self, inner, sleep_s):
+        self.inner = inner
+        self.sleep_s = sleep_s
+        self.learners_made = 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def make_learner(self, dataset, **kwargs):
+        learner = self.inner.make_learner(dataset, **kwargs)
+        self.learners_made += 1
+        if self.learners_made == 1:
+            return SlowLearner(learner, self.sleep_s)
+        return learner
+
+
+def fig20_async_learner(torch):
+    """Phase 22, part 3: fig20's measurement on the card (its smoke
+    window): aggregate learner steps a second of two DQN replicas, one a
+    straggler, under barrier and under async sync."""
+    from repro_torch.agents.builders import make_distributed_agent
+    from repro_torch.agents.dqn import DQNBuilder, DQNConfig
+    from repro_torch.core import make_environment_spec
+
+    out = {}
+    for sync in ("barrier", "async"):
+        spec = make_environment_spec(catch_env(0))
+        builder = SlowFirstReplicaBuilder(
+            DQNBuilder(spec, DQNConfig(**FIG20_DQN), seed=0, device="cuda"),
+            FIG20_SLOW_STEP_S)
+        dist = make_distributed_agent(
+            builder, catch_env, num_actors=1, seed=0,
+            num_learner_replicas=2, learner_average_period=FIG20_AVERAGE_PERIOD,
+            learner_sync=sync)
+        try:
+            t0 = time.time()
+            while time.time() - t0 < FIG20_WARMUP_TIMEOUT_S:
+                steps = dist.learner_stats()["per_replica_steps"]
+                if all(n >= FIG20_WARMUP_STEPS for n in steps):
+                    break
+                time.sleep(0.1)
+            start = dist.learner_stats()["per_replica_steps"]
+            t1 = time.time()
+            time.sleep(FIG20_MEASURE_S)
+            end = dist.learner_stats()
+            wall = time.time() - t1
+        finally:
+            dist.stop()
+        per_replica = [e - b for b, e in zip(start,
+                                             end["per_replica_steps"])]
+        out[sync] = {"sgd_per_s": sum(per_replica) / wall,
+                     "per_replica": per_replica, "rounds": end["rounds"],
+                     "window_s": wall}
+        check(all(n >= FIG20_WARMUP_STEPS for n in start),
+              f"fig20 {sync}: replicas never warmed up: {start}")
+        check(all(n > 0 for n in per_replica) and end["rounds"] >= 1,
+              f"fig20 {sync}: {out[sync]}")
+    out["async_over_barrier"] = (out["async"]["sgd_per_s"]
+                                 / max(out["barrier"]["sgd_per_s"], 1e-9))
+    log(f"  fig20 on the card: {json.dumps(out)}")
+    check(out["async_over_barrier"] >= FIG20_MIN_SPEEDUP,
+          f"fig20: async moved {out['async_over_barrier']:.2f}x the barrier "
+          f"fleet's learner steps, under {FIG20_MIN_SPEEDUP}x")
+    return out
+
+
+def blends_card_vs_cpu(torch):
+    """Phase 22, part 4: ``weighted_average_states`` and the async
+    service's three merges of three DQN states (stepped apart on the CPU
+    from different seeds and batches) blend to the same bits on the card
+    as on the CPU; a one-replica async MultiLearner on the card is the
+    plain learner after ONE_REPLICA_STEPS steps, bit for bit."""
+    from repro_torch import tree
+    from repro_torch.agents.dqn import DQNBuilder, DQNConfig
+    from repro_torch.core import make_environment_spec
+    from repro_torch.envs import Catch
+    from repro_torch.learners import (AsyncParameterService, MultiLearner,
+                                      weighted_average_states)
+    spec = make_environment_spec(Catch(seed=0))
+    cpu_states = []
+    for r in range(3):
+        learner = DQNBuilder(spec, DQNConfig(**DQN_QUICKSTART), seed=r,
+                             device="cpu").make_learner(
+            iter(dqn_batches(r + 2)))
+        for _ in range(r + 2):
+            learner.step()
+        cpu_states.append(learner.state)
+    blends = {}
+    for label, device in (("card", "cuda"), ("cpu", "cpu")):
+        states = [tree.map(lambda x: x.to(device), s) for s in cpu_states]
+        blends[(label, "weighted")] = weighted_average_states(
+            states, BLEND_WEIGHTS)
+        for merge in ("mean", "ema", "step_weighted"):
+            service = AsyncParameterService(3, merge=merge)
+            for rid, (state, step) in enumerate(zip(states, BLEND_STEPS)):
+                service.push(rid, state, step)
+            blends[(label, merge)] = service.pull()
+    out = {}
+    for merge in ("weighted", "mean", "ema", "step_weighted"):
+        pairs = list(zip(tree.leaves(blends[("card", merge)]),
+                         tree.leaves(blends[("cpu", merge)])))
+        equal = all(x.device.type == "cuda" and x.dtype == y.dtype
+                    and torch.equal(x.cpu(), y) for x, y in pairs)
+        out[merge] = {"leaves": len(pairs), "bit_equal": equal}
+        check(equal, f"the {merge} blend on the card differs from the CPU's")
+    builder = DQNBuilder(spec, DQNConfig(**DQN_QUICKSTART), seed=SEED,
+                         device="cuda")
+    batches = dqn_batches(ONE_REPLICA_STEPS)
+    plain = builder.make_learner(iter(list(batches)))
+    multi = MultiLearner([builder.make_learner(iter(list(batches)))],
+                         average_period=4,
+                         async_service=AsyncParameterService(1))
+    for _ in range(ONE_REPLICA_STEPS):
+        plain.step()
+        multi.step()
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(plain.state), tree.leaves(multi.state)))
+    check(same, "one-replica async MultiLearner differs from the plain "
+          "learner on the card")
+    out["one_replica_async_bit_identical_steps"] = ONE_REPLICA_STEPS
+    log(f"  blends card vs CPU: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3466,6 +3911,20 @@ def main() -> int:
     check(all(n == 0 for n in launches.values()),
           f"phase 21 launched a kernel: {launches}")
 
+    phase(f"phase 22: fault tolerance on the card — fig17's policy with two "
+          f"async replicas, {FIG17_ACTORS} actor processes, {FIG17_STEPS} "
+          f"actor steps, chaos kills of {' and '.join(FIG17_KILL_TARGETS)} "
+          f"and a run without; the reference's four resilience "
+          f"acceptances; fig20's async vs barrier; blends card vs CPU")
+    failover = {"fig17": fig17_failover(torch, kernels, fig17),
+                "acceptances": resilience_acceptances(torch, kernels)}
+    zero_launches(kernels)
+    failover["fig20"] = fig20_async_learner(torch)
+    failover["blends"] = blends_card_vs_cpu(torch)
+    launches = kernel_launches(kernels)
+    check(all(n == 0 for n in launches.values()),
+          f"phase 22's fig20 and blends launched a kernel: {launches}")
+
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
         "name": "decode_attention", "route": "cuda",
@@ -3486,7 +3945,9 @@ def main() -> int:
                 "decode_attention"],
             "fig17_server": fig17["server"]["launches"]["decode_attention"],
             "fig17_local_parent": fig17["local"]["launches"][
-                "decode_attention"]},
+                "decode_attention"],
+            "fig17_async_failover": failover["fig17"]["with_failover"][
+                "launches"]["decode_attention"]},
         "launches_per_acting_call_fig17": policy["fig17_learner"][
             "decode_launches_per_acting_call"],
         "long_cache": {key: long_cache[key] for key in (
@@ -3536,7 +3997,9 @@ def main() -> int:
             "transformer_policy_catch": policy["launches"][
                 "flash_attention"],
             "fig17_server": fig17["server"]["launches"]["flash_attention"],
-            "fig17_local": fig17["local"]["launches"]["flash_attention"]},
+            "fig17_local": fig17["local"]["launches"]["flash_attention"],
+            "fig17_async_failover": failover["fig17"]["with_failover"][
+                "launches"]["flash_attention"]},
         "policy_learner": dict(flash_policy, launches_per_learner_step=(
             policy["fig17_learner"]["flash_launches_per_learner_step"])),
     }, {
@@ -3557,6 +4020,7 @@ def main() -> int:
         "backward": grads["ssd_scan"],
     }]
     log(f"  phase 21 {json.dumps(dist_dqn)}")
+    log(f"  phase 22 {json.dumps(failover)}")
     log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

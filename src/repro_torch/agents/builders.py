@@ -14,10 +14,6 @@ edges) launcher backend.  What crosses an RPC edge is numpy: variables,
 replay items, priorities, inference requests and actions, and telemetry
 snapshots.  These assembly functions are the low-level layer;
 ``repro_torch.experiments`` wraps them in the config-driven run API.
-
-``learner_sync="async"`` and ``replay_routing="affinity"`` raise
-``NotImplementedError`` until ROADMAP slice 7b ports them, with service
-failover and chaos injection.
 """
 from __future__ import annotations
 
@@ -32,21 +28,17 @@ from repro_torch.core.inference import policy_is_feed_forward
 from repro_torch.distributed.launchers import JoinTimeout, get_launcher
 from repro_torch.distributed.program import Program, Replica
 from repro_torch.envs.vector import VectorEnv
-from repro_torch.learners import (PARAM_SERVER_INTERFACE,
+from repro_torch.learners import (ASYNC_PARAM_SERVICE_INTERFACE,
+                                  PARAM_SERVER_INTERFACE,
+                                  AsyncParameterService,
                                   LearnerReplicaWorker, MultiLearner,
                                   ParameterServer)
 from repro_torch.replay import (PrefetchingDataset, ShardedReplay,
-                                make_replay_shards)
+                                ShardWriter, make_replay_shards)
 from repro_torch.replay.service import REPLAY_INTERFACE
 from repro_torch.telemetry import (HUB_INTERFACE, MetricsHub, MetricsPusher,
                                    WorkerTelemetry)
 from repro_torch.telemetry import registry as _telemetry
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP slice 7b: service failover, "
-        f"chaos, async learner sync and shard-affine routing)")
 
 
 def _resolve(explicit, default):
@@ -109,8 +101,7 @@ def _effective_replicas(options, num_learner_replicas):
 
 def _effective_sync(options, learner_sync):
     """Resolved learner sync mode; ``"async"`` rejects offline builders for
-    the same reason explicit replicas do (no shards, no replica streams),
-    and is not ported yet."""
+    the same reason explicit replicas do (no shards, no replica streams)."""
     sync = _resolve(learner_sync, options.learner_sync)
     if sync not in ("barrier", "quorum", "async"):
         raise ValueError(f"learner_sync must be 'barrier', 'quorum' or "
@@ -119,8 +110,6 @@ def _effective_sync(options, learner_sync):
         raise ValueError(
             "offline builders cannot run learner_sync='async': the fixed "
             "dataset has no replay shards to give replicas affinity over")
-    if sync == "async":
-        raise _not_ported("learner_sync='async'")
     return sync
 
 
@@ -129,8 +118,6 @@ def _effective_routing(options, replay_routing):
     if routing not in ("round_robin", "hash", "affinity"):
         raise ValueError(f"replay_routing must be 'round_robin', 'hash' or "
                          f"'affinity', got {routing!r}")
-    if routing == "affinity":
-        raise _not_ported("replay_routing='affinity'")
     return routing
 
 
@@ -199,19 +186,26 @@ def make_agent(builder: AgentBuilder, seed: int = 0,
     ``num_learner_replicas`` routes learning through a ``MultiLearner``:
     one replica per replay shard, stepped sequentially round-robin by the
     agent's schedule, with parameter averaging every
-    ``learner_average_period`` per-replica steps.  A sequential schedule
-    has no stragglers, so ``"quorum"`` degenerates to ``"barrier"`` here.
-    ``learner_sync="async"`` and ``replay_routing="affinity"`` raise
-    ``NotImplementedError`` (ROADMAP slice 7b).
+    ``learner_average_period`` per-replica steps.  ``learner_sync="async"``
+    swaps the in-line barrier merge for an ``AsyncParameterService``: each
+    replica pushes/pulls at its own period boundary (and engages the
+    multi-learner machinery even at one replica — the parity case).  A
+    sequential schedule has no stragglers, so ``"quorum"`` degenerates to
+    ``"barrier"`` here.
+
+    ``replay_routing="affinity"`` gives each env's adder a ``ShardWriter``
+    onto its assigned shard (``env e -> shard e % num_shards``) instead of
+    routing every insert through the front-end cursor.
     """
     options = builder.options
     # (Re)configure the process registry BEFORE any component construction:
     # learners/engines/tables register their metrics and probes in __init__.
     _telemetry.configure(enabled=_resolve(telemetry, options.telemetry),
                          node="local")
-    _effective_sync(options, learner_sync)
+    sync = _effective_sync(options, learner_sync)
     routing = _effective_routing(options, replay_routing)
     replicas, multi = _effective_replicas(options, num_learner_replicas)
+    multi = multi or sync == "async"
     period = _resolve(learner_average_period,
                       options.learner_average_period)
     num_shards = (_replica_sharding(options, num_replay_shards, replicas)
@@ -224,7 +218,12 @@ def make_agent(builder: AgentBuilder, seed: int = 0,
     if multi:
         replica_learners, _, shard_tables = _make_replica_learners(
             builder, table, replicas)
-        learner = MultiLearner(replica_learners, average_period=period)
+        if sync == "async":
+            learner = MultiLearner(
+                replica_learners, average_period=period,
+                async_service=AsyncParameterService(replicas))
+        else:
+            learner = MultiLearner(replica_learners, average_period=period)
     else:
         iterator = builder.make_dataset(table)
         learner = builder.make_learner(
@@ -232,12 +231,19 @@ def make_agent(builder: AgentBuilder, seed: int = 0,
     client = VariableClient(learner,
                             update_period=options.variable_update_period)
     policy = builder.make_policy(evaluation=False)
+    affine = routing == "affinity" and isinstance(table, ShardedReplay)
     if num_envs > 1:
-        adders = [builder.make_adder(table) for _ in range(num_envs)]
+        if affine:
+            adders = [
+                builder.make_adder(table.shard_view(e % table.num_shards))
+                for e in range(num_envs)]
+        else:
+            adders = [builder.make_adder(table) for _ in range(num_envs)]
         actor = builder.make_batched_actor(policy, client, adders, seed)
     else:
-        actor = builder.make_actor(policy, client, builder.make_adder(table),
-                                   seed)
+        sink = table.shard_view(0) if affine else table
+        actor = builder.make_actor(policy, client,
+                                   builder.make_adder(sink), seed)
     consuming = table.selector.consumes
 
     if multi and replicas > 1:
@@ -362,45 +368,83 @@ class _ActorWorker:
     policy evaluation to SEED-style RPC — the worker then holds no weights,
     never polls the learner and never touches a device.  Otherwise the
     worker's policy runs on the builder's device.
+
+    ``chaos`` (a ``repro_torch.resilience.KillSchedule``) wraps the actor
+    so the process hard-kills itself after N environment steps;
+    ``rpc_chaos`` (the run's ``ChaosPolicy``) installs a courier-layer
+    fault injector in this worker's process.  Both are picklable and
+    resolved per replica at assembly time — the chaos acceptance tests
+    drive them.
+
+    ``shard_tables`` (a list of per-shard handles, one per
+    ``replay/shard_i`` node) switches the worker to shard-affine routing:
+    env ``e`` of actor ``actor_index`` writes through its own
+    ``ShardWriter`` straight to shard ``(actor_index * num_envs + e) %
+    num_shards`` — zero front-end coordination, and the global keys it
+    observes stay interchangeable with the front-end's (priority updates
+    route back by key).
     """
 
     def __init__(self, env_factory, builder, variable_source, counter,
                  table, seed: int, max_episodes: Optional[int] = None,
                  num_envs: int = 1, inference=None, telemetry=None,
-                 rpc_retry=None, resilient: bool = False):
+                 chaos=None, rpc_chaos=None, rpc_retry=None,
+                 resilient: bool = False, actor_index: int = 0,
+                 shard_tables=None):
         # FIRST: in a spawn child this configures the process registry, so
         # everything constructed below (actors, engines, courier clients)
         # records into it.  Under the local launcher the parent already
         # configured this process and install() is a no-op.
         self._telemetry_pusher = (telemetry.install()
                                   if telemetry is not None else None)
+        if rpc_chaos is not None:
+            # Install BEFORE any courier client exists in this process so
+            # every RPC the worker makes passes through the injector.
+            injector = rpc_chaos.rpc_injector()
+            if injector is not None:
+                injector.install()
         if rpc_retry is not None:
-            # Process-global: every courier client in this worker retries
-            # under the run's RetryConfig.
+            # Likewise process-global: every courier client in this worker
+            # retries under the run's RetryConfig.
             from repro_torch.distributed import courier
             courier.set_retry_config(rpc_retry)
         builder = _builder_of(builder)
         options = builder.options
         num_envs = max(int(num_envs), 1)
 
+        def env_sink(e):
+            # the table each env's adder writes to: its affine shard when
+            # shard handles were wired in, the routing front-end otherwise
+            if shard_tables is not None:
+                idx = (actor_index * num_envs + e) % len(shard_tables)
+                return ShardWriter(shard_tables[idx], idx, len(shard_tables))
+            return table
+
         if inference is not None:
             if num_envs > 1:
-                adders = [builder.make_adder(table) for _ in range(num_envs)]
+                adders = [builder.make_adder(env_sink(e))
+                          for e in range(num_envs)]
                 actor = builder.make_inference_actor(inference, adders=adders)
             else:
                 actor = builder.make_inference_actor(
-                    inference, adder=builder.make_adder(table))
+                    inference, adder=builder.make_adder(env_sink(0)))
         else:
             client = VariableClient(variable_source, update_period=1)
             policy = builder.make_policy(evaluation=False)
             if num_envs > 1:
-                adders = [builder.make_adder(table) for _ in range(num_envs)]
+                adders = [builder.make_adder(env_sink(e))
+                          for e in range(num_envs)]
                 actor = builder.make_batched_actor(policy, client, adders,
                                                    seed)
             else:
                 actor = builder.make_actor(
-                    policy, client, builder.make_adder(table), seed)
+                    policy, client, builder.make_adder(env_sink(0)), seed)
+        if chaos is not None:
+            # no-op when the schedule has disarmed (max_kills delivered)
+            actor = chaos.wrap(actor)
         if resilient:
+            # outermost, OUTSIDE the chaos wrapper: degradation absorbs
+            # ConnectionErrors from below without hiding the kill schedule
             actor = _ResilientActor(actor)
         # weight-sync cadence lives in the LOOP (update_period in env steps /
         # ticks); the client fetches on every poke it does receive.  A tick
@@ -575,6 +619,7 @@ def make_distributed_agent(builder: AgentBuilder, env_factory,
                            min_quorum: Optional[int] = None,
                            learner_sync: Optional[str] = None,
                            replay_routing: Optional[str] = None,
+                           service_snapshot_period_s: Optional[float] = None,
                            restore=None) -> DistributedAgent:
     """Replicated actors + one learner + replay (+ background evaluator),
     on a Launchpad-lite graph — Fig 4 of the paper.
@@ -607,25 +652,51 @@ def make_distributed_agent(builder: AgentBuilder, env_factory,
     merges replica params/opt-state every ``learner_average_period``
     per-replica steps; the ``learner`` endpoint keeps serving
     ``get_variables`` unchanged, so actors, evaluators, and checkpoints
-    see ONE logical learner.  ``barrier_timeout_s`` / ``min_quorum``
-    enable the parameter server's quorum mode.
+    see ONE logical learner.
 
-    ``rpc_retry`` (a ``RetryConfig``) tunes courier reconnect/retry backoff
-    in every worker.  ``restore`` is a pre-launch hook called as
-    ``restore(learner, table, counter)`` once every service exists but
-    before any worker runs — exact-resume state is applied through it.
-    ``restart_policy`` wraps every actor in graceful degradation (a
-    service's unreachable window costs skipped adds, not dead workers);
-    the multiprocess launcher refuses it, and ``chaos``,
-    ``learner_sync="async"`` and ``replay_routing="affinity"`` raise, until
-    ROADMAP slice 7b ports elastic supervision and service failover (and
-    with them the reference's ``service_snapshot_period_s``).
+    ``restart_policy`` (a ``repro_torch.resilience.RestartPolicy``) makes
+    the run elastic end to end: launchers with supervision support respawn
+    dead ``role="worker"`` replicas under it, restore killed
+    ``role="service"`` nodes from their periodic snapshots (re-bound at
+    the same courier address; cadence ``service_snapshot_period_s``), and
+    wrap every actor in graceful degradation so a service's restart
+    window costs skipped adds, not dead workers.  ``chaos`` (a
+    ``repro_torch.resilience.ChaosPolicy``) resolves seeded fault schedules
+    per actor replica AND per targeted service node.  ``rpc_retry`` (a
+    ``repro_torch.distributed.RetryConfig``) tunes courier reconnect/retry
+    backoff in every worker.  ``barrier_timeout_s`` / ``min_quorum``
+    enable the parameter server's quorum mode so averaging rounds
+    tolerate stragglers and mid-restore replicas.  ``restore`` is a
+    pre-launch hook called as ``restore(learner, table, counter)`` once
+    every service exists but before any worker runs — exact-resume state
+    is applied through it.
+
+    ``learner_sync="async"`` drops the rendezvous entirely: a
+    ``learner/param_service`` node (an ``AsyncParameterService``,
+    recoverable like every service) replaces ``learner/param_server``,
+    and each replica pushes its state / pulls the staleness-weighted
+    blend at its own cadence — no replica ever waits for a straggler.
+    Async engages the multi-learner machinery even at one replica (the
+    parity configuration) and is incompatible with the quorum knobs.
+
+    ``replay_routing="affinity"`` (with sharded replay and vectorized
+    actors) hands every env its own ``ShardWriter`` onto the
+    ``replay/shard_i`` node it is assigned to, bypassing the front-end
+    routing cursor on the insert hot path while keeping global keys —
+    and therefore priority updates and restores — interchangeable.
     """
     launcher_cls = get_launcher(launcher)
-    if chaos is not None:
-        raise _not_ported("chaos injection")
     program = Program("distributed_agent")
     program.restart_policy = restart_policy
+    if service_snapshot_period_s is not None:
+        if service_snapshot_period_s <= 0:
+            raise ValueError(f"service_snapshot_period_s must be > 0, "
+                             f"got {service_snapshot_period_s}")
+        program.service_snapshot_period_s = service_snapshot_period_s
+    if chaos is not None and launcher_cls.requires_pickling:
+        # service kill schedules resolve launcher-side (the watchdog owns
+        # the services); same process-isolation gate as actor chaos below
+        program.chaos_policy = chaos
     options = builder.options
     # Telemetry first: every component constructed below registers its
     # metrics/probes against the (re)configured process registry.  The
@@ -639,9 +710,16 @@ def make_distributed_agent(builder: AgentBuilder, env_factory,
     _telemetry.configure(enabled=telemetry_on, node="services")
     metrics_hub = MetricsHub(jsonl_path=telemetry_jsonl) \
         if telemetry_on else None
-    _effective_sync(options, learner_sync)
+    sync = _effective_sync(options, learner_sync)
     routing = _effective_routing(options, replay_routing)
+    if sync == "async" and (barrier_timeout_s is not None
+                            or min_quorum is not None):
+        raise ValueError(
+            "learner_sync='async' is incompatible with barrier_timeout_s/"
+            "min_quorum: async replicas never rendezvous, so there is no "
+            "round to time out")
     replicas, multi = _effective_replicas(options, num_learner_replicas)
+    multi = multi or sync == "async"
     period = _resolve(learner_average_period,
                       options.learner_average_period)
     num_shards = (_replica_sharding(options, num_replay_shards, replicas)
@@ -658,21 +736,34 @@ def make_distributed_agent(builder: AgentBuilder, env_factory,
     _register_replay_probe(table)
     datasets: List = []
     param_server = None
+    async_service = None
     replica_workers: List[LearnerReplicaWorker] = []
     if multi:
         replica_learners, datasets, shards = _make_replica_learners(
             builder, table, replicas, prefetch=prefetch)
-        param_server = ParameterServer(
-            replicas, period, barrier_timeout_s=barrier_timeout_s,
-            min_quorum=min_quorum)
-        replica_workers = [
-            LearnerReplicaWorker(replica_learner, param_server, i,
-                                 period, max_steps=max_learner_steps,
-                                 dataset=datasets[i], shard=shards[i])
-            for i, replica_learner in enumerate(replica_learners)]
-        learner = MultiLearner(replica_learners, average_period=period,
-                               param_server=param_server,
-                               workers=replica_workers)
+        if sync == "async":
+            async_service = AsyncParameterService(replicas)
+            replica_workers = [
+                LearnerReplicaWorker(replica_learner, async_service, i,
+                                     period, max_steps=max_learner_steps,
+                                     dataset=datasets[i], shard=shards[i],
+                                     sync_mode="async")
+                for i, replica_learner in enumerate(replica_learners)]
+            learner = MultiLearner(replica_learners, average_period=period,
+                                   async_service=async_service,
+                                   workers=replica_workers)
+        else:
+            param_server = ParameterServer(
+                replicas, period, barrier_timeout_s=barrier_timeout_s,
+                min_quorum=min_quorum)
+            replica_workers = [
+                LearnerReplicaWorker(replica_learner, param_server, i,
+                                     period, max_steps=max_learner_steps,
+                                     dataset=datasets[i], shard=shards[i])
+                for i, replica_learner in enumerate(replica_learners)]
+            learner = MultiLearner(replica_learners, average_period=period,
+                                   param_server=param_server,
+                                   workers=replica_workers)
         worker = None
     else:
         iterator = builder.make_dataset(table)
@@ -756,18 +847,27 @@ def make_distributed_agent(builder: AgentBuilder, env_factory,
     # replay placement: one service node per shard (independently
     # addressable — what a multi-host launcher would schedule onto separate
     # replay servers), plus the routing front-end the adders talk to.
+    shard_handles = None
     if isinstance(table, ShardedReplay):
-        for i, shard in enumerate(table.shards):
+        shard_handles = [
             program.add_node(f"replay/shard_{i}", lambda s=shard: s,
                              role="service", interface=REPLAY_INTERFACE)
+            for i, shard in enumerate(table.shards)]
     replay_handle = program.add_node("replay", lambda: table, role="service",
                                      interface=REPLAY_INTERFACE)
     if multi:
         # replica i has shard affinity with replay/shard_i; the param
-        # server is the exchange point; the "learner" endpoint stays the
-        # one variable source actors and evaluators already use.
-        program.add_node("learner/param_server", lambda: param_server,
-                         role="service", interface=PARAM_SERVER_INTERFACE)
+        # server (or push/pull service) is the exchange point; the
+        # "learner" endpoint stays the one variable source actors and
+        # evaluators already use.
+        if async_service is not None:
+            program.add_node("learner/param_service",
+                             lambda: async_service, role="service",
+                             interface=ASYNC_PARAM_SERVICE_INTERFACE)
+        else:
+            program.add_node("learner/param_server", lambda: param_server,
+                             role="service",
+                             interface=PARAM_SERVER_INTERFACE)
         for i, replica_worker in enumerate(replica_workers):
             program.add_node(f"learner/replica_{i}",
                              lambda w=replica_worker: w, role="service",
@@ -789,14 +889,29 @@ def make_distributed_agent(builder: AgentBuilder, env_factory,
     if hub_handle is not None:
         actor_telemetry = Replica(
             lambda i: WorkerTelemetry(hub_handle, f"actor/{i}", push_period))
+    actor_chaos = None
+    actor_rpc_chaos = None
+    if chaos is not None and launcher_cls.requires_pickling:
+        # Chaos needs process isolation: a kill schedule hard-exits the
+        # worker's process (under the thread-backed local launcher that
+        # would be the run itself), and RPC faults only exist over the
+        # courier edges that out-of-process placement creates.
+        actor_chaos = Replica(lambda i: chaos.schedule_for(f"actor/{i}"))
+        actor_rpc_chaos = chaos
+    actor_shard_tables = (shard_handles if routing == "affinity"
+                          and shard_handles is not None else None)
     program.add_node(
         "actor", _ActorWorker, env_factory, actor_builder, learner_handle,
         counter_handle, replay_handle,
         Replica(lambda i: seed + 1000 * (i + 1)),
         role="worker", num_replicas=num_actors,
         num_envs=num_envs, inference=inference_handle,
-        telemetry=actor_telemetry, rpc_retry=rpc_retry,
-        resilient=restart_policy is not None)
+        telemetry=actor_telemetry,
+        chaos=actor_chaos, rpc_chaos=actor_rpc_chaos,
+        rpc_retry=rpc_retry,
+        resilient=restart_policy is not None,
+        actor_index=Replica(lambda i: i),
+        shard_tables=actor_shard_tables)
     eval_log_handle = None
     if with_evaluator:
         eval_log_handle = program.add_node(

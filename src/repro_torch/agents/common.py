@@ -107,6 +107,38 @@ class TorchLearner(Learner):
                 for _ in (names or ("policy",))]
 
 
+class StepClock:
+    """A learner's step counter on the host, beside the state's device
+    counter: decisions that depend on the step (a draw's seed, a target
+    copy) then need no read of the device."""
+
+    steps = 0
+
+
+class ClockedLearner(TorchLearner):
+    """``TorchLearner`` with the step counter kept on the host as well: a
+    state assigned from outside (a restored checkpoint, a merged or
+    restored replica state) sets it, with one read of its ``steps``, and
+    the update function adds one a step."""
+
+    def __init__(self, state: LearnerState, update_fn, iterator: Iterator,
+                 clock: StepClock, priority_update_cb=None, device="cuda"):
+        super().__init__(state, update_fn, iterator,
+                         priority_update_cb=priority_update_cb,
+                         device=device)
+        self._clock = clock
+        clock.steps = int(state.steps)
+
+    @property
+    def state(self) -> LearnerState:
+        return self._state
+
+    @state.setter
+    def state(self, s: LearnerState):
+        self._state = s
+        self._clock.steps = int(s.steps)
+
+
 def fresh_copy(params):
     """Copy a tree's tensors (so params and target params never share
     storage)."""

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import optim, tree
-from repro_torch.agents.common import (LearnerState, TorchLearner,  # noqa: F401
+from repro_torch.agents.common import (ClockedLearner,  # noqa: F401
+                                       LearnerState, StepClock, TorchLearner,
                                        fresh_copy, state_from_jax)
 from repro_torch.builders import AgentBuilder, BuilderOptions
 from repro_torch.core.actors import STEP_MOD, FeedForwardActor
@@ -119,31 +120,8 @@ def make_networks(spec: EnvironmentSpec, cfg: ContinuousConfig,
     return init, policy_dist, critic, obs_dim, act_dim
 
 
-class _StepClock:
-    """The learner's step counter on the host, to seed its draws without
-    reading the device."""
-
-    steps = 0
-
-
-class ContinuousLearner(TorchLearner):
-    """``TorchLearner`` with the step counter kept on the host as well: a
-    state assigned from outside (a restored checkpoint, a copy) sets it,
-    with one read of its ``steps``, and every step adds one."""
-
-    def __init__(self, state: LearnerState, update_fn, iterator: Iterator,
-                 clock: _StepClock, device="cuda"):
-        super().__init__(state, update_fn, iterator, device=device)
-        self._clock = clock
-
-    @property
-    def state(self) -> LearnerState:
-        return self._state
-
-    @state.setter
-    def state(self, s: LearnerState):
-        self._state = s
-        self._clock.steps = int(s.steps)
+# A continuous learner keeps its step on the host to seed its draws.
+ContinuousLearner = ClockedLearner
 
 
 def make_learner(spec: EnvironmentSpec, cfg: ContinuousConfig,
@@ -159,7 +137,7 @@ def make_learner(spec: EnvironmentSpec, cfg: ContinuousConfig,
                          torch.zeros((), dtype=torch.int32, device=device))
     atoms = torch.linspace(cfg.vmin, cfg.vmax, cfg.num_atoms, device=device)
     obs_shape = spec.observations.shape
-    clock = _StepClock()
+    clock = StepClock()
     draws = (torch.Generator(device=device) if _mpo_family(cfg) else None)
 
     def q_mean(params, obs, act):

@@ -18,8 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch import optim, tree
-from repro_torch.agents.common import (LearnerState, TorchLearner,
-                                       fresh_copy, importance_weights)
+from repro_torch.agents.common import (ClockedLearner, LearnerState,
+                                       StepClock, TorchLearner, fresh_copy,
+                                       importance_weights)
 from repro_torch.builders import AgentBuilder, BuilderOptions
 from repro_torch.core.actors import FeedForwardActor
 from repro_torch.core.types import EnvironmentSpec
@@ -109,14 +110,20 @@ def make_learner(spec: EnvironmentSpec, cfg: DQNConfig, iterator: Iterator,
                                             state.params)
             params = optim.apply_updates(state.params, updates)
             steps = state.steps + 1
-            target = optim.periodic_update(params, state.target_params,
-                                           steps, cfg.target_update_period)
+        clock.steps += 1
+        # periodic_update's copy, decided from the host's step count: the
+        # same tensors as where(steps % period == 0, online, target), with
+        # no launch a leaf on the steps that keep the target
+        target = (fresh_copy(params)
+                  if clock.steps % cfg.target_update_period == 0
+                  else state.target_params)
         return (LearnerState(params, target, opt_state, steps),
                 {"loss": loss.detach()}, torch.abs(td.detach()))
 
-    return TorchLearner(state, update, iterator,
-                        priority_update_cb=priority_update_cb
-                        if cfg.prioritized else None, device=device)
+    clock = StepClock()
+    return ClockedLearner(state, update, iterator, clock,
+                          priority_update_cb=priority_update_cb
+                          if cfg.prioritized else None, device=device)
 
 
 def make_behavior_policy(spec: EnvironmentSpec, cfg: DQNConfig,

@@ -69,9 +69,10 @@ class RetryConfig:
 
     - ``reconnect_deadline_s`` bounds the RECONNECT path: connection
       refused/reset before the request was delivered (including a service's
-      restart window).  These are always safe to retry for any method — no
-      bytes reached the server — so the client keeps retrying with jittered
-      backoff until the deadline, then raises ``ServiceUnavailable``.
+      restart window, and chaos-injected drops).  These are always safe to
+      retry for any method — no bytes reached the server — so the client
+      keeps retrying with jittered backoff until the deadline, then raises
+      ``ServiceUnavailable``.
     - ``max_attempts`` bounds the RESPONSE-LOST path: the request was sent
       but the reply never arrived.  Only ``IDEMPOTENT_METHODS`` retry here
       (the server may already have executed a non-idempotent call).
@@ -111,6 +112,19 @@ def set_retry_config(config: Optional[RetryConfig]):
 
 def retry_config() -> RetryConfig:
     return _RETRY
+
+
+# Chaos injection point (see repro_torch.resilience.chaos): when set,
+# consulted client-side before every send — may sleep (delay) or raise
+# ConnectionError (drop).  Faults fire before any bytes hit the wire, so a
+# dropped call is always safe to retry regardless of idempotence.
+_RPC_CHAOS = None
+
+
+def set_rpc_chaos(injector):
+    """Install (or clear, with None) a process-wide RPC fault injector."""
+    global _RPC_CHAOS
+    _RPC_CHAOS = injector
 
 class CourierClosed(ConnectionError):
     """The peer closed the connection (server stopped, or vice versa)."""
@@ -469,9 +483,9 @@ class RemoteHandle:
         with self._lock:
             # Failures BEFORE the request was delivered — connect refused/
             # reset (a service's restart window), send failure (sendall
-            # raised, so the full frame never left this process) — are
-            # safe to retry for ANY method: the server cannot have executed
-            # the call.  These reconnect with
+            # raised, so the full frame never left this process), or an
+            # injected chaos drop — are safe to retry for ANY method: the
+            # server cannot have executed the call.  These reconnect with
             # jittered backoff until ``reconnect_deadline_s``, then raise
             # ``ServiceUnavailable``.  Auth failures fast-fail (a wrong key
             # is not transient).  After a send went through there is NO
@@ -482,6 +496,15 @@ class RemoteHandle:
             # timeout (half-open peers) and retried on a fresh connection,
             # up to ``max_attempts``.
             while True:
+                try:
+                    if _RPC_CHAOS is not None:
+                        _RPC_CHAOS.before_send()
+                except ConnectionError as e:
+                    self._drop_socket()
+                    deadline = self._reconnect_backoff(
+                        e, reconnects, deadline, cfg)
+                    reconnects += 1
+                    continue
                 try:
                     if self._sock is None:
                         self._sock = self._connect()

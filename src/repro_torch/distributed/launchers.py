@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import abc
 import pickle
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Type
@@ -50,6 +51,7 @@ from repro_torch.distributed.courier import RemoteHandle, Server, picklable_erro
 from repro_torch.distributed.program import Node, Program
 from repro_torch.resilience.chaos import RESTARTS_ENV
 from repro_torch.resilience.supervisor import classify_exit
+from repro_torch.telemetry import registry as _telemetry
 
 
 class WorkerErrors(RuntimeError):
@@ -293,17 +295,18 @@ def _child_classify_noise(e, flags) -> bool:
             or isinstance(e, (RateLimiterTimeout, ConnectionError)))
 
 
-def _child_main(node_name, payload, control_pipe, error_queue,
+def _child_main(node_name, payload, control_pipe, error_queue, restarts,
                 torch_threads):
     """Entry point of a spawned worker process: rebuild the node from its
     pickled (factory, args, kwargs) — Handles arrive as RemoteHandles — and
     drive its run loop until done or stopped.
 
+    ``restarts`` counts how many times this worker has been respawned by
+    the elastic supervisor; it is published via ``RESTARTS_ENV`` before the
+    node is built so chaos kill schedules can disarm after ``max_kills``.
     The child runs torch on ``torch_threads`` intra-op threads, its
     parent's count: a fresh interpreter would otherwise start one a core,
-    and a fleet of children on one host would oversubscribe it.  How many
-    times the worker was respawned is published via ``RESTARTS_ENV``
-    before the node is built: 0, until elastic respawn (slice 7b).
+    and a fleet of children on one host would oversubscribe it.
     """
     import faulthandler
     import os
@@ -312,9 +315,9 @@ def _child_main(node_name, payload, control_pipe, error_queue,
 
     import torch
     # SIGUSR1 dumps every thread's stack to stderr — the only way to see
-    # where a live worker is stuck from outside.
+    # where a live worker is stuck from outside (hangs, chaos debugging).
     faulthandler.register(signal.SIGUSR1, all_threads=True)
-    os.environ[RESTARTS_ENV] = "0"
+    os.environ[RESTARTS_ENV] = str(restarts)
     torch.set_num_threads(torch_threads)
     flags = {"stop": False, "user": False}
     try:
@@ -347,9 +350,9 @@ class MultiprocessLauncher(LauncherBase):
     back through an error queue into the parent's fail-fast stop, with the
     same ``WorkerErrors`` aggregation and shutdown-noise rules as
     ``LocalLauncher``; every child death is classified with
-    ``classify_exit``.  Elastic respawn under a program's
-    ``restart_policy`` comes with service failover (ROADMAP slice 7b):
-    ``launch`` refuses such a program until then.
+    ``classify_exit``, and under the program's ``restart_policy`` a dead
+    worker respawns (a fresh spawn child, so it never inherits a CUDA
+    context) and killed services are restored by a ``ServiceWatchdog``.
     """
 
     backend = "multiprocess"
@@ -363,22 +366,44 @@ class MultiprocessLauncher(LauncherBase):
         self.processes: Dict[str, object] = {}
         self._control_pipes: Dict[str, object] = {}
         self._reported: set = set()
-        self._exit_kinds: Dict[str, List[str]] = {}
         self._monitor_thread: Optional[threading.Thread] = None
+        # --- elastic supervision (repro_torch.resilience) -------------------
+        # When the program carries a RestartPolicy, dead workers are
+        # respawned from their stored spawn payloads instead of failing
+        # the run: deaths are classified (crash/preempted/shutdown),
+        # restarts are budgeted per worker with exponential backoff.
+        self._policy = getattr(program, "restart_policy", None)
+        self._payloads: Dict[str, bytes] = {}
+        self._restarts: Dict[str, int] = {}
+        self._exit_kinds: Dict[str, List[str]] = {}
+        self._respawn_at: Dict[str, float] = {}
+        self._stashed: Dict[str, BaseException] = {}
+        self._m_restarts = None
+        # Parent-side failover for role="service" nodes (periodic snapshot,
+        # kill classification, budgeted restore + courier re-bind); started
+        # by launch() when the program carries a RestartPolicy.
+        self._watchdog = None
+        # Spawns and the stop's relay to the children take turns: a child
+        # spawned after the relay went out would never hear of the stop
+        # and would run on until join() reaps it as a straggler.
+        self._spawn_lock = threading.Lock()
+        self._stop_relayed = False
 
     def restart_stats(self) -> Dict:
-        """Supervisor bookkeeping: the classification of every death
-        observed (no worker is restarted yet)."""
-        return {"restarts": {},
-                "exit_kinds": {k: list(v)
-                               for k, v in self._exit_kinds.items()}}
+        """Supervisor bookkeeping: per-worker restart counts and the
+        classification of every death observed, plus the service watchdog's
+        own restore accounting."""
+        stats = {"restarts": dict(self._restarts),
+                 "exit_kinds": {k: list(v)
+                                for k, v in self._exit_kinds.items()}}
+        if self._watchdog is not None:
+            stats.update(self._watchdog.stats())
+        else:
+            stats["service_restarts"] = {}
+            stats["service_exit_kinds"] = {}
+        return stats
 
     def launch(self) -> "MultiprocessLauncher":
-        if self.program.restart_policy is not None:
-            raise NotImplementedError(
-                "MultiprocessLauncher: a program with a restart_policy needs "
-                "elastic supervision and service failover, which are not "
-                "ported yet (ROADMAP slice 7b)")
         try:
             # 1. services live in the parent, exported over courier.
             for node in self.program.nodes:
@@ -389,6 +414,20 @@ class MultiprocessLauncher(LauncherBase):
                 if node.role == "service" \
                         and self._runs_in_parent_thread(node):
                     self._start_parent_thread(node)
+            # 2b. with a RestartPolicy, services get failover too: the
+            # watchdog snapshots every recoverable service and restores
+            # killed ones at the same courier address.
+            if self._policy is not None:
+                from repro_torch.resilience.failover import ServiceWatchdog
+                self._watchdog = ServiceWatchdog(
+                    self, self._policy,
+                    chaos=getattr(self.program, "chaos_policy", None),
+                    snapshot_period_s=getattr(
+                        self.program, "service_snapshot_period_s", 0.5))
+                for node in self.program.nodes:
+                    if node.role == "service":
+                        self._watchdog.register(node.name, node.instance)
+                self._watchdog.start()
             # 3. workers spawn as OS processes; pickling converts Handles.
             for node in self.program.nodes:
                 if not node.is_worker:
@@ -404,7 +443,8 @@ class MultiprocessLauncher(LauncherBase):
                         f"child process: its factory/arguments failed to "
                         f"pickle ({type(e).__name__}: {e}). Use module-level "
                         f"factories and pass services as Handles.") from e
-                self._spawn(node.name, payload)
+                self._payloads[node.name] = payload
+                self._spawn(node.name, restarts=0)
         except BaseException:
             # a half-launched program must not leak: children already
             # spawned would keep training against it for the parent's
@@ -417,19 +457,31 @@ class MultiprocessLauncher(LauncherBase):
         self._monitor_thread.start()
         return self
 
-    def _spawn(self, name: str, payload: bytes):
-        """Start worker ``name`` from its pickled payload."""
+    def _spawn(self, name: str, restarts: int) -> bool:
+        """Start (or restart) worker ``name`` from its stored payload, on
+        its parent's torch thread count; False, and nothing started, once
+        the stop has been relayed to the children."""
         import torch
-        parent_end, child_end = self._ctx.Pipe()
-        self._control_pipes[name] = parent_end
-        proc = self._ctx.Process(
-            target=_child_main,
-            args=(name, payload, child_end, self._error_queue,
-                  torch.get_num_threads()),
-            name=name, daemon=True)
-        self.processes[name] = proc
-        proc.start()
-        child_end.close()   # parent keeps only its own end
+        with self._spawn_lock:
+            if self._stop_relayed:
+                return False
+            parent_end, child_end = self._ctx.Pipe()
+            old_pipe = self._control_pipes.get(name)
+            self._control_pipes[name] = parent_end
+            if old_pipe is not None:
+                try:
+                    old_pipe.close()
+                except OSError:
+                    pass
+            proc = self._ctx.Process(
+                target=_child_main,
+                args=(name, self._payloads[name], child_end,
+                      self._error_queue, restarts, torch.get_num_threads()),
+                name=name, daemon=True)
+            self.processes[name] = proc
+            proc.start()
+            child_end.close()   # parent keeps only its own end
+        return True
 
     def _abort_launch(self):
         self.stop()
@@ -441,6 +493,14 @@ class MultiprocessLauncher(LauncherBase):
         self._close_servers()
 
     # ------------------------------------------------------------- monitor
+    def _may_restart(self, name: str) -> bool:
+        """Whether worker ``name`` is still inside its restart budget (the
+        exit-kind half of the decision waits for the exit code)."""
+        return (self._policy is not None
+                and not self._stop.is_set()
+                and name in self._payloads
+                and self._restarts.get(name, 0) < self._policy.max_restarts)
+
     def _drain_errors(self):
         import queue as queue_lib
         while True:
@@ -448,28 +508,80 @@ class MultiprocessLauncher(LauncherBase):
                 name, exc = self._error_queue.get_nowait()
             except (queue_lib.Empty, OSError, EOFError):
                 return
-            self._reported.add(name)
-            self._record_error(exc)
+            if self._may_restart(name):
+                # A restart-eligible worker's error is held back until its
+                # death is classified: a restarted crash is logged, not
+                # fatal.  If the supervisor declines the restart the error
+                # surfaces through the normal fail-fast path below.
+                self._stashed[name] = exc
+            else:
+                self._reported.add(name)
+                self._record_error(exc)
 
-    def _handle_death(self, name: str, proc):
-        """Classify a dead worker and surface a failure it did not report
-        itself (fail-fast)."""
+    def _restart_metric(self):
+        if self._m_restarts is None:
+            if not _telemetry.enabled():
+                return None
+            self._m_restarts = _telemetry.counter("resilience/restarts")
+        return self._m_restarts
+
+    def _handle_death(self, name: str, proc) -> bool:
+        """Classify a dead worker and either schedule its respawn (True:
+        keep it pending) or surface the failure fail-fast (False)."""
         kind = classify_exit(proc.exitcode, stopping=self._stop.is_set())
         self._exit_kinds.setdefault(name, []).append(kind)
+        count = self._restarts.get(name, 0)
+        if (self._policy is not None and name in self._payloads
+                and not self._stop.is_set()
+                and self._policy.should_restart(kind, count)):
+            delay = self._policy.backoff(count)
+            self._restarts[name] = count + 1
+            stashed = self._stashed.pop(name, None)
+            detail = f": {type(stashed).__name__}: {stashed}" if stashed \
+                else ""
+            print(f"[launcher] worker {name!r} {kind} (exit "
+                  f"{proc.exitcode}){detail} — restart "
+                  f"{count + 1}/{self._policy.max_restarts} in "
+                  f"{delay:.2f}s", file=sys.stderr, flush=True)
+            metric = self._restart_metric()
+            if metric:
+                metric.inc()
+                _telemetry.counter(f"resilience/restarts/{name}").inc()
+            self._respawn_at[name] = time.time() + delay
+            return True
+        stashed = self._stashed.pop(name, None)
         suppress = self._stop.is_set() and self._user_stopped
-        if (proc.exitcode not in (0, None)
+        if stashed is not None:
+            self._reported.add(name)
+            if not suppress:
+                self._record_error(stashed)
+        elif (proc.exitcode not in (0, None)
                 and name not in self._reported and not suppress):
             self._record_error(RuntimeError(
                 f"worker {name!r} died with exit code "
                 f"{proc.exitcode} ({kind}) without reporting an error"))
+        return False
 
     def _monitor(self):
         """Watchdog: surface child errors (and silent deaths) the moment
-        they happen."""
+        they happen — fail-fast by default, elastic respawn for workers
+        covered by the program's ``RestartPolicy``."""
         pending = set(self.processes)
         while pending:
             self._drain_errors()
+            now = time.time()
+            for name, due in list(self._respawn_at.items()):
+                if self._stop.is_set():
+                    self._respawn_at.pop(name, None)
+                    pending.discard(name)
+                elif now >= due:
+                    self._respawn_at.pop(name, None)
+                    self._reported.discard(name)
+                    if not self._spawn(name, restarts=self._restarts[name]):
+                        pending.discard(name)   # the stop came first
             for name in list(pending):
+                if name in self._respawn_at:
+                    continue
                 proc = self.processes[name]
                 if proc.is_alive():
                     continue
@@ -479,20 +591,30 @@ class MultiprocessLauncher(LauncherBase):
                 d = time.time() + 1.0
                 while (proc.exitcode not in (0, None)
                        and name not in self._reported
+                       and name not in self._stashed
                        and time.time() < d):
                     self._drain_errors()
                     time.sleep(0.02)
-                self._handle_death(name, proc)
-                pending.discard(name)
+                if not self._handle_death(name, proc):
+                    pending.discard(name)
             time.sleep(0.05)
         self._drain_errors()
 
     # ---------------------------------------------------------------- stop
     def _initiate_stop(self):
+        # the watchdog must not restore services into a run that is tearing
+        # down (request only — joining here could self-deadlock when the
+        # stop originates from the watchdog's own error path)
+        if self._watchdog is not None:
+            self._watchdog.request_stop()
         # order matters: children must see the stop (and its user/fail-fast
         # flavor) before any parent-side table wakes them with a "stopped"
-        # rate-limiter error.
-        for pipe in list(self._control_pipes.values()):
+        # rate-limiter error.  Under the spawn lock, so that no respawn
+        # slips in after the relay.
+        with self._spawn_lock:
+            self._stop_relayed = True
+            pipes = list(self._control_pipes.values())
+        for pipe in pipes:
             try:
                 pipe.send(("stop", self._user_stopped))
             except (OSError, ValueError, BrokenPipeError):
@@ -502,14 +624,20 @@ class MultiprocessLauncher(LauncherBase):
     # ---------------------------------------------------------------- join
     def _join_runners(self, deadline: Optional[float]):
         super()._join_runners(deadline)
-        for proc in list(self.processes.values()):
-            remaining = (None if deadline is None
-                         else max(deadline - time.time(), 0))
-            proc.join(remaining)
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=5)
+
+        def remaining():
+            return (None if deadline is None
+                    else max(deadline - time.time(), 0))
+        # The monitor ends once every worker is down for good, so it is
+        # joined first: a worker respawned meanwhile replaces its entry in
+        # ``processes``, and a join of the entries read before would miss
+        # the new child.
         if self._monitor_thread is not None:
-            alive = any(p.is_alive() for p in list(self.processes.values()))
-            if not alive:
-                self._monitor_thread.join(timeout=5)
+            self._monitor_thread.join(remaining())
+        for proc in list(self.processes.values()):
+            proc.join(remaining())
         self._drain_errors()
 
     def _alive_nodes(self) -> List[str]:

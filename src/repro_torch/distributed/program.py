@@ -128,11 +128,17 @@ class Program:
         self.name = name
         self._nodes: Dict[str, Node] = {}
         self._order: List[str] = []
-        # Set by the assembly layer (a ``RestartPolicy``): launchers with
-        # elastic support would respawn dead role="worker" nodes under it.
-        # Elastic supervision comes with service failover (ROADMAP slice
-        # 7b); until then the launchers refuse a program that carries one.
+        # Set by the assembly layer (see repro_torch.resilience.RestartPolicy):
+        # launchers with elastic support respawn dead role="worker" nodes
+        # under this policy instead of failing the whole run.
         self.restart_policy = None
+        # Also set by assembly: the chaos policy (so the launcher-side
+        # service watchdog can resolve kill schedules for role="service"
+        # nodes — worker schedules resolve at assembly time instead) and
+        # the cadence at which recoverable services are snapshotted for
+        # failover.
+        self.chaos_policy = None
+        self.service_snapshot_period_s = 0.5
         # RLock: resolving a node dereferences its Handle arguments, which
         # re-enters resolve() on the same thread.
         self._lock = threading.RLock()

@@ -7,9 +7,6 @@ shared unchanged between the two execution modes, which is the paper's
 central modularity claim.
 
 The port keeps every field and check of the JAX package's config.
-``restart_policy`` and ``chaos`` raise ``NotImplementedError`` when set,
-until elastic supervision, service failover and chaos injection are ported
-(ROADMAP slice 7b).
 """
 from __future__ import annotations
 
@@ -94,12 +91,12 @@ class ExperimentConfig:
         runs restore the same state but re-interleave asynchronously (see
         ROADMAP "Elastic & resumable runs").  No snapshot present = start
         fresh.  Requires ``checkpoint_dir``.
-    restart_policy: a ``RestartPolicy`` (slice 7b) enabling elastic
+    restart_policy: a ``repro_torch.resilience.RestartPolicy`` enabling elastic
         actor pools under the multiprocess launcher — dead ``role="worker"``
         replicas are classified (crash / preemption / shutdown) and
         respawned with exponential backoff under a per-worker budget,
         instead of failing the run.  None = fail-fast (the default).
-    chaos: a ``ChaosPolicy`` (slice 7b) injecting seeded faults
+    chaos: a ``repro_torch.resilience.ChaosPolicy`` injecting seeded faults
         (worker kills after N steps, service kills by activity, courier
         RPC delay/drop) into distributed runs — the harness the chaos
         acceptance tests drive.  None = no injection.
@@ -215,11 +212,16 @@ class ExperimentConfig:
                              f"got {self.telemetry_push_period_s}")
         if self.resume and not self.checkpoint_dir:
             raise ValueError("resume=True requires checkpoint_dir")
-        for name in ("restart_policy", "chaos"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"ExperimentConfig.{name} is not ported yet (ROADMAP "
-                    f"slice 7b, service failover and chaos)")
+        if self.restart_policy is not None:
+            from repro_torch.resilience import RestartPolicy
+            if not isinstance(self.restart_policy, RestartPolicy):
+                raise ValueError(f"restart_policy must be a RestartPolicy, "
+                                 f"got {self.restart_policy!r}")
+        if self.chaos is not None:
+            from repro_torch.resilience import ChaosPolicy
+            if not isinstance(self.chaos, ChaosPolicy):
+                raise ValueError(f"chaos must be a ChaosPolicy, "
+                                 f"got {self.chaos!r}")
         if self.rpc_retry is not None:
             from repro_torch.distributed import RetryConfig
             if not isinstance(self.rpc_retry, RetryConfig):

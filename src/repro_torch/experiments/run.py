@@ -299,6 +299,8 @@ def run_distributed_experiment(config: ExperimentConfig, num_actors: int,
                                   min_quorum=config.min_quorum,
                                   learner_sync=config.learner_sync,
                                   replay_routing=config.replay_routing,
+                                  service_snapshot_period_s=(
+                                      config.service_snapshot_period_s),
                                   restore=restore)
     last_ckpt_step: Optional[int] = None
 

@@ -36,12 +36,19 @@ class Optimizer:
 
 
 def global_norm(params) -> torch.Tensor:
-    leaves = tree.leaves(params)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    # the squares of every leaf in one multi-tensor call (x * x, the bits of
+    # square(x)); the sums and their left fold leaf by leaf, as the reference
+    leaves = [x.float() for x in tree.leaves(params)]
+    squares = torch._foreach_mul(leaves, leaves)
+    return torch.sqrt(sum(torch.sum(x) for x in squares))
 
 
 def apply_updates(params, updates):
-    return tree.map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
+    leaves, treedef = tree.flatten(params)
+    summed = torch._foreach_add([p.float() for p in leaves],
+                                tree.leaves(updates))
+    return tree.unflatten(treedef, [s.to(p.dtype)
+                                    for s, p in zip(summed, leaves)])
 
 
 def _to_schedule(lr: Union[float, Schedule]) -> Schedule:
@@ -65,7 +72,8 @@ def _zeros(params):
 def _clip(grads, max_norm: float):
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return tree.map(lambda g: g * scale, grads)
+    leaves, treedef = tree.flatten(grads)
+    return tree.unflatten(treedef, torch._foreach_mul(leaves, scale))
 
 
 def _power(base: float, step: torch.Tensor) -> torch.Tensor:
@@ -93,20 +101,29 @@ def adam(lr: Union[float, Schedule], b1=0.9, b2=0.999, eps=1e-8,
         if clip is not None:
             grads = _clip(grads, clip)
         step = state.step + 1
-        mu = tree.map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree.map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
-        correct1 = 1 - _power(b1, step)
-        correct2 = 1 - _power(b2, step)
-        mu_hat = tree.map(lambda m: m / correct1, mu)
-        nu_hat = tree.map(lambda v: v / correct2, nu)
+        g, treedef = tree.flatten(grads)
+        m, v = tree.leaves(state.mu), tree.leaves(state.nu)
+        # The reference's arithmetic, op for op (b1 * m + (1 - b1) * g, ...),
+        # each op over every leaf in one multi-tensor call: the same bits,
+        # a handful of launches a step instead of a dozen a leaf.
+        mu = torch._foreach_add(torch._foreach_mul(m, b1),
+                                torch._foreach_mul(g, 1 - b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(v, b2),
+            torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+        mu_hat = torch._foreach_div(mu, 1 - _power(b1, step))
+        nu_hat = torch._foreach_div(nu, 1 - _power(b2, step))
         lr_t = sched(step)
-        updates = tree.map(lambda m, v: -lr_t * m / (torch.sqrt(v) + eps),
-                           mu_hat, nu_hat)
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, eps)
+        updates = tree.unflatten(treedef, torch._foreach_div(
+            torch._foreach_mul(mu_hat, -lr_t), denom))
         if weight_decay and params is not None:
             updates = tree.map(
                 lambda u, p: u - lr_t * weight_decay * p.float(),
                 updates, params)
-        return updates, AdamState(step, mu, nu)
+        return updates, AdamState(step, tree.unflatten(treedef, mu),
+                                  tree.unflatten(treedef, nu))
 
     return Optimizer(init, update)
 

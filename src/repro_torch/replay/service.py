@@ -16,8 +16,7 @@ Design:
   shard and insert shard-directly, bypassing the front-end's routing cursor
   entirely (per-env adder streams land on assigned shards, so the
   actor→replay→learner pipeline is shard-parallel end to end with no
-  cross-shard coordination; the execution layers wire it up in ROADMAP
-  slice 7b).  All modes keep shards balanced so
+  cross-shard coordination).  All modes keep shards balanced so
   per-shard ``min_size_to_sample`` thresholds are reached together; under
   affinity the balance comes from the env→shard assignment being a
   round-robin of the fleet's global env ids.

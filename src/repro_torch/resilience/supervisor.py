@@ -1,11 +1,17 @@
 """Worker-death classification and restart budgets for elastic pools.
 
-The ``MultiprocessLauncher`` monitor classifies every child death with
-``classify_exit``.  ``RestartPolicy`` is the budget an elastic launcher
-respawns dead ``role="worker"`` replicas under (and, with service failover,
-restores stateful ``role="service"`` nodes under); elastic supervision
-comes with that failover (ROADMAP slice 7b), and until then the launchers
-refuse a program that carries a policy.
+The ``MultiprocessLauncher`` monitor consults this module when a child
+process dies: the exit is classified, and — when a ``RestartPolicy`` is
+attached to the program and the dead node is a ``role="worker"`` replica —
+the worker is respawned with exponential backoff instead of failing the
+whole run.  Stateful ``role="service"`` nodes (replay shards, counter,
+learner replicas) are covered by the same policy through
+``repro_torch.resilience.failover.ServiceWatchdog``: their deaths are classified
+with the same ``classify_exit`` and charged against the same per-node
+budget, but a respawn RESTORES the service's periodic snapshot and
+re-binds its courier server at the same address (workers respawn fresh
+from their spawn payloads — they are stateless by design).  A service
+whose budget is exhausted stays fail-fast.
 
 Classification:
 

@@ -466,14 +466,21 @@ def test_vectorized_impala_agent_trains_through_the_loop():
 
 
 def test_make_agent_rejects_paths_not_ported():
-    """Sharded replay and learner replicas are ported; async learner sync
-    and shard-affine routing come with slice 7b."""
+    """Every make_agent path is ported: sharded replay, learner replicas,
+    async learner sync (a one-replica MultiLearner over the push/pull
+    service) and shard-affine routing (each env's adder on its own
+    ShardWriter) build as the reference's do; only unknown modes raise."""
     cfg = impala.IMPALAConfig(sequence_length=3, batch_size=2)
     builder = impala.IMPALABuilder(_spec(), cfg, device=CPU)
-    for kwargs in (dict(learner_sync="async"),
-                   dict(replay_routing="affinity")):
-        with pytest.raises(NotImplementedError, match="slice 7b"):
-            make_agent(builder, **kwargs)
+    asynced = make_agent(builder, learner_sync="async")
+    assert isinstance(asynced.learner, MultiLearner)
+    assert asynced.learner.async_service is not None
+    assert asynced.learner.param_server is None
+    affine = make_agent(builder, num_replay_shards=2, num_envs=2,
+                        replay_routing="affinity")
+    assert affine.table.routing == "affinity"
+    with pytest.raises(ValueError):
+        make_agent(builder, replay_routing="sticky")
     with pytest.raises(ValueError):
         make_agent(builder, learner_sync="bogus")
     agent = make_agent(builder, num_learner_replicas=1)

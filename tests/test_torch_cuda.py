@@ -1351,3 +1351,202 @@ def test_transformer_inference_server_decodes_through_the_kernel(
         assert server.stats()["decode_rows"] == 12
     finally:
         server.stop()
+
+
+# ------------------------------------------------------- fault tolerance
+def _dqn_states(count, device):
+    """``count`` DQN learner states stepped apart on the CPU from different
+    seeds and batch streams, then moved to ``device``."""
+    from repro_torch import tree
+    from repro_torch.agents import dqn
+    from repro_torch.core import make_environment_spec, types
+    from repro_torch.envs import Catch
+    from repro_torch.replay.dataset import ReplaySample, SampleInfo
+    spec = make_environment_spec(Catch(seed=0))
+    cfg = dqn.DQNConfig(min_replay_size=8, samples_per_insert=0.0,
+                        batch_size=8, n_step=1, prioritized=False)
+    states = []
+    for r in range(count):
+        rng = np.random.RandomState(r)
+        batches = [ReplaySample(
+            SampleInfo(np.arange(8, dtype=np.int64), np.full(8, 1 / 64)),
+            types.Transition(rng.rand(8, 10, 5).astype(np.float32),
+                             rng.randint(0, 3, 8).astype(np.int32),
+                             rng.randn(8).astype(np.float32),
+                             np.ones(8, np.float32),
+                             rng.rand(8, 10, 5).astype(np.float32), ()))
+            for _ in range(r + 2)]
+        learner = dqn.DQNBuilder(spec, cfg, seed=r, device="cpu") \
+            .make_learner(iter(batches))
+        for _ in range(r + 2):
+            learner.step()
+        states.append(tree.map(lambda x: x.to(device), learner.state))
+    return states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["mean", "ema", "step_weighted", None])
+def test_weighted_blends_on_the_card_equal_the_cpus(cuda_device, merge):
+    """``weighted_average_states`` (merge None) and the async service's
+    three merges blend three DQN states on the card to the CPU's bits,
+    leaf for leaf, and leave the blend on the card."""
+    from repro_torch import tree
+    from repro_torch.learners import (AsyncParameterService,
+                                      weighted_average_states)
+    blends = {}
+    for label, device in (("card", cuda_device), ("cpu", "cpu")):
+        states = _dqn_states(3, device)
+        if merge is None:
+            blends[label] = weighted_average_states(states, [1e-3, 7.0, 2.5])
+        else:
+            service = AsyncParameterService(3, merge=merge, ema_alpha=0.5)
+            for rid, (state, step) in enumerate(zip(states, (12, 9, 10))):
+                service.push(rid, state, step)
+            blends[label] = service.pull()
+    for x, y in zip(tree.leaves(blends["card"]), tree.leaves(blends["cpu"])):
+        assert x.device.type == "cuda" and x.dtype == y.dtype
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+def test_host_tree_of_a_card_state_copies_once_and_restores_on_the_card(
+        cuda_device):
+    """A snapshot of a learner state on the card waits for the device once
+    (one transfer of every leaf's bytes) and restores every leaf onto the
+    card in its dtype and shape."""
+    import pickle
+
+    from repro_torch import tree
+    from repro_torch.resilience import HostTree
+    (state,) = _dqn_states(1, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            snapshot = HostTree(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "synchronizing CUDA" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    restored = pickle.loads(pickle.dumps(snapshot)).restore()
+    for x, y in zip(tree.leaves(restored), tree.leaves(state)):
+        assert x.device == y.device and x.dtype == y.dtype
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_replica_on_the_card_fails_over_to_its_snapshot(cuda_device,
+                                                        tmp_path):
+    """A DQN replica stepping on the card in its own thread is snapshotted,
+    killed and restored by the watchdog: its state equals the snapshot leaf
+    for leaf, on the card, and it steps on after the restore."""
+    import pickle
+    import threading
+    import time
+
+    from repro_torch import tree
+    from repro_torch.agents import dqn
+    from repro_torch.core import make_environment_spec, types
+    from repro_torch.envs import Catch
+    from repro_torch.learners import AsyncParameterService, LearnerReplicaWorker
+    from repro_torch.replay.dataset import ReplaySample, SampleInfo
+    from repro_torch.resilience import RestartPolicy, ServiceWatchdog
+
+    class _Launcher:
+        _servers = {}
+        errors = []
+
+        def should_stop(self):
+            return False
+
+        def _record_error(self, error):
+            self.errors.append(error)
+
+    rng = np.random.RandomState(0)
+    batch = ReplaySample(
+        SampleInfo(np.arange(8, dtype=np.int64), np.full(8, 1 / 64)),
+        types.Transition(rng.rand(8, 10, 5).astype(np.float32),
+                         rng.randint(0, 3, 8).astype(np.int32),
+                         rng.randn(8).astype(np.float32),
+                         np.ones(8, np.float32),
+                         rng.rand(8, 10, 5).astype(np.float32), ()))
+
+    def batches():
+        while True:
+            yield batch
+
+    spec = make_environment_spec(Catch(seed=0))
+    cfg = dqn.DQNConfig(min_replay_size=8, samples_per_insert=0.0,
+                        batch_size=8, n_step=1, prioritized=False)
+    learner = dqn.DQNBuilder(spec, cfg, seed=0, device=cuda_device) \
+        .make_learner(batches())
+    replica = LearnerReplicaWorker(learner, AsyncParameterService(2), 0,
+                                   average_period=5, sync_mode="async")
+    launcher = _Launcher()
+    watchdog = ServiceWatchdog(launcher, RestartPolicy(backoff_base_s=0.01),
+                               snapshot_period_s=60.0,
+                               snapshot_dir=str(tmp_path))
+    watchdog.register("learner/replica_0", replica)
+    thread = threading.Thread(target=replica.run, daemon=True)
+    thread.start()
+    try:
+        deadline = time.time() + 60
+        while replica.steps_taken < 20 and time.time() < deadline:
+            time.sleep(0.01)
+        watchdog.snapshot_now()
+        with open(watchdog._snapshot_path("learner/replica_0"), "rb") as f:
+            snapshot = pickle.load(f)
+        cut = snapshot["learner_state"].restore()
+        watchdog.kill("learner/replica_0", exit_code=42)
+        watchdog._respawn("learner/replica_0")
+        for x, y in zip(tree.leaves(learner.state), tree.leaves(cut)):
+            assert x.device.type == "cuda" and x.dtype == y.dtype
+            assert torch.equal(x, y)
+        assert replica.steps_taken == snapshot["steps_taken"]
+        while replica.steps_taken <= snapshot["steps_taken"] \
+                and time.time() < deadline:
+            time.sleep(0.01)
+        assert replica.steps_taken > snapshot["steps_taken"]
+    finally:
+        replica.stop()
+        thread.join(60)
+        watchdog.join(timeout=60)
+    assert launcher.errors == []
+
+
+@pytest.mark.cuda
+def test_one_replica_async_multi_learner_on_the_card_is_the_plain_learner(
+        cuda_device):
+    """On the card, a one-replica async MultiLearner and the plain learner
+    take 10 steps on the same batches to the same bits."""
+    from repro_torch import tree
+    from repro_torch.agents import dqn
+    from repro_torch.core import make_environment_spec, types
+    from repro_torch.envs import Catch
+    from repro_torch.learners import AsyncParameterService, MultiLearner
+    from repro_torch.replay.dataset import ReplaySample, SampleInfo
+    spec = make_environment_spec(Catch(seed=0))
+    cfg = dqn.DQNConfig(min_replay_size=8, samples_per_insert=0.0,
+                        batch_size=8, n_step=1, prioritized=False)
+    rng = np.random.RandomState(1)
+    batches = [ReplaySample(
+        SampleInfo(np.arange(8, dtype=np.int64), np.full(8, 1 / 64)),
+        types.Transition(rng.rand(8, 10, 5).astype(np.float32),
+                         rng.randint(0, 3, 8).astype(np.int32),
+                         rng.randn(8).astype(np.float32),
+                         np.ones(8, np.float32),
+                         rng.rand(8, 10, 5).astype(np.float32), ()))
+        for _ in range(10)]
+    builder = dqn.DQNBuilder(spec, cfg, seed=3, device=cuda_device)
+    plain = builder.make_learner(iter(list(batches)))
+    multi = MultiLearner([builder.make_learner(iter(list(batches)))],
+                         average_period=4,
+                         async_service=AsyncParameterService(1))
+    for _ in range(10):
+        plain.step()
+        multi.step()
+    for x, y in zip(tree.leaves(multi.state), tree.leaves(plain.state)):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+    assert multi.async_service.stats()["pushes"] == 2

@@ -302,18 +302,28 @@ def test_spawned_children_run_torch_on_the_parents_thread_count():
     launcher.join(timeout=JOIN_S)
     assert prog.resolve("sink").items() == [torch.get_num_threads()] == [1]
     assert launcher.restart_stats() == {
-        "restarts": {}, "exit_kinds": {"threads": [SHUTDOWN]}}
+        "restarts": {}, "exit_kinds": {"threads": [SHUTDOWN]},
+        "service_restarts": {}, "service_exit_kinds": {}}
 
 
 def test_multiprocess_launcher_refuses_a_restart_policy():
-    """Elastic respawn comes with service failover (slice 7b)."""
+    """A program with a restart_policy launches (elastic respawn and
+    service failover are ported): a worker that runs to its end is not
+    respawned, and the launcher's service watchdog starts with the program
+    and stops with the join."""
     prog = Program()
-    prog.add_node("spinner", Spinner, role="worker")
+    sink = prog.add_node("sink", Sink, role="service",
+                         interface=("put", "items"))
+    prog.add_node("threads", TorchThreads, sink, role="worker")
     prog.restart_policy = RestartPolicy()
-    launcher = get_launcher("multiprocess")(prog)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        launcher.launch()
-    assert not launcher.processes
+    launcher = get_launcher("multiprocess")(prog).launch()
+    assert launcher._watchdog is not None
+    launcher.join(timeout=JOIN_S)
+    assert prog.resolve("sink").items() == [1]
+    assert launcher.restart_stats() == {
+        "restarts": {}, "exit_kinds": {"threads": [SHUTDOWN]},
+        "service_restarts": {}, "service_exit_kinds": {}}
+    assert not launcher._watchdog._thread.is_alive()
 
 
 def test_silent_child_death_is_classified_and_surfaced():

@@ -196,6 +196,25 @@ def test_target_network_copies_on_its_period_and_never_aliases():
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
 
 
+def test_target_copy_follows_the_step_of_an_assigned_state():
+    """The target copy is decided from the step count kept on the host: a
+    state assigned from outside (a merge, a restore) resets it, so the copy
+    lands where the reference's ``steps % period == 0`` puts it."""
+    cfg = dqn.DQNConfig(batch_size=BATCH, target_update_period=4)
+    _, port, _, _ = _learners(cfg, 3)
+    port.state = port.state._replace(
+        steps=torch.tensor(6, dtype=torch.int32))
+    port.step()                                    # step 7 keeps the target
+    assert not any(torch.equal(a, b) for a, b in zip(
+        tree.leaves(port.state.params),
+        tree.leaves(port.state.target_params)) if a.dim() == 2)
+    port.step()                                    # step 8 copies
+    assert int(port.state.steps) == 8
+    for a, b in zip(tree.leaves(port.state.params),
+                    tree.leaves(port.state.target_params)):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+
+
 def test_learner_step_reports_loss_and_counter_in_one_copy():
     cfg = dqn.DQNConfig(**CONFIGS["quickstart"])
     _, port, _, prio = _learners(cfg, 2)

@@ -159,9 +159,10 @@ def test_logger_factory_and_telemetry(tmp_path):
 
 
 def test_unported_entry_points_raise():
-    """Every entry point is ported: run_distributed_experiment runs (here on
-    threads, on the CPU) and run_offline_experiment refuses an online
-    builder, as the reference's do; only the slice-7b knobs raise."""
+    """Every entry point and knob is ported: run_distributed_experiment runs
+    (here on threads, on the CPU), with async learner sync and shard-affine
+    routing too, and run_offline_experiment refuses an online builder, as
+    the reference's do."""
     config = _config(num_episodes=1, eval_episodes=0)
     result = run_distributed_experiment(config, num_actors=2,
                                         max_actor_steps=200, timeout_s=60)
@@ -169,10 +170,14 @@ def test_unported_entry_points_raise():
     assert result.extras["launcher"] == "local"
     with pytest.raises(ValueError, match="offline"):
         run_offline_experiment(config, num_learner_steps=1)
-    for knobs in (dict(learner_sync="async"),
-                  dict(replay_routing="affinity")):
-        with pytest.raises(NotImplementedError, match="slice 7b"):
-            run_distributed_experiment(_config(**knobs), num_actors=1)
+    knobbed = run_distributed_experiment(
+        _config(eval_episodes=0, learner_sync="async",
+                num_learner_replicas=2, learner_average_period=5,
+                replay_routing="affinity", num_envs_per_actor=2),
+        num_actors=1, max_actor_steps=200, timeout_s=60)
+    assert knobbed.counts["actor_steps"] >= 200
+    assert knobbed.extras["learners"]["sync"] == "async"
+    assert all(s["inserts"] > 0 for s in knobbed.extras["replay"]["per_shard"])
 
 
 # ------------------------------------------------------------------- resume
@@ -373,16 +378,17 @@ def test_config_checks_match_reference(knobs):
 
 @pytest.mark.parametrize("field", ["restart_policy", "chaos", "rpc_retry"])
 def test_distributed_only_fields_raise_until_ported(field):
-    """restart_policy and chaos wait for slice 7b; rpc_retry is ported and
-    takes a RetryConfig only, as the reference's does."""
+    """The distributed-only fields are ported: each takes its own type
+    only, and raises ValueError naming it otherwise, as the reference's
+    do."""
     from repro_torch.distributed import RetryConfig
-    if field == "rpc_retry":
-        with pytest.raises(ValueError, match="RetryConfig"):
-            _config(rpc_retry=object())
-        assert _config(rpc_retry=RetryConfig()).rpc_retry == RetryConfig()
-    else:
-        with pytest.raises(NotImplementedError, match="slice 7b"):
-            _config(**{field: object()})
+    from repro_torch.resilience import ChaosPolicy, RestartPolicy
+    good, name = {"restart_policy": (RestartPolicy(), "RestartPolicy"),
+                  "chaos": (ChaosPolicy(), "ChaosPolicy"),
+                  "rpc_retry": (RetryConfig(), "RetryConfig")}[field]
+    with pytest.raises(ValueError, match=name):
+        _config(**{field: object()})
+    assert getattr(_config(**{field: good}), field) == good
 
 
 def test_result_reports_the_final_eval():

@@ -101,6 +101,57 @@ def test_distributed_slice_imports_neither_jax_nor_repro(module):
     assert result.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.resilience.failover", "repro_torch.resilience.chaos",
+    "repro_torch.distributed.launchers"])
+def test_resilience_slice_imports_neither_jax_nor_repro(module):
+    """The fault-tolerance slice's modules, each on its own in a fresh
+    interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys\nimport {module}\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
+def test_respawned_actor_child_imports_neither_jax_nor_repro(tmp_path):
+    """An actor killed by a chaos schedule and respawned by the elastic
+    launcher comes back as a fresh spawn child: both lives load neither jax
+    nor the reference package and start no CUDA context."""
+    import json
+
+    import torch
+
+    from repro_torch.experiments import run_distributed_experiment
+    from repro_torch.resilience import ChaosPolicy, RestartPolicy
+    from torch_factories import ProbedCatchFactory, make_dqn_catch_config
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        config = make_dqn_catch_config(
+            seed=0, launcher="multiprocess", inference="server",
+            eval_episodes=0, env_factory=ProbedCatchFactory(tmp_path),
+            restart_policy=RestartPolicy(max_restarts=1,
+                                         backoff_base_s=0.05),
+            chaos=ChaosPolicy(kill_after_steps=30,
+                              kill_targets=("actor/0",)))
+        result = run_distributed_experiment(config, num_actors=1,
+                                            max_actor_steps=100,
+                                            timeout_s=120)
+    finally:
+        torch.set_num_threads(threads)
+    # one actor: its node is "actor", its chaos schedule "actor/0"
+    assert result.extras["resilience"]["restarts"] == {"actor": 1}
+    reports = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
+    assert len(reports) == 2, reports
+    assert all(r == {"modules": [], "cuda_initialized": False}
+               for r in reports)
+
+
 def test_spawned_actor_child_imports_neither_jax_nor_repro(tmp_path):
     """An actor the multiprocess launcher spawns (here with
     ``inference="server"``, so it holds no network) loads neither jax nor
