@@ -27,8 +27,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    tensor-core design's edges: sq, sk around the warp
    and block tiles, windows that end inside a key tile, the model's strided
    views (equal to contiguous copies) and one key per query with distinct
-   V rows, which a wrong key order between P and V would show (the same
-   tolerances); the SSD scan at the sweep shapes, d_state 128, the Zamba2
+   V rows, which a wrong key order between P and V would show, and at the
+   model zoo's shapes (phase 23): Whisper's encoder (b 4, h 8, s 1500, d
+   64, non-causal, its last key tile ragged) and cross-attention (sq 448
+   over sk 1500), qwen3-1.7b's GQA 16/8 at d 128 (s 2048, causal), in
+   float32 and bfloat16, and internvl2-26b's GQA 48/8 at d 128 in
+   bfloat16 (the same tolerances); the SSD scan at the sweep shapes, d_state 128, the Zamba2
    path's shape, one chunk, 16 chunks, the ragged chunk 100 and d_state 128
    with p 128, the final state included, and a second call at another
    shape that must not read the first call's scratch (error over the
@@ -64,7 +68,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    plain version or than ``scaled_dot_product_attention``; flash attention
    is also timed at the transformer policy learner's shape (b 16, h 4,
    kv 2, s 16, d 64, window 8) beside ``scaled_dot_product_attention``
-   with the same band as a mask;
+   with the same band as a mask, and at phase 2's four model-zoo shapes
+   in their path's dtype beside ``scaled_dot_product_attention`` (K/V
+   repeated to the query heads before timing) and, in bfloat16, the
+   native bf16 tensor-core bound (989 TFLOP/s); there a kernel slower
+   than the library call is reported, not failed;
 6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
    the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
    actor over a ``VectorEnv`` of 16 Catch envs in a
@@ -228,7 +236,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    1.5x); ``weighted_average_states`` and the async service's three merges
    of three DQN states on the card equal to the CPU's bit for bit, and a
    one-replica async ``MultiLearner`` on the card equal to the plain
-   learner after 10 steps.
+   learner after 10 steps;
+23. the model zoo's scoring path: ``make_prefill_step`` over
+   ``transformer.init`` (drawn from seed 0 on the card's generator) of one
+   config of each remaining family at full width and depth:
+   qwen3-1.7b (dense, float32, 4 x 2048 tokens), granite-moe-3b-a800m
+   (MoE, float32, 4 x 2048), whisper-base (audio, float32, 4 x 448 text
+   tokens over 1500 frames) and internvl2-26b (VLM, bfloat16: its 79.4 GB
+   of float32 weights do not fit; 4 x (256 vision + 1792 text)), 3
+   batches each from ``numpy.random.RandomState(0)``: launch counts are
+   zeroed just before and read just after, and each step must launch
+   flash attention 28, 32, 18 (6 encoder, 6 causal, 6 cross) and 48
+   times; then the same batches in turn up to 8 timed steps, for
+   requests/s, tokens/s, step p50/p95, peak memory, the seconds of init
+   and a profile of one step; the first batch again on the plain route,
+   by phase 10's rule (float32: 1e-4 of the largest plain |logit|;
+   bfloat16: 5e-2, from the measured difference), and for MoE the router
+   choices that differ between the two routes (a token that some layer
+   routes to another expert on one route, a near-tie that rounding
+   decides, is left out of the rule and counted); each model is freed before
+   the next (Zamba2's phase-9 weights went after phase 10); then a
+   reduced config of each family on the card's kernel against the same
+   weights on the CPU's plain version, by the same rule (1e-4).
 
 Phases 17-19, 21 and 22's DQN parts launch none of the four kernels: each
 zeros the launch counts before it and requires 0 after.  The actor
@@ -266,6 +295,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 TF32_PASSES = 3
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Adam moments and params of two learners that differ only in V-trace's
@@ -502,6 +532,53 @@ FIG20_MIN_SPEEDUP = 1.5
 # card and on the CPU, pushed at these steps, blended with these weights.
 BLEND_STEPS = (12, 9, 10)
 BLEND_WEIGHTS = (1e-3, 7.0, 2.5)
+
+# Phase 23: the model zoo's scoring path, one config of each family at
+# full width and depth (src/repro_torch/configs/*.py), random weights from
+# SEED drawn on the card: (config, param dtype, flash launches a step: one
+# a layer; Whisper's 6 encoder, 6 causal and 6 cross-attention calls).
+# internvl2-26b's 19.9 B params take 79.4 GB in float32, more than the
+# card holds beside its activations, so it runs in bfloat16 (39.7 GB).
+ZOO = [("qwen3-1.7b", "float32", 28),
+       ("granite-moe-3b-a800m", "float32", 32),
+       ("whisper-base", "float32", 18),
+       ("internvl2-26b", "bfloat16", 48)]
+ZOO_BATCHES = 3
+ZOO_BATCH = 4
+ZOO_SEQ = 2048            # positions a request (the VLM's: vision + text)
+WHISPER_TEXT = 448        # Whisper's decoder context, over 1500 frames
+ZOO_TIMED_STEPS = 8       # the 3 counted batches, then the same in turn
+# Kernel route vs plain route, the phase-10 rule: |d last_logits| <= this x
+# the largest plain |logit|; greedy actions equal where the plain top-2
+# margin exceeds twice that.  float32 as phase 10.  bfloat16 (the VLM):
+# both routes round every attention output to bf16 (2^-8 relative steps),
+# where their f32 sums differ in the last bits, and 48 layers of bf16
+# GEMMs and residual adds carry those roundings on to logits that bf16
+# itself holds only to 2^-8 (a step of 2 at the largest, ~350): measured
+# 1.73e-2 on the first batch (6.0 of 346, 3 of those steps; NVIDIA H100
+# 80GB HBM3, 700 W), so the bound is 5e-2, ~13 steps, which a wrong mask
+# or key order (differences of the logits' own size) still far exceeds.
+ZOO_LOGIT_REL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# an MoE token that some layer routes to another expert on the kernel route
+# than on the plain one (a near-tie that rounding decides) is left out of
+# that rule; at most this share of the positions may be (granite: 54 of
+# 8192, 0.66%; NVIDIA H100 80GB HBM3, 700 W), since a wrong kernel
+# reroutes most of them
+MOE_REROUTED_MAX = 0.01
+# flash attention at the zoo's attention shapes (phases 2 and 5): (label,
+# b, h, kv, sq, sk, d, causal, the dtypes checked; the first is the path's,
+# timed in phase 5).  Whisper's 1500 keys end inside a 64-key tile; f32
+# holds each GQA grouping (2:1, 3:1, 6:1) at 1e-4.
+FLASH_ZOO = [("whisper_encoder", 4, 8, 8, 1500, 1500, 64, False,
+              ("float32", "bfloat16")),
+             ("whisper_cross", 4, 8, 8, 448, 1500, 64, False,
+              ("float32", "bfloat16")),
+             ("qwen3_1_7b", 4, 16, 8, 2048, 2048, 128, True,
+              ("float32", "bfloat16")),
+             ("granite_moe", 4, 24, 8, 2048, 2048, 64, True,
+              ("float32", "bfloat16")),
+             ("internvl2_26b", 4, 48, 8, 2048, 2048, 128, True,
+              ("bfloat16", "float32"))]
 
 FLASH_CASES = [("sweep", 1, 1, 1, 128, 128, 64),
                ("sweep", 2, 2, 2, 256, 256, 64),
@@ -895,10 +972,20 @@ def bounds(nbytes, flops):
 
 def flash_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
     """Least time (ms): q, K, V and out once; two multiply-adds (q.k and
-    p.v) per kept (query, key) pair and channel, per head."""
+    p.v) per kept (query, key) pair and channel, per head.  In float32
+    (itemsize 4) ``bounds``; in bfloat16 the work over the native bf16
+    tensor-core rate, and the kernel's own 3 TF32 passes as bound_tc_ms
+    (it widens bf16 tiles to f32)."""
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kv * sk)
     flops = 4 * d * b * h * flash_pairs(sq, sk, causal, window)
-    return bounds(nbytes, flops)
+    if itemsize == 4:
+        return bounds(nbytes, flops)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    by_tc = TF32_PASSES * flops / TF32_FLOPS_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations",
+            max(by_bytes, by_tc))
 
 
 def check_flash(kernel, ref, torch, cfg):
@@ -1118,6 +1205,89 @@ def time_flash_policy(kernel, ref, torch):
         timed[f"{prefix}ms"] = time_ms(fn, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
     return timed
+
+
+def check_flash_zoo(kernel, ref, torch, rng):
+    """FLASH_ZOO's shapes in their dtypes, without a window, against the
+    plain version at TOL.  Returns the worst error per dtype."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for label, b, h, kv, sq, sk, d, causal, dtypes in FLASH_ZOO:
+        for name in dtypes:
+            q, k, v = flash_inputs(b, h, kv, sq, sk, d,
+                                   getattr(torch, name), rng)
+            out = kernel(q, k, v, causal, None)
+            torch.cuda.synchronize()
+            expected = ref.flash_attention_ref(q, k, v, causal=causal)
+            check(out.shape == expected.shape and out.dtype == q.dtype
+                  and bool(torch.isfinite(out).all()),
+                  f"flash_attention {label} {name}: bad output")
+            err = (out.float() - expected.float()).abs().max().item()
+            worst[name] = max(worst[name], err)
+            log(f"  flash_attention {label:15s} b={b} h={h} kv={kv} "
+                f"sq={sq} sk={sk} d={d} causal={causal:d} {name:8s} "
+                f"max_abs_err={err:.3e}")
+            check(err <= TOL[name], f"flash_attention {label} {name}: "
+                  f"max_abs_err {err} > {TOL[name]}")
+    return worst
+
+
+def time_flash_zoo(kernel, ref, torch):
+    """FLASH_ZOO's shapes in the path's dtype, on the model's strided
+    views: the kernel, its plain version, and scaled_dot_product_attention
+    on contiguous (b, heads, s, d) tensors with K/V repeated to the query
+    heads (the repeat made before timing; the library yardstick, never
+    called by the port).  A kernel slower than the library call is
+    reported, not failed: it orders the next kernel work."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(SEED + 23)
+    rows = []
+    for label, b, h, kv, sq, sk, d, causal, dtypes in FLASH_ZOO:
+        dtype = getattr(torch, dtypes[0])
+        q, k, v = flash_inputs(b, h, kv, sq, sk, d, dtype, rng)
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                 for t in (q, k, v)]
+        k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+        expected = ref.flash_attention_ref(q, k, v, causal=causal)
+        err = (kernel(*views, causal, None).float()
+               - expected.float()).abs().max().item()
+        lib_err = (F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                  is_causal=causal).float()
+                   - expected.float()).abs().max().item()
+        check(err <= TOL[dtypes[0]] and lib_err <= TOL[dtypes[0]],
+              f"flash_attention {label}: max_abs_err {err}, the library "
+              f"call's {lib_err}")
+        bound, bound_by, bound_tc = flash_bound(
+            b, h, kv, sq, sk, d, causal, None, q.element_size())
+        timed = {"path": label,
+                 "shape": {"b": b, "h": h, "kv": kv, "sq": sq, "sk": sk,
+                           "d": d, "causal": causal, "window": None,
+                           "dtype": dtypes[0],
+                           "layout": "model (b, s, heads, d) views"},
+                 "max_abs_err_timed": err, "bound_ms": bound,
+                 "bound_by": bound_by, "bound_tc_ms": bound_tc}
+        calls = {
+            "": (lambda: kernel(*views, causal, None), True),
+            "plain_": (lambda: ref.flash_attention_ref(q, k, v,
+                                                       causal=causal),
+                       False),
+            "library_": (lambda: F.scaled_dot_product_attention(
+                q, k_rep, v_rep, is_causal=causal), True),
+        }
+        for prefix, (fn, eager) in calls.items():
+            timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20)
+            if eager:
+                timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3,
+                                                     launches=20,
+                                                     graph=False)
+        timed["vs_library"] = timed["ms"] / timed["library_ms"]
+        log(f"  flash_attention at {label} {json.dumps(timed)}; "
+            f"{timed['ms'] / bound:.2f}x its bound, "
+            f"{timed['vs_library']:.2f}x scaled_dot_product_attention"
+            + (" (SLOWER than the library call)"
+               if timed["vs_library"] > 1 else ""))
+        rows.append(timed)
+        del q, k, v, views, k_rep, v_rep, expected
+    return rows
 
 
 # ------------------------------------------------------------------ SSD scan
@@ -1615,7 +1785,7 @@ def zamba2_batches(cfg):
             for _ in range(ZAMBA_BATCHES)]
 
 
-def profile_step(torch, step, params, tokens):
+def profile_step(torch, step, params, batch):
     """Device time by kernel over one scoring step, from torch.profiler,
     and the device's idle share of the step's wall time."""
     from torch.autograd import DeviceType
@@ -1624,7 +1794,7 @@ def profile_step(torch, step, params, tokens):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        step(params, {"tokens": tokens})
+        step(params, batch)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     # device-side entries (kernels, copies); an operator's own entry
@@ -1648,14 +1818,66 @@ def profile_step(torch, step, params, tokens):
                     for e in top]}
 
 
-def zamba2_path(torch, kernels, cfg):
-    """make_prefill_step over the full model: one unmeasured step first
-    (cuBLAS plans, the allocator's pool), then the counted run of
-    ZAMBA_BATCHES batches, then more steps over the same batches in turn,
-    ZAMBA_TIMED_STEPS timed steps in all, for the step-time distribution."""
-    batches, batch, seq = ZAMBA_BATCHES, ZAMBA_BATCH, ZAMBA_SEQ
-    from repro_torch import tree
+def score_model(torch, kernels, cfg, params, batches, timed_steps):
+    """make_prefill_step over a model: one unmeasured step first (cuBLAS
+    plans, the allocator's pool), then the counted run of the batches
+    (launch counts zeroed just before, read just after), then more steps
+    over the same batches in turn, ``timed_steps`` in all, for the
+    step-time distribution; the outputs' shapes, range and finiteness;
+    peak device memory and a profile of one more step."""
     from repro_torch.launch.steps import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    step(params, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches(kernels)
+    times, outs = [], []
+    for i in range(timed_steps):
+        t0 = time.monotonic()
+        out = step(params, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+        if i < len(batches):
+            outs.append(out)
+        if i == len(batches) - 1:
+            launches = kernel_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+
+    batch, seq = np.shape(batches[0]["tokens"])
+    seconds = sum(times) / 1e3
+    p50 = float(np.percentile(times, 50))
+    p95 = float(np.percentile(times, 95))
+    log(f"  {len(batches)} counted batches of {batch} requests x {seq} "
+        f"tokens, launches={launches}; {timed_steps} timed steps in "
+        f"{seconds:.3f} s: {timed_steps * batch / seconds:.3f} requests/s, "
+        f"{timed_steps * batch * seq / seconds:.1f} tokens/s; step ms min="
+        f"{min(times):.3f} p50={p50:.3f} p95={p95:.3f} max={max(times):.3f}"
+        f"; peak device memory {peak / 2 ** 30:.3f} GiB")
+    for out in outs:
+        actions, logits = out["actions"], out["last_logits"]
+        check(actions.shape == (batch, seq) and actions.dtype == torch.int32,
+              f"{cfg.name}: actions {tuple(actions.shape)} {actions.dtype}")
+        check(int(actions.min()) >= 0
+              and int(actions.max()) < cfg.vocab_size,
+              f"{cfg.name}: an action outside the vocabulary")
+        check(logits.shape == (batch, cfg.padded_vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.name}: bad last_logits")
+    profile = profile_step(torch, step, params, batches[0])
+    return {"launches": launches, "step": step, "outs": outs,
+            "step_ms": times, "step_ms_p50": p50, "step_ms_p95": p95,
+            "requests_per_s": timed_steps * batch / seconds,
+            "tokens_per_s": timed_steps * batch * seq / seconds,
+            "peak_bytes": peak, "profile": profile}
+
+
+def zamba2_path(torch, kernels, cfg):
+    """Zamba2-1.2B's scoring path at full width and depth (score_model),
+    each step launching flash once a shared-attention site and the SSD
+    scan once a Mamba2 layer."""
+    from repro_torch import tree
     from repro_torch.models import transformer
 
     t0 = time.monotonic()
@@ -1668,65 +1890,24 @@ def zamba2_path(torch, kernels, cfg):
     log(f"  {cfg.name}: {n_params} parameters (float32) initialized from "
         f"seed {SEED} in {init_s:.2f} s; {cfg.num_layers} Mamba2 layers, "
         f"{sites} shared-attention sites")
-    step = make_prefill_step(cfg)
-    tokens = zamba2_batches(cfg)
-    step(params, {"tokens": tokens[0]})
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    for kernel in kernels:
-        kernel["wrapper"].launches = 0
-    times, outs = [], []
-    for i in range(ZAMBA_TIMED_STEPS):
-        t0 = time.monotonic()
-        out = step(params, {"tokens": tokens[i % batches]})
-        torch.cuda.synchronize()
-        times.append((time.monotonic() - t0) * 1e3)
-        if i < batches:
-            outs.append(out)
-        if i == batches - 1:
-            launches = {k["name"]: k["wrapper"].launches for k in kernels}
-    peak = torch.cuda.max_memory_allocated()
-
-    steps = len(times)
-    seconds = sum(times) / 1e3
-    p50 = float(np.percentile(times, 50))
-    p95 = float(np.percentile(times, 95))
-    log(f"  {batches} counted batches of {batch} requests x {seq} tokens, "
-        f"launches={launches}; {steps} timed steps in {seconds:.3f} s: "
-        f"{steps * batch / seconds:.3f} requests/s, "
-        f"{steps * batch * seq / seconds:.1f} tokens/s; step ms min="
-        f"{min(times):.3f} p50={p50:.3f} p95={p95:.3f} max={max(times):.3f}"
-        f"; peak device memory {peak / 2 ** 30:.3f} GiB")
-    check(launches["flash_attention"] == sites * batches,
+    batches = [{"tokens": tokens} for tokens in zamba2_batches(cfg)]
+    path = score_model(torch, kernels, cfg, params, batches,
+                       ZAMBA_TIMED_STEPS)
+    launches = path["launches"]
+    check(launches["flash_attention"] == sites * ZAMBA_BATCHES,
           f"scoring path: flash_attention launched "
           f"{launches['flash_attention']} times, expected {sites} x "
-          f"{batches}")
-    check(launches["ssd_scan"] == cfg.num_layers * batches,
+          f"{ZAMBA_BATCHES}")
+    check(launches["ssd_scan"] == cfg.num_layers * ZAMBA_BATCHES,
           f"scoring path: ssd_scan launched {launches['ssd_scan']} times, "
-          f"expected {cfg.num_layers} x {batches}")
+          f"expected {cfg.num_layers} x {ZAMBA_BATCHES}")
     check(launches["decode_attention"] == launches["vtrace"] == 0,
           f"scoring path launched another slice's kernel: {launches}")
-    for out in outs:
-        actions, logits = out["actions"], out["last_logits"]
-        check(actions.shape == (batch, seq) and actions.dtype == torch.int32,
-              f"scoring path: actions {tuple(actions.shape)} {actions.dtype}")
-        check(int(actions.min()) >= 0
-              and int(actions.max()) < cfg.vocab_size,
-              "scoring path: an action outside the vocabulary")
-        check(logits.shape == (batch, cfg.padded_vocab_size)
-              and bool(torch.isfinite(logits).all()),
-              "scoring path: bad last_logits")
-    profile = profile_step(torch, step, params, tokens[0])
-    return {"launches": launches, "params": params, "step": step,
-            "tokens": tokens, "outs": outs, "init_s": init_s,
-            "n_params": n_params, "step_ms": times, "step_ms_p50": p50,
-            "step_ms_p95": p95, "requests_per_s": steps * batch / seconds,
-            "tokens_per_s": steps * batch * seq / seconds,
-            "peak_bytes": peak, "profile": profile}
+    return dict(path, params=params, batches=batches, init_s=init_s,
+                n_params=n_params)
 
 
-def plain_scoring(torch, step, params, tokens):
+def plain_scoring(torch, step, params, batch):
     """The step with flash attention and the SSD scan on their plain
     versions; also returns the features, for the top-2 margins."""
     from unittest import mock
@@ -1745,21 +1926,39 @@ def plain_scoring(torch, step, params, tokens):
                            ref.flash_attention_ref), \
             mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref), \
             mock.patch.object(transformer, "forward_features", capture):
-        out = step(params, {"tokens": tokens})
+        out = step(params, batch)
     return out, captured["feats"]
 
 
 def compare_scoring(torch, cfg, params, out, plain, plain_feats, rel_tol,
-                    what):
+                    what, rerouted=None):
     """Last logits within tol = ``rel_tol`` x the largest plain |logit| (of
     the real vocabulary); greedy actions equal wherever the plain route's
-    top-2 margin exceeds 2 tol.  Returns the max |d|, tol and counts."""
+    top-2 margin exceeds 2 tol.  Returns the max |d|, tol and counts.
+
+    ``rerouted``: (b, s) bools, the MoE tokens that some layer's router
+    sent to another expert on the kernel route than on the plain one (a
+    near-tie that rounding decides).  There the two routes compute
+    different functions, so those positions (and a row whose last token
+    is one) are left out of both checks and counted; more than
+    MOE_REROUTED_MAX of the positions, or every row, fails."""
     from repro_torch.models import layers, transformer
 
     tol = rel_tol * plain["last_logits"][:, :cfg.vocab_size].abs().max(
         ).item()
-    err = (out["last_logits"].float().cpu()
-           - plain["last_logits"].float().cpu()).abs().max().item()
+    row_err = (out["last_logits"].float().cpu()
+               - plain["last_logits"].float().cpu()).abs().amax(dim=-1)
+    kept_rows = torch.ones_like(row_err, dtype=torch.bool)
+    if rerouted is not None:
+        rerouted = rerouted.cpu()
+        count = int(rerouted.sum())
+        check(count <= MOE_REROUTED_MAX * rerouted.numel(),
+              f"{what}: {count} of {rerouted.numel()} positions rerouted, "
+              f"more than {MOE_REROUTED_MAX:.0%}")
+        kept_rows = ~rerouted[:, -1]
+        check(bool(kept_rows.any()),
+              f"{what}: every row's last token was rerouted")
+    err = row_err[kept_rows].max().item()
     check(err <= tol, f"{what}: last_logits differ by {err} > {tol}")
     table = transformer.unembed_table(params, cfg).to(plain_feats.device)
     margins = []
@@ -1771,11 +1970,21 @@ def compare_scoring(torch, cfg, params, out, plain, plain_feats, rel_tol,
     margins = torch.cat(margins, dim=1).cpu()
     decided = margins > 2 * tol
     same = out["actions"].cpu() == plain["actions"].cpu()
+    result = {"positions": same.numel(), "equal": int(same.sum())}
+    if rerouted is not None:
+        result.update(
+            rerouted_positions=int(rerouted.sum()),
+            rerouted_rows_left_out=int((~kept_rows).sum()),
+            rerouted_row_max_abs_err=row_err[~kept_rows].max().item()
+            if bool((~kept_rows).any()) else None,
+            rerouted_decided_differing=int((~same & decided
+                                            & rerouted).sum()))
+        decided = decided & ~rerouted
     check(bool(same[decided].all()), f"{what}: greedy actions differ at "
           f"{int((~same & decided).sum())} positions with a plain top-2 "
           f"margin above {2 * tol}")
-    return {"max_abs_err": err, "tol": tol, "positions": same.numel(),
-            "decided": int(decided.sum()), "equal": int(same.sum())}
+    return dict(result, max_abs_err=err, tol=tol,
+                decided=int(decided.sum()))
 
 
 def zamba2_parity(torch, cfg, path):
@@ -1784,12 +1993,10 @@ def zamba2_parity(torch, cfg, path):
     versions with the same weights."""
     import dataclasses
 
-    from repro_torch import configs, tree
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import transformer
+    from repro_torch import configs
 
     plain, feats = plain_scoring(torch, path["step"], path["params"],
-                                 path["tokens"][0])
+                                 path["batches"][0])
     full = compare_scoring(torch, cfg, path["params"], path["outs"][0],
                            plain, feats, ZAMBA_LOGIT_REL_TOL,
                            "scoring parity")
@@ -1802,23 +2009,37 @@ def zamba2_parity(torch, cfg, path):
 
     small = dataclasses.replace(configs.reduced(cfg), num_layers=3,
                                 hybrid_attn_every=2)
+    reduced = reduced_parity(torch, small, "reduced Zamba2 (3 Mamba2 layers "
+                             "in a group of 2 and a tail)")
+    return full, reduced
+
+
+def reduced_parity(torch, small, label):
+    """A small config in float32 on the card's kernels against the same
+    weights (from SEED) on the CPU's plain versions, by the phase-10 rule
+    at REDUCED_TOL, over 2 requests of 64 tokens (and the VLM's vision or
+    Whisper's frames)."""
+    from repro_torch import tree
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
     params = transformer.init(torch.Generator().manual_seed(SEED), small,
                               device="cpu")
     params_card = tree.map(lambda t: t.to("cuda"), params)
-    tokens = np.random.RandomState(SEED).randint(0, small.vocab_size,
-                                                 (2, 64))
+    batch_card = zoo_batches(torch, small, torch.float32, 2, 64, 1)[0]
+    batch_cpu = {k: (v.cpu() if torch.is_tensor(v) else v)
+                 for k, v in batch_card.items()}
     step = make_prefill_step(small)
-    out = step(params_card, {"tokens": tokens})
-    cpu, cpu_feats = plain_scoring(torch, step, params, tokens)
-    reduced = compare_scoring(torch, small, params, out, cpu, cpu_feats,
-                              REDUCED_TOL, "reduced parity")
-    log(f"  reduced Zamba2 (3 Mamba2 layers in a group of 2 and a tail, "
-        f"d_model {small.d_model}), card kernels vs CPU plain route: max "
-        f"|d last_logits| = {reduced['max_abs_err']:.3e} (tol "
-        f"{reduced['tol']:.3e} = {REDUCED_TOL} x max |logit|); actions "
-        f"equal at {reduced['equal']} of {reduced['positions']}, "
-        f"{reduced['decided']} with a top-2 margin above 2 tol")
-    return full, reduced
+    out = step(params_card, batch_card)
+    cpu, cpu_feats = plain_scoring(torch, step, params, batch_cpu)
+    result = compare_scoring(torch, small, params, out, cpu, cpu_feats,
+                             REDUCED_TOL, f"{label} parity")
+    log(f"  {label}, d_model {small.d_model}, card kernels vs CPU plain "
+        f"route: max |d last_logits| = {result['max_abs_err']:.3e} (tol "
+        f"{result['tol']:.3e} = {REDUCED_TOL} x max |logit|); actions equal "
+        f"at {result['equal']} of {result['positions']}, "
+        f"{result['decided']} with a top-2 margin above 2 tol")
+    return result
 
 
 # ------------------------------------------------------------- DQN on Catch
@@ -3721,6 +3942,177 @@ def blends_card_vs_cpu(torch):
     return out
 
 
+# --------------------------------------------------- the model zoo scored
+def zoo_batches(torch, cfg, dtype, batch, text, count, seed=SEED):
+    """``count`` batches from numpy: tokens, and the VLM's vision or
+    Whisper's frames as 0.1 x normal (as tests/test_models_smoke.py makes
+    them), on the card in the param dtype (a request's embeddings arrive
+    there)."""
+    rng = np.random.RandomState(seed)
+    extra = {"vlm": ("vision", cfg.vision_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.arch_type)
+    batches = []
+    for _ in range(count):
+        item = {"tokens": rng.randint(0, cfg.vocab_size, (batch, text))}
+        if extra:
+            name, length = extra
+            item[name] = torch.as_tensor(
+                0.1 * rng.randn(batch, length, cfg.d_model),
+                dtype=torch.float32).to("cuda", dtype)
+        batches.append(item)
+    return batches
+
+
+def router_choices(run):
+    """``run()``, and the top-k expert indices that each MoE layer's
+    ``moe_ffn`` took from ``moe.route`` while it ran."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    choices = []
+    route = moe.route
+
+    def capture(params, cfg, xg):
+        routed = route(params, cfg, xg)
+        choices.append(routed[-1])
+        return routed
+
+    with mock.patch.object(moe, "route", capture):
+        result = run()
+    return result, choices
+
+
+def differing_choices(torch, cfg, kernel_choices, plain_choices, shape):
+    """Router choices (token, expert) made on one route and not on the
+    other, summed over layers; the token-layers with any such choice; and
+    the (b, s) tokens rerouted in some layer (groups are consecutive
+    tokens of the flattened (b, s) batch)."""
+    def chosen(indices):
+        return torch.zeros(indices.shape[:-1] + (cfg.moe.num_experts,),
+                           device=indices.device).scatter_(-1, indices, 1.0)
+    check(len(kernel_choices) == len(plain_choices) == cfg.num_layers,
+          f"{cfg.name}: {len(kernel_choices)} and {len(plain_choices)} MoE "
+          f"layers recorded, expected {cfg.num_layers}")
+    choices = token_layers = 0
+    rerouted = torch.zeros(shape, dtype=torch.bool, device="cuda")
+    for a, b in zip(kernel_choices, plain_choices):
+        moved = (chosen(a) != chosen(b)).sum(-1)
+        choices += int(moved.sum().item()) // 2
+        token_layers += int((moved > 0).sum().item())
+        rerouted |= (moved > 0).reshape(shape)
+    return {"differing_choices": choices,
+            "token_layers_with_a_differing_choice": token_layers,
+            "choices": cfg.num_layers * kernel_choices[0].numel()}, rerouted
+
+
+def zoo_config(torch, kernels, name, dtype_name, flash_per_step):
+    """One config at full width and depth: init from SEED on the card's
+    generator, score_model over ZOO_BATCHES batches with exact flash
+    launch counts, then the first batch on the plain route by the
+    phase-10 rule (and, for MoE, the router choices that differ between
+    the two routes)."""
+    from repro_torch import configs, tree
+    from repro_torch.models import transformer
+
+    cfg = configs.get_arch(name)
+    dtype = getattr(torch, dtype_name)
+    t0 = time.monotonic()
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    params = transformer.init(generator, cfg, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(params))
+    log(f"  {name} ({cfg.arch_type}): {n_params} parameters "
+        f"({param_bytes / 1e9:.2f} GB, {dtype_name}) initialized from seed "
+        f"{SEED} on the card in {init_s:.2f} s")
+    text = (WHISPER_TEXT if cfg.arch_type == "audio"
+            else ZOO_SEQ - cfg.vision_tokens)
+    batches = zoo_batches(torch, cfg, dtype, ZOO_BATCH, text, ZOO_BATCHES)
+    path = score_model(torch, kernels, cfg, params, batches,
+                       ZOO_TIMED_STEPS)
+    launches = path["launches"]
+    check(launches["flash_attention"] == flash_per_step * ZOO_BATCHES,
+          f"{name}: flash_attention launched {launches['flash_attention']} "
+          f"times, expected {flash_per_step} x {ZOO_BATCHES}")
+    check(launches["ssd_scan"] == launches["decode_attention"]
+          == launches["vtrace"] == 0,
+          f"{name} launched another kernel: {launches}")
+
+    step = path["step"]
+    if cfg.arch_type == "moe":
+        kernel_out, kernel_choices = router_choices(
+            lambda: step(params, batches[0]))
+        (plain, feats), plain_choices = router_choices(
+            lambda: plain_scoring(torch, step, params, batches[0]))
+        routing, rerouted = differing_choices(
+            torch, cfg, kernel_choices, plain_choices,
+            kernel_out["actions"].shape)
+        log(f"  {name}: router top-{cfg.moe.top_k} choices that differ "
+            f"between the kernel and the plain route: "
+            f"{routing['differing_choices']} of {routing['choices']} "
+            f"({routing['token_layers_with_a_differing_choice']} "
+            f"token-layers, {int(rerouted.sum())} tokens)")
+    else:
+        kernel_out, rerouted = path["outs"][0], None
+        plain, feats = plain_scoring(torch, step, params, batches[0])
+        routing = None
+    rel_tol = ZOO_LOGIT_REL_TOL[dtype_name]
+    parity = compare_scoring(torch, cfg, params, kernel_out, plain, feats,
+                             rel_tol, f"{name} parity", rerouted)
+    log(f"  {name}, first batch, kernel vs plain route: max |d "
+        f"last_logits| = {parity['max_abs_err']:.3e} (tol "
+        f"{parity['tol']:.3e} = {rel_tol} x max |logit|, "
+        f"{parity['max_abs_err'] / parity['tol'] * rel_tol:.3e} of it); "
+        f"actions equal at {parity['equal']} of {parity['positions']}, "
+        f"{parity['decided']} with a top-2 margin above 2 tol"
+        + ("" if rerouted is None else
+           f"; {parity['rerouted_positions']} rerouted positions left out "
+           f"({parity['rerouted_decided_differing']} of them with another "
+           f"action and a margin above 2 tol; "
+           f"{parity['rerouted_rows_left_out']} rows' last logits, max |d| "
+           f"{parity['rerouted_row_max_abs_err']})"))
+    return {"config": name, "dtype": dtype_name, "arch_type": cfg.arch_type,
+            "n_params": n_params, "param_gb": param_bytes / 1e9,
+            "init_s": init_s, "launches": launches,
+            "flash_per_step": flash_per_step,
+            "requests_per_s": path["requests_per_s"],
+            "tokens_per_s": path["tokens_per_s"],
+            "step_ms_p50": path["step_ms_p50"],
+            "step_ms_p95": path["step_ms_p95"], "step_ms": path["step_ms"],
+            "peak_gib": path["peak_bytes"] / 2 ** 30,
+            "profile": {k: v for k, v in path["profile"].items()
+                        if k != "top"},
+            "top_kernels": path["profile"].get("top"),
+            "parity": parity, "routing": routing}
+
+
+def zoo_scoring(torch, kernels):
+    """Phase 23: ZOO in turn, each model freed before the next, then a
+    reduced config of each family card vs CPU."""
+    import gc
+
+    from repro_torch import configs
+
+    results = []
+    for name, dtype_name, flash_per_step in ZOO:
+        t0 = time.monotonic()
+        results.append(zoo_config(torch, kernels, name, dtype_name,
+                                  flash_per_step))
+        gc.collect()
+        torch.cuda.empty_cache()
+        results[-1]["seconds"] = time.monotonic() - t0
+        log(f"  {name}: {results[-1]['seconds']:.1f} s in all; device "
+            f"memory still allocated after freeing it "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    reduced = {name: reduced_parity(
+        torch, configs.reduced(configs.get_arch(name)), f"reduced {name}")
+        for name, _, _ in ZOO}
+    return {"configs": results, "reduced": reduced}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3782,6 +4174,10 @@ def main() -> int:
     flash = flash_module.flash_attention
     ssd = ssd_module.ssd_scan
     worst_flash = check_flash(flash, ref, torch, zamba)
+    worst_zoo = check_flash_zoo(flash, ref, torch,
+                                np.random.RandomState(SEED + 21))
+    worst_flash = {name: max(worst_flash[name], worst_zoo[name])
+                   for name in worst_flash}
     worst_ssd = check_ssd(ssd, ref, torch, zamba)
 
     policy_cfg = TransformerPolicyConfig(
@@ -3826,6 +4222,7 @@ def main() -> int:
         f"{json.dumps(flash_policy)}; "
         f"{flash_policy['ms'] / floor['launch_floor_ms']:.2f}x the launch "
         f"floor")
+    flash_zoo = time_flash_zoo(flash, ref, torch)
     ssd_timed = time_ssd(ssd, ref, torch, zamba)
     log(f"  ssd_scan {json.dumps(ssd_timed)}")
 
@@ -3846,6 +4243,9 @@ def main() -> int:
 
     phase("phase 10: scoring path, kernel route vs plain route")
     zamba2_parity(torch, zamba, scoring)
+    for key in ("params", "step", "outs", "batches"):
+        del scoring[key]
+    torch.cuda.empty_cache()
 
     phase(f"phase 11: DQN path — run_experiment with the quickstart's config "
         f"on the card, {DQN_EPISODES} episodes")
@@ -3925,6 +4325,13 @@ def main() -> int:
     check(all(n == 0 for n in launches.values()),
           f"phase 22's fig20 and blends launched a kernel: {launches}")
 
+    phase(f"phase 23: the model zoo's scoring path — make_prefill_step at "
+          f"full width and depth, {ZOO_BATCHES} batches of {ZOO_BATCH} "
+          f"requests each, for "
+          f"{', '.join(f'{name} ({dtype})' for name, dtype, _ in ZOO)}; "
+          f"kernel vs plain route; reduced configs card vs CPU")
+    zoo = zoo_scoring(torch, kernels)
+
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
         "name": "decode_attention", "route": "cuda",
@@ -3976,9 +4383,14 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": kernels[2]["source"], "replaces": kernels[2]["replaces"],
         "launches": scoring["launches"]["flash_attention"],
-        "max_abs_err": max(worst_flash["float32"],
-                           flash_timed["max_abs_err_timed"]),
-        "max_abs_err_bf16": worst_flash["bfloat16"],
+        "max_abs_err": max([worst_flash["float32"],
+                            flash_timed["max_abs_err_timed"]]
+                           + [row["max_abs_err_timed"] for row in flash_zoo
+                              if row["shape"]["dtype"] == "float32"]),
+        "max_abs_err_bf16": max([worst_flash["bfloat16"]]
+                                + [row["max_abs_err_timed"]
+                                   for row in flash_zoo
+                                   if row["shape"]["dtype"] == "bfloat16"]),
         "ms": flash_timed["ms"], "plain_ms": flash_timed["plain_ms"],
         "bound_ms": flash_timed["bound_ms"],
         "bound_by": flash_timed["bound_by"],
@@ -3999,7 +4411,10 @@ def main() -> int:
             "fig17_server": fig17["server"]["launches"]["flash_attention"],
             "fig17_local": fig17["local"]["launches"]["flash_attention"],
             "fig17_async_failover": failover["fig17"]["with_failover"][
-                "launches"]["flash_attention"]},
+                "launches"]["flash_attention"],
+            **{f"zoo_{row['config']}": row["launches"]["flash_attention"]
+               for row in zoo["configs"]}},
+        "zoo_shapes": flash_zoo,
         "policy_learner": dict(flash_policy, launches_per_learner_step=(
             policy["fig17_learner"]["flash_launches_per_learner_step"])),
     }, {
@@ -4021,6 +4436,7 @@ def main() -> int:
     }]
     log(f"  phase 21 {json.dumps(dist_dqn)}")
     log(f"  phase 22 {json.dumps(failover)}")
+    log(f"  phase 23 {json.dumps(zoo)}")
     log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

@@ -3,7 +3,6 @@
 ``get_arch(name)`` resolves any of the 10 assigned architectures;
 ``reduced(cfg)`` produces the CPU-smoke variant (2 layers, d_model<=512,
 <=4 experts) of the same family used by the per-arch smoke tests.
-The port runs the dense, ``ssm`` and ``hybrid`` families so far.
 """
 from __future__ import annotations
 

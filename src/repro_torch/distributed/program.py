@@ -219,3 +219,13 @@ class Program:
     def nodes(self) -> List[Node]:
         return [self._nodes[n] for n in self._order]
 
+
+def __getattr__(name):   # PEP 562 — keep old import sites working
+    # The launchers live in repro_torch.distributed.launchers, as in the
+    # JAX package; its program module re-exports them for old import sites.
+    if name in ("LocalLauncher", "MultiprocessLauncher", "Launcher",
+                "WorkerErrors", "JoinTimeout", "get_launcher",
+                "register_launcher"):
+        from repro_torch.distributed import launchers
+        return getattr(launchers, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

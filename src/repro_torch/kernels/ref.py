@@ -8,6 +8,9 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# the plain attention's query chunk, as the JAX package's
+# ``models/attention.py::attention`` scans queries
+Q_CHUNK = 1024
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
@@ -17,22 +20,35 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
     Masks by index: with ``causal``, query i sees key j when i >= j and,
     with a ``window``, i - j < window; without ``causal`` every key is seen
     and ``window`` is not applied, as in the JAX oracle and the model.
-    Scores and softmax in f32; output in q's dtype."""
+    Scores and softmax in f32; output in q's dtype.  Queries go in chunks
+    of ``Q_CHUNK`` when that divides sq, else in one block, as the JAX
+    package's ``models/attention.py::attention`` scans them: each row's
+    softmax is its own, so this bounds the scores' memory and changes no
+    row."""
     sq, sk = q.shape[2], k.shape[2]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group = q.shape[1] // k.shape[1]
     k = torch.repeat_interleave(k.float(), group, dim=1)
     v = torch.repeat_interleave(v.float(), group, dim=1)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None]
-        ki = torch.arange(sk, device=q.device)[None, :]
-        mask = qi >= ki
-        if window is not None:
-            mask &= (qi - ki) < window
-        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+    ki = torch.arange(sk, device=q.device)[None, :]
+
+    def block(start, rows):
+        scores = torch.einsum("bhqd,bhkd->bhqk",
+                              q[:, :, start:start + rows].float(), k) * scale
+        if causal:
+            qi = torch.arange(start, start + rows, device=q.device)[:, None]
+            mask = qi >= ki
+            if window is not None:
+                mask &= (qi - ki) < window
+            scores = torch.where(mask, scores,
+                                 torch.full_like(scores, NEG_INF))
+        p = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+    chunk = Q_CHUNK if sq % Q_CHUNK == 0 else sq
+    if sq <= chunk:
+        return block(0, sq)
+    return torch.cat([block(i, chunk) for i in range(0, sq, chunk)], dim=2)
 
 
 def decode_attention_ref(q, k, v, lengths):

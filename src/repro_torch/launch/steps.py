@@ -17,9 +17,11 @@ def make_prefill_step(cfg: ArchConfig, *, chunk: int = 1024):
     """Actor-side batched scoring: greedy actions per position + last-position
     logits, computed over seq chunks so full (b, s, V) logits never live.
 
-    The step takes ``(params, {"tokens": (b, s)})`` and returns
-    ``{"actions": (b, s) int32, "last_logits": (b, padded_V)}`` on the
-    device of the params."""
+    The step takes ``(params, {"tokens": (b, s)})``, plus ``"vision"``
+    (b, V, d_model) for a VLM or ``"frames"`` (b, encoder_seq, d_model)
+    for Whisper (moved to the device and dtype of the embedding table),
+    and returns ``{"actions": (b, s) int32, "last_logits": (b,
+    padded_V)}`` on the device of the params."""
 
     def prefill_step(params, batch):
         feats, _ = transformer.forward_features(params, cfg, batch)

@@ -1,6 +1,7 @@
 """GQA attention: full-sequence and prefill paths + single-token decode.
 
-Supports RoPE, Qwen3 qk-norm and sliding-window (banded) masking.  GQA K/V
+Supports RoPE, Qwen3 qk-norm, sliding-window (banded) masking, and
+non-causal and cross attention for the Whisper encoder-decoder.  GQA K/V
 are stored with ``num_kv_heads`` (cache compression); the plain
 full-sequence and prefill paths broadcast them to the full head count, and
 the kernels (flash attention on the full-sequence path, decode attention)
@@ -68,8 +69,22 @@ def _repeat_kv(k, q_per_kv: int):
     return torch.repeat_interleave(k, q_per_kv, dim=2)
 
 
-def attention(params, cfg: ArchConfig, x, positions, *, causal=True):
-    """Full-sequence self-attention over x: (b, s, d); positions: (s,).
+def _project_q(params, cfg: ArchConfig, x):
+    """Cross-attention's query: qk-normed where the config has it, without
+    RoPE (the JAX package's ``_project_qkv(rope=False)``, which also
+    projects K/V from ``x`` and throws them away)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if cfg.qk_norm:
+        q = layers.head_rmsnorm(params["q_norm"], q, cfg.rmsnorm_eps)
+    return q
+
+
+def attention(params, cfg: ArchConfig, x, positions, *, causal=True,
+              kv=None):
+    """Full-sequence attention over x: (b, s, d); positions: (s,).  ``kv``
+    = (k, v), each (b, sk, kv_heads, head_dim), overrides K/V
+    (cross-attention; call it with ``causal=False``): q is then projected
+    without RoPE.
 
     The scores and softmax run in ``ops.flash_attention`` (the CUDA kernel
     on CUDA tensors, its plain version on CPU tensors), which takes q and
@@ -80,10 +95,14 @@ def attention(params, cfg: ArchConfig, x, positions, *, causal=True):
     caller passes contiguous positions (``arange(seq)``), and the causal
     and window masks depend only on q_pos - k_pos, so this is exact.
     Positions are not checked on the device, which would cost a sync per
-    call.  The JAX package scans over query chunks to bound memory at long
-    sequence lengths; the plain version computes one block.
+    call.  The plain version scans queries in chunks of 1024 when that
+    divides sq, as the JAX package does, to bound its memory at long
+    sequence lengths; the kernel bounds its own.
     """
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    if kv is None:
+        q, k, v = _project_qkv(params, cfg, x, positions)
+    else:
+        q, (k, v) = _project_q(params, cfg, x), kv
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=cfg.sliding_window)

@@ -3,8 +3,7 @@
 One frozen dataclass describes every family we support: dense/GQA decoders,
 MoE, Mamba2 SSM, Zamba2-style hybrids, VLM decoders with stubbed vision
 frontends, and Whisper-style encoder-decoders (a copy of
-``repro.models.config``; the port runs the dense, ``ssm`` and
-``hybrid`` families so far).
+``repro.models.config``).
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 Parameters keep the JAX package's leaf names and layouts (dense weights are
 ``(in, out)``), so weights carry across name for name.  Initializers draw
-from an explicit CPU ``torch.Generator`` and then move to ``device``, so one
-seed gives the same weights on every device.
+from an explicit ``torch.Generator`` on the generator's own device and then
+move to ``device``: a CPU generator gives the same weights on every device,
+and a CUDA generator draws a model too large to draw on the host quickly.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch.nn.functional as F
 
 def truncated_normal(generator, shape, stddev, device="cuda",
                      dtype=torch.float32):
-    x = torch.empty(shape, dtype=torch.float32)
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (stddev * x).to(device=device, dtype=dtype)
 
@@ -62,6 +63,24 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(seq_len: int, d_model: int, device="cuda"):
+    """(seq_len, d_model) float32: sin at even channels, cos at odd.
+
+    The angles are the JAX package's float32 ones, pos / 10000^(2i/d),
+    which XLA computes as pos times the power's reciprocal; the power and
+    the sines are taken in float64 and rounded, which agrees with XLA's
+    float32 functions to an ulp, where float32 libm calls do not."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    power = torch.pow(10000.0, (dim / d_model).double()).float()
+    angle = (pos * (1.0 / power)).double()
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle).float()
+    pe[:, 1::2] = torch.cos(angle).float()
+    return pe
 
 
 # ---------------------------------------------------------------- SwiGLU MLP

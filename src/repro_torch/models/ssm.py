@@ -36,7 +36,7 @@ def ssm_init(generator, cfg: ArchConfig, device="cuda", dtype=torch.float32):
                                       d ** -0.5, device, dtype)
     conv_w = layers.truncated_normal(generator, (s.conv_width, conv_dim), 0.1,
                                      device, dtype)
-    u = torch.rand((nh,), generator=generator)
+    u = torch.rand((nh,), generator=generator, device=generator.device)
     dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
     out_proj = layers.truncated_normal(generator, (di, d), di ** -0.5, device,
                                        dtype)

@@ -2,8 +2,9 @@
 flash-attention and SSD-scan kernels against their plain versions, their
 argument checks and launch counts, the kernel-backed engine against the
 plain one, an IMPALA learner step that launches V-trace once and syncs
-once, the reduced Zamba2 and Mamba2 scoring steps on the kernels against
-the same steps on the plain versions, gradients through flash attention
+once, the reduced Zamba2 and Mamba2 scoring steps and those of every
+dense, MoE, VLM and Whisper arch on the kernels against the same steps on
+the plain versions, flash attention at the model zoo's shapes, gradients through flash attention
 and the SSD scan (their autograd Functions) against the plain route's, a
 DQN learner step that syncs once and matches the CPU's, and the
 distributed slice: the inference servers on the card, replica averaging
@@ -388,6 +389,34 @@ def test_flash_kernel_matches_plain_version_at_the_scoring_shape(cuda_device):
         atol=TOL[torch.float32], rtol=0)
 
 
+# the model zoo's attention shapes (b, h, kv, sq, sk, d, causal): Whisper's
+# encoder and cross-attention over its 1500 frames (a key tile that ends at
+# 1500 - 23 * 64 = 28 keys), granite-moe's GQA 24/8 at head dim 64, and
+# qwen3-1.7b's and internvl2-26b's at head dim 128
+ZOO_FLASH_SHAPES = [
+    ((4, 8, 8, 1500, 1500, 64, False), (torch.float32, torch.bfloat16)),
+    ((4, 8, 8, 448, 1500, 64, False), (torch.float32, torch.bfloat16)),
+    ((4, 24, 8, 2048, 2048, 64, True), (torch.float32, torch.bfloat16)),
+    ((4, 16, 8, 2048, 2048, 128, True), (torch.float32, torch.bfloat16)),
+    ((4, 48, 8, 2048, 2048, 128, True), (torch.float32, torch.bfloat16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    (shape, dtype) for shape, dtypes in ZOO_FLASH_SHAPES for dtype in dtypes])
+def test_flash_kernel_matches_plain_version_at_the_zoo_shapes(cuda_device,
+                                                              shape, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, h, kv, sq, sk, d, causal = shape
+    q, k, v = _flash_inputs(b, h, kv, sq, sk, d, dtype, cuda_device,
+                            seed=sq + h)
+    out = flash_attention(q, k, v, causal, None)
+    expected = ref.flash_attention_ref(q, k, v, causal=causal, window=None)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), expected.float(),
+                               atol=TOL[dtype], rtol=0)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rows_past_the_last_key_get_the_mean_of_v(cuda_device):
     """sq > sk with a window: rows i with i - (sk - 1) >= window see no key
@@ -735,6 +764,47 @@ def test_reduced_scoring_step_kernel_route_matches_plain(cuda_device, name,
         plain = step(params, {"tokens": tokens})
     assert flash_attention.launches - flash0 == sites
     assert ssd_scan.launches - ssd0 == cfg.num_layers
+    torch.testing.assert_close(out["last_logits"], plain["last_logits"],
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(out["actions"], plain["actions"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "qwen3-1.7b", "yi-6b", "deepseek-7b", "codeqwen1.5-7b",
+    "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "internvl2-26b",
+    "whisper-base"])
+def test_reduced_zoo_scoring_step_kernel_route_matches_plain(cuda_device,
+                                                             name):
+    """make_prefill_step on a reduced dense, MoE, VLM or Whisper config:
+    flash launches once a layer (Whisper: once an encoder layer and twice
+    a decoder layer, self and cross), and the kernel route gives the plain
+    route's actions and logits."""
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    cfg = configs.reduced(configs.get_arch(name))
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device=cuda_device)
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (2, 64))}
+    if cfg.arch_type == "vlm":
+        batch["vision"] = 0.1 * rng.randn(2, cfg.vision_tokens, cfg.d_model)
+    if cfg.arch_type == "audio":
+        batch["frames"] = 0.1 * rng.randn(2, cfg.encoder_seq, cfg.d_model)
+    step = make_prefill_step(cfg)
+    flash0 = flash_attention.launches
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    calls = (cfg.encoder_layers + 2 * cfg.num_layers
+             if cfg.arch_type == "audio" else cfg.num_layers)
+    assert flash_attention.launches - flash0 == calls
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref):
+        plain = step(params, batch)
+    assert flash_attention.launches - flash0 == calls
     torch.testing.assert_close(out["last_logits"], plain["last_logits"],
                                atol=1e-4, rtol=1e-4)
     assert torch.equal(out["actions"], plain["actions"])

@@ -195,8 +195,38 @@ def _imported_roots(path: pathlib.Path):
                          + [ROOT / "chip_smoke.py",
                             ROOT / "scripts" / "tensor_core_probe.py",
                             ROOT / "scripts" / "latency_probe.py",
+                            ROOT / "scripts" / "planted_faults.py",
                             ROOT / "scripts" / "acceptance_repeats.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+@pytest.mark.parametrize("statement", [
+    "from repro_torch.agents import make_agent, make_distributed_agent",
+    "from repro_torch.models import moe, InputShape, MoEConfig, SSMConfig",
+    "from repro_torch.distributed.program import LocalLauncher, "
+    "MultiprocessLauncher, Launcher, WorkerErrors, JoinTimeout, "
+    "get_launcher, register_launcher"])
+def test_package_exports_match_the_reference(statement):
+    """Names the JAX package exports at these import sites
+    (``agents/__init__.py:7``, ``models/__init__.py:1-2`` and
+    ``distributed/program.py``'s module ``__getattr__``) import from the
+    port too, in a fresh interpreter, loading neither jax nor repro."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys\n{statement}\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
+def test_program_module_getattr_returns_the_launchers_and_raises():
+    from repro_torch.distributed import launchers, program
+    assert program.LocalLauncher is launchers.LocalLauncher
+    assert program.get_launcher is launchers.get_launcher
+    with pytest.raises(AttributeError, match="no attribute 'Nope'"):
+        getattr(program, "Nope")

@@ -668,6 +668,28 @@ def test_latency_probe_variants_edit_the_committed_sources(monkeypatch):
                            for i in range(len(marks))), (kernel, name)
 
 
+
+@pytest.mark.parametrize("fault", ["wrong_kv_head", "last_key_tile_dropped",
+                                   "own_key_masked"])
+def test_planted_faults_edit_the_committed_sources(monkeypatch, fault):
+    """Each fault that ``scripts/planted_faults.py`` plants in the flash
+    kernel (read on the card against phase 23's parity rules) still finds
+    the text it edits in the committed source, exactly once."""
+    import importlib.util
+    import pathlib
+    import sys
+    monkeypatch.setattr(sys, "path", list(sys.path))  # the script adds to it
+    path = (pathlib.Path(__file__).resolve().parents[1] / "scripts"
+            / "planted_faults.py")
+    spec = importlib.util.spec_from_file_location("planted_faults", path)
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    assert fault in faults.FAULTS
+    committed = (faults.build.CSRC / "flash_attention.cu").read_text()
+    text = faults.fault_sources(fault)["flash_attention.cu"]
+    old, new = faults.FAULTS[fault]
+    assert text != committed and text.count(new) == 1
+
 # -------------------------------------------- gradients through the kernels
 class _PlainKernel:
     """Stands in for a kernel wrapper on the CPU: the plain version's

@@ -135,9 +135,18 @@ def test_init_layout_matches_carried_params(name):
                                                  ours_flat))
 
 
-def test_unported_families_raise():
-    dense = configs.reduced(configs.get_arch("qwen3-1.7b"))
-    with pytest.raises(NotImplementedError, match="model-zoo slice"):
-        transformer.init(torch.Generator(), dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        steps.make_prefill_step(dense)({}, {"tokens": np.zeros((1, 4))})
+def test_unknown_arch_type_raises():
+    """An arch_type outside the six families raises ValueError, as the JAX
+    package's ``init`` and ``forward_features`` do."""
+    cfg = dataclasses.replace(configs.reduced(configs.get_arch("qwen3-1.7b")),
+                              arch_type="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        transformer.init(torch.Generator(), cfg, device="cpu")
+    params = transformer.init(
+        torch.Generator().manual_seed(0),
+        configs.reduced(configs.get_arch("qwen3-1.7b")), device="cpu")
+    tokens = np.zeros((1, 4), np.int32)
+    with pytest.raises(ValueError, match="rnn"):
+        transformer.forward_features(params, cfg, {"tokens": tokens})
+    with pytest.raises(ValueError, match="rnn"):
+        steps.make_prefill_step(cfg)(params, {"tokens": tokens})

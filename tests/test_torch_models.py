@@ -126,6 +126,39 @@ def test_full_sequence_attention_matches(window):
            ATTN_TOL)
 
 
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 300),
+                                           (False, None)])
+def test_plain_attention_scans_query_chunks(causal, window):
+    """At s 2048 the plain version takes queries in two chunks of 1024, as
+    the JAX package's ``attention`` scans them: equal to one block (each
+    row's softmax is its own; 1e-6 allows a BLAS that blocks a product
+    by its row count), and to the JAX function."""
+    from unittest import mock
+
+    from repro_torch.kernels import ref
+    arch, jarch = _arch(sliding_window=window, num_heads=2, num_kv_heads=1)
+    tp, jp = _attn_params(np.random.RandomState(7), arch)
+    x = np.random.RandomState(8).randn(1, 2048, 32).astype(np.float32)
+    positions = torch.arange(2048)
+    calls = []
+
+    def one_block(q, k, v, **kwargs):
+        calls.append(q.shape[2])
+        with mock.patch.object(ref, "Q_CHUNK", 2048):
+            return ref.flash_attention_ref(q, k, v, **kwargs)
+
+    out = attention.attention(tp, arch, torch.as_tensor(x), positions,
+                              causal=causal)
+    with mock.patch.object(attention.ops, "flash_attention", one_block):
+        whole = attention.attention(tp, arch, torch.as_tensor(x), positions,
+                                    causal=causal)
+    assert calls == [2048]
+    torch.testing.assert_close(out, whole, rtol=0, atol=1e-6)
+    _close(out, jax_attn.attention(jp, jarch, jnp.asarray(x),
+                                   jnp.arange(2048), causal=causal),
+           ATTN_TOL)
+
+
 def test_full_sequence_attention_dispatches_through_ops_on_cpu():
     """``ops`` alone picks kernel or plain version: on CPU tensors
     ``attention`` still calls ``ops.flash_attention``, with the unrepeated
