@@ -13,6 +13,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the splits' edges, inside the first split and 0, 1 to 8 query heads a
    KV head (and 12, two head blocks) at every head dim, and a second call
    at another split plan that must not read the first call's partials;
+   decode attention over a bfloat16 cache under float32 queries (b 1 and
+   8, s 1, 384 and 1500, 1, 2, 3 and 6 query heads a KV head, d 64 and
+   128, and Whisper's cross-attention shape) against the plain version on
+   the upcast cache (1e-4), each call requesting from the allocator no
+   more than its output and partials (no cache-sized copy);
    V-trace at the learner's shape, the sweep shapes, a ragged batch,
    (1, 5) and (100, 16384), and T in {1, 31, 32, 33, 64, 65, 100, 1000} x
    B in {1, 15, 16, 17, 31, 32, 33, 16391} in both layouts (time-major,
@@ -47,8 +52,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``WindowedInferenceClientActor``, served by one
    ``TransformerInferenceServer`` over a 64-slot KV-cache pool, for 5
    episodes each; launch counts are zeroed just before and read just
-   after, and every decode batch must have launched the kernel once per
-   layer;
+   after, and every decode batch must have launched the decode kernel
+   once per layer and every prefill batch flash attention once per layer;
 5. time the launch floor (one ``add_(1)`` on a one-element tensor), then
    each kernel, its plain version and, where one exists, one PyTorch
    library call for the same function, at the main paths' shapes, beside
@@ -136,12 +141,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and schedule (``tests/conftest.py:67-70``, seed 0, 250 episodes, 20
    eval episodes, backend "auto", head dim 16); launch counts are zeroed
    just before and read just after: acting must launch the decode kernel
-   and every learner step flash attention twice a layer (the online pass
-   through ``FlashAttentionFunction``, the target pass), and the final
-   eval must beat the mean of the first 30 train returns (the reference's
+   and flash attention once a layer a window prefill, and every learner
+   step flash attention twice a layer (the online pass through
+   ``FlashAttentionFunction``, the target pass), and the final eval must
+   beat the mean of the first 30 train returns (the reference's
    acceptance); then the learner alone at the served width (T 16, B 16):
-   host ms a step (p50, p95), flash launches a step, and decode launches
-   and host ms of an acting call on the same weights;
+   host ms a step (p50, p95), flash launches a step, flash launches of an
+   episode's first acting call (its window prefill), decode launches and
+   host ms of an acting call on the same weights, and the acting prefill
+   (16 rows of window 8) on flash beside the same call on the masked
+   softmax;
 15. the transformer policy's learner on the card against the same learner
    on the CPU on the same 10 batches, at the served width and at the
    preset: step by step from the same state, losses, priorities and Adam's
@@ -192,13 +201,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    transformer policy at d_model 256 (2 layers, 4 query and 2 KV heads of
    64, d_ff 512, window 8, sequence 16, period 8, batch 16, SPI 0) trains
    on Catch through ``run_distributed_experiment`` with 4 actor processes
-   (the multiprocess launcher) for 3000 actor steps, once with
+   (the multiprocess launcher) for 1500 actor steps (half of fig17's
+   3000, for the script's time limit), once with
    ``inference="server"`` and once with ``"local"``, telemetry on; launch
    counts are zeroed just before each run and read just after, in this
    process: in server mode the inference node here must launch the decode
-   kernel once a layer a decode batch, and in both modes the learner here
-   flash attention twice a layer a step (local-mode actors decode in their
-   own processes); prints env steps/s, the server's batches, rows a batch,
+   kernel once a layer a decode batch and flash attention once a layer a
+   prefill batch, and in both modes the learner here flash attention twice
+   a layer a step (local-mode actors act in their own processes); prints env steps/s, the server's batches, rows a batch,
    decode and prefill rows, learner steps and the learner step's host ms
    beside phase 14's learner alone, and which mode moved more env steps a
    second (not gated); then the reference's two server acceptances
@@ -213,16 +223,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``MultiLearner`` against the plain learner on the card over 10 batches,
    bit for bit; env steps/s, learner steps/s, averaging rounds and the
    effective SPI;
-22. fault tolerance on the card: phase 20's policy in server mode with
-   two learner replicas exchanging through the async parameter service
-   every 10 steps (``learner_sync="async"``), once under the reference's
+22. fault tolerance on the card: phase 20's policy in server mode, for
+   its 1500 actor steps, with two learner replicas
+   exchanging through the async parameter service every 10 steps (``learner_sync="async"``), once under the reference's
    ``RestartPolicy(max_restarts=3)`` with a chaos kill of
    ``learner/replica_1`` and ``learner/param_service`` at their 10th step
    or push/pull, and once without either: each target restored once from
    its snapshot, no worker restarted, the rounds and both replicas'
    steps growing after the restores, flash launches exactly twice a layer
-   a learner step executed and decode launches once a layer a decode
-   batch (both counted by the run's telemetry after the stop); prints env
+   a learner step executed and once a layer a prefill batch, and decode
+   launches once a layer a decode batch (all counted by the run's
+   telemetry after the stop); prints env
    steps/s, learner steps/s a replica, the snapshot and restore ms (all
    services and each), the learner step's host ms p50 with and without
    failover beside phase 20's and phase 14's, pushes, pulls and the
@@ -257,7 +268,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    decides, is left out of the rule and counted); each model is freed before
    the next (Zamba2's phase-9 weights went after phase 10); then a
    reduced config of each family on the card's kernel against the same
-   weights on the CPU's plain version, by the same rule (1e-4).
+   weights on the CPU's plain version, by the same rule (1e-4);
+24. the model zoo's serving path: ``BatchedServer.generate`` (weights from
+   seed 0 on the card's generator, float32) at full width and depth for
+   qwen3-1.7b (with a float32 cache, then ``init_cache``'s default
+   bfloat16 cache), granite-moe-3b-a800m, mamba2-780m, zamba2-1.2b and
+   whisper-base, and internvl2-26b in bfloat16 through BatchedServer's
+   loop over ``make_serve_step`` (its float32 weights do not fit): 8 slots
+   x 256 prompt tokens from ``numpy.random.RandomState(0)`` (one batched
+   prefill for dense and MoE, a serve step a token otherwise), then 128
+   greedy tokens; launch counts zeroed just before and read just after:
+   the decode kernel once a layer a step (a shared-attention site for
+   Zamba2, self and cross for Whisper, none for Mamba2), flash once a
+   layer a batched prefill, the SSD scan and V-trace never; prefill and
+   decode tokens/s and the decode steps' p50/p95, from CUDA events after
+   each call of the generate, which syncs once (at its end), as users run
+   it, and the step at the cache's last position synced after each call
+   beside the same unsynced; peak memory, the bytes one decode step
+   requests (under the bfloat16 cache less than one layer's K and V in
+   float32: no cache-sized copy) and a profile of it with the idle share;
+   the kernel route against the plain route teacher-forced on the same
+   tokens by phase 10's rule at every step (MoE tokens a router sends
+   elsewhere on one route left out and counted, at most 1%); the decode
+   kernel at qwen3-1.7b's (float32 and bfloat16 cache) and internvl2-26b's
+   serving shapes beside its bound and SDPA; fig17's tier 1 (batched
+   prefill at least 4x one serve step a token, reduced qwen3-1.7b, 8 x 32
+   tokens); and a reduced config of each family served on the card against
+   the CPU (1e-4), under a float32 cache and under a bfloat16 cache; under
+   the bfloat16 cache, whose rounding each device does on its own, the
+   CPU's cache is copied to the card before each step, and the cache
+   elements the two write differently are counted, with their largest gap
+   over their leaf's largest |value|.
 
 Phases 17-19, 21 and 22's DQN parts launch none of the four kernels: each
 zeros the launch counts before it and requires 0 after.  The actor
@@ -382,6 +423,9 @@ POLICY_EVAL_EPISODES = 20
 POLICY_LEARNER = dict(POLICY, sequence_length=16, batch_size=16,
                       target_update_period=3)
 POLICY_TIMED_STEPS = 50
+# the acting prefill timed on flash and on the masked softmax: one bucket of
+# rows of the served policy's full window
+POLICY_PREFILL_ROWS = 16
 # card vs CPU learner, each step from the same state: loss, priorities and
 # Adam's moments within this of the CPU's largest magnitude per leaf;
 # params within POLICY_PARAM_ATOL, a tenth of one Adam step at the learning
@@ -458,7 +502,8 @@ MCTS_AGENT = dict(num_simulations=8, search_depth=6, batch_size=4,
 MCTS_AGENT_EPISODES = 12
 # Phase 20: fig17's inference placement (benchmarks/
 # fig17_transformer_serving.py:60-77,141-152) at its top width: 4 actor
-# processes, 3000 actor steps, no eval, each mode once; then the
+# processes, 1500 actor steps (fig17's 3000 halved: the script's time
+# limit), no eval, each mode once; then the
 # reference's two server acceptances (tests/test_policies.py:327-360) at
 # the preset of phase 14 (backend "auto", so the server decodes on the
 # kernel).
@@ -467,7 +512,7 @@ FIG17_POLICY = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
                     period=8, batch_size=16, min_replay_size=100,
                     samples_per_insert=0.0, backend="auto")
 FIG17_ACTORS = 4
-FIG17_STEPS = 3000
+FIG17_STEPS = 1500
 FIG17_TIMEOUT_S = 300.0
 # Phase 21: the reference's distributed DQN acceptances on the card:
 # tests/test_distributed.py:631-662 (2 replay shards, an evaluator, 4000
@@ -482,14 +527,14 @@ DIST_TIMEOUT_S = 240.0
 CATCH_FLOOR = -0.6
 ONE_REPLICA_STEPS = 10
 # Phase 22: fault tolerance.  fig17's policy of phase 20 (inference
-# "server", 4 actor processes, FIG17_STEPS actor steps) with two learner
+# "server", 4 actor processes) with two learner
 # replicas exchanging through the async parameter service every 10 steps,
 # run once with the reference's RestartPolicy(max_restarts=3) and a chaos
 # kill of replica 1 and of the parameter service, and once without either
 # (the like-for-like run the learner step's host ms is compared with).
 # The replicas start once each shard holds min_replay_size sequences; the
 # kill fires at replica 1's 10th step and at the service's 10th push or
-# pull (5 exchanges), both in the first third of the replicas' steps.
+# pull (5 exchanges), both in the first fifth of the replicas' steps.
 FIG17_FAILOVER = dict(num_learner_replicas=2, learner_average_period=10,
                       learner_sync="async")
 FIG17_KILL_AFTER = 10
@@ -565,6 +610,43 @@ ZOO_LOGIT_REL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # 8192, 0.66%; NVIDIA H100 80GB HBM3, 700 W), since a wrong kernel
 # reroutes most of them
 MOE_REROUTED_MAX = 0.01
+# Phase 24: token-by-token serving of every family at full width and
+# depth, random weights from SEED on the card's generator: (config, param
+# dtype, cache dtype, how it is driven).  ``BatchedServer`` draws float32
+# params, as the JAX package's does; internvl2-26b's do not fit in float32
+# (79.4 GB), so it runs in bfloat16 through ``make_serve_step`` directly,
+# BatchedServer's loop.  qwen3-1.7b runs twice: with a float32 cache, and
+# with ``init_cache``'s default bfloat16 cache under its float32 params.
+SERVE_ZOO = [("qwen3-1.7b", "float32", "float32", "server"),
+             ("qwen3-1.7b", "float32", "bfloat16", "server"),
+             ("granite-moe-3b-a800m", "float32", "float32", "server"),
+             ("mamba2-780m", "float32", "float32", "server"),
+             ("zamba2-1.2b", "float32", "float32", "server"),
+             ("whisper-base", "float32", "float32", "server"),
+             ("internvl2-26b", "bfloat16", "bfloat16", "direct")]
+SERVE_SLOTS = 8
+SERVE_PROMPT = 256
+SERVE_DECODE = 128
+# steps at the cache's last position timed synced after each, then unsynced
+SERVE_SYNC_STEPS = 8
+# the kernel route against the plain route, teacher-forced on the timed
+# run's tokens: the whole prompt where it is one batched prefill, else its
+# first PARITY_PROMPT tokens a step each, then PARITY_STEPS decode steps
+# (a step of the 48-layer VLM takes ~60-90 ms of host time on each route)
+PARITY_PROMPT = 32
+PARITY_STEPS = 16
+# the decode kernel at the serving shapes (phase 5): (label, config, q
+# dtype, cache dtype), b SERVE_SLOTS, a full cache of SERVE_PROMPT +
+# SERVE_DECODE keys
+DECODE_SERVING = [("qwen3_1_7b", "qwen3-1.7b", "float32", "float32"),
+                  ("qwen3_1_7b_bf16_cache", "qwen3-1.7b", "float32",
+                   "bfloat16"),
+                  ("internvl2_26b", "internvl2-26b", "bfloat16", "bfloat16")]
+# fig17's tier 1 (benchmarks/fig17_transformer_serving.py:43-45,87-102,171):
+# batched prefill at least 4x the prefill tokens/s of one serve step a
+# token, BatchedServer on reduced qwen3-1.7b, 8 slots x 32 tokens, 20 timed
+# prefills of each after one untimed
+FIG17_PREFILL = dict(slots=8, length=32, iters=20, ratio=4.0)
 # flash attention at the zoo's attention shapes (phases 2 and 5): (label,
 # b, h, kv, sq, sk, d, causal, the dtypes checked; the first is the path's,
 # timed in phase 5).  Whisper's 1500 keys end inside a 64-key tile; f32
@@ -734,12 +816,16 @@ def decode_cases(rng, plan_splits, head_dims):
     return cases
 
 
-def decode_bound(b, h, kv, s, d, lengths, itemsize):
-    """Least time (ms) for these inputs: q and out once, the K and V rows
-    each row attends to once (the valid prefix; all s keys when none is
-    valid), lengths once; two multiply-adds per key, head and channel."""
+def decode_bound(b, h, kv, s, d, lengths, itemsize, kv_itemsize=None):
+    """Least time (ms) for these inputs: q and out once (``itemsize``
+    bytes an element), the K and V rows each row attends to once (the
+    valid prefix; all s keys when none is valid; ``kv_itemsize``, by
+    default ``itemsize``), lengths once; two multiply-adds per key, head
+    and channel."""
+    kv_itemsize = itemsize if kv_itemsize is None else kv_itemsize
     keys = sum(min(int(n), s) if n >= 1 else s for n in lengths)
-    nbytes = itemsize * (2 * b * h * d + 2 * keys * kv * d) + 4 * b
+    nbytes = (itemsize * 2 * b * h * d + kv_itemsize * 2 * keys * kv * d
+              + 4 * b)
     flops = 4 * keys * h * d
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -789,25 +875,89 @@ def check_decode_attention(kernel, ref, torch, plan_splits, head_dims):
     return worst
 
 
+def check_decode_mixed(kernel, ref, torch, plan_splits):
+    """A bfloat16 cache under float32 queries (``transformer.init_cache``'s
+    default under float32 params): b in {1, 8}, s in {1, 384, 1500}, 1, 2,
+    3 and 6 query heads a KV head, d in {64, 128}, lengths at s, 1 and
+    random, and Whisper's cross-attention shape (b 8, h 8, 1500 keys, d
+    64), against the plain version on the upcast cache (float32 tolerance).
+    No cache-sized buffer may be allocated: the bytes a call requests from
+    the allocator must be its output and the split plan's partials, which
+    at s >= 384 stay below one layer's K and V."""
+    rng = np.random.RandomState(SEED + 24)
+    cases = [(b, 2 * group, 2, s, d)
+             for b in (1, 8) for s in (1, 384, 1500)
+             for group in (1, 2, 3, 6) for d in (64, 128)]
+    cases.append((8, 8, 8, 1500, 64))                  # Whisper's cross
+    worst, worst_rise = 0.0, 0
+    for b, h, kv, s, d in cases:
+        lengths = rng.randint(1, s + 1, b)
+        lengths[0], lengths[-1] = s, 1
+        if (b, h, kv) == (8, 8, 8):
+            lengths[:] = s
+        q, k, v, lens = decode_inputs(b, h, kv, s, d, lengths, torch.float32,
+                                      rng)
+        k, v = k.bfloat16(), v.bfloat16()
+        splits = plan_splits(b, kv, s, d)[0]
+        needed = 4 * (q.numel() + (splits * b * h * (d + 2)
+                                   if splits > 1 else 0))
+        cache_bytes = 2 * k.numel() * k.element_size()
+        out, rise = requested_rise(torch, lambda: kernel(q, k, v, lens))
+        expected = ref.decode_attention_ref(q, k.float(), v.float(), lens)
+        err = (out - expected).abs().max().item()
+        check(out.dtype == torch.float32 and out.shape == q.shape
+              and bool(torch.isfinite(out).all()),
+              f"decode_attention bf16 cache b={b} h={h} s={s} d={d}: bad "
+              f"output")
+        check(err <= TOL["float32"], f"decode_attention bf16 cache b={b} "
+              f"h={h} kv={kv} s={s} d={d}: max_abs_err {err} > "
+              f"{TOL['float32']}")
+        check(rise <= needed and (s < 384 or needed < cache_bytes),
+              f"decode_attention bf16 cache b={b} h={h} s={s} d={d}: the "
+              f"call requested {rise} bytes, more than its output and "
+              f"partials ({needed}); one layer's K and V are {cache_bytes}")
+        worst, worst_rise = max(worst, err), max(worst_rise, rise)
+        log(f"  decode_attention bf16 cache, f32 q b={b:<2d} h={h:<2d} "
+            f"kv={kv} s={s:<5d} d={d:<3d} splits={splits:<3d} "
+            f"max_abs_err={err:.3e} requested {rise} B (output and "
+            f"partials {needed} B; K and V {cache_bytes} B)")
+    return {"max_abs_err": worst, "cases": len(cases),
+            "max_requested_bytes": worst_rise}
+
+
 def time_decode_attention(kernel, ref, torch, plan_splits, b, s,
                           lengths_value):
+    """``time_decode_shape`` at the served policy's head layout."""
+    return time_decode_shape(kernel, ref, torch, plan_splits, b,
+                             POLICY["num_heads"], POLICY["num_kv_heads"], s,
+                             POLICY["head_dim"], lengths_value)
+
+
+def time_decode_shape(kernel, ref, torch, plan_splits, b, h, kv, s, d,
+                      lengths_value, dtype="float32", kv_dtype=None):
     """Kernel, plain version and scaled_dot_product_attention (the library
-    yardstick, never called by the port) at the served head layout, and the
-    CUDA kernels one call launches, counted by torch.profiler: the split
-    plan's one, or two when it cuts the cache."""
+    yardstick, never called by the port) on random inputs of one shape, q
+    in ``dtype`` and K/V in ``kv_dtype`` (default ``dtype``), and the CUDA
+    kernels one call launches, counted by torch.profiler: the split plan's
+    one, or two when it cuts the cache.  The library call takes one dtype:
+    under a bfloat16 cache and float32 queries it gets the cache upcast to
+    float32 (prepared outside the timed region)."""
     import torch.nn.functional as F
-    h, kv, d = POLICY["num_heads"], POLICY["num_kv_heads"], POLICY["head_dim"]
+    kv_dtype = kv_dtype or dtype
     rng = np.random.RandomState(SEED + 1)
     lengths = np.full((b,), lengths_value, np.int32)
     q, k, v, lens = decode_inputs(b, h, kv, s, d, lengths, torch.float32, rng)
-    err = (kernel(q, k, v, lens) - ref.decode_attention_ref(q, k, v, lens)
-           ).abs().max().item()
+    q = q.to(getattr(torch, dtype))
+    k, v = k.to(getattr(torch, kv_dtype)), v.to(getattr(torch, kv_dtype))
+    err = (kernel(q, k, v, lens).float() - ref.decode_attention_ref(
+        q, k, v, lens).float()).abs().max().item()
     # the library call's own layout, prepared outside the timed region
     q4 = q[:, :, None, :]
-    k4, v4 = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    k4, v4 = (t.to(q.dtype).transpose(1, 2).contiguous() for t in (k, v))
     mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
-    bound, bound_by = decode_bound(b, h, kv, s, d, lengths, 4)
+    bound, bound_by = decode_bound(b, h, kv, s, d, lengths,
+                                   q.element_size(), k.element_size())
     calls = {
         "": lambda: kernel(q, k, v, lens),
         "plain_": lambda: ref.decode_attention_ref(q, k, v, lens),
@@ -816,8 +966,8 @@ def time_decode_attention(kernel, ref, torch, plan_splits, b, s,
     }
     splits = plan_splits(b, kv, s, d)[0]
     timed = {"shape": {"b": b, "h": h, "kv": kv, "s": s, "d": d,
-                       "lengths": int(lengths_value), "dtype": "float32",
-                       "splits": splits},
+                       "lengths": int(lengths_value), "dtype": dtype,
+                       "kv_dtype": kv_dtype, "splits": splits},
              "max_abs_err_timed": err, "bound_ms": bound,
              "bound_by": bound_by}
     launched = device_kernels(torch, calls[""])
@@ -1597,6 +1747,11 @@ def serving_path(torch, policy_cfg, kernels):
           f"{stats['decode_batches']} x {arch.num_layers}")
     check(launches["decode_attention"] > 0,
           "main path: kernel decode_attention never launched")
+    check(launches["flash_attention"]
+          == stats["prefill_batches"] * arch.num_layers > 0,
+          f"main path: flash_attention launched "
+          f"{launches['flash_attention']} times, expected "
+          f"{stats['prefill_batches']} prefill batches x {arch.num_layers}")
     return {"launches": launches, "stats": stats, "steps_per_s":
             steps / seconds, "decode_ms_p50": decode_ms.get("p50")}
 
@@ -2520,10 +2675,12 @@ def policy_catch_config():
 def policy_path(torch, kernels):
     """Phase 14, first part: run_experiment with TransformerPolicyBuilder
     at the reference acceptance's preset on the card.  Acting decodes on
-    the decode kernel (prefill runs the plain path); every learner step
-    runs flash attention once a layer for the online pass (through
-    FlashAttentionFunction) and once for the target pass.  The final eval
-    must beat the mean of the first 30 train returns."""
+    the decode kernel and prefills its window through flash attention
+    (once a layer a prefill pass, counted by the engines' prefill
+    histogram); every learner step runs flash attention once a layer for
+    the online pass (through FlashAttentionFunction) and once for the
+    target pass.  The final eval must beat the mean of the first 30 train
+    returns."""
     from repro_torch import tree
     from repro_torch.experiments import run_experiment
     from repro_torch.telemetry import registry as telemetry
@@ -2541,7 +2698,9 @@ def policy_path(torch, kernels):
         telemetry.unconfigure()
     learner = result.learner
     env_steps = result.actor_steps[-1]
-    step_ms = result.extras["telemetry"]["merged"].get("learner/step_ms", {})
+    merged = result.extras["telemetry"]["merged"]
+    step_ms = merged.get("learner/step_ms", {})
+    prefills = merged.get("inference/engine/prefill_ms", {}).get("count", 0)
     early = float(np.mean(result.train_returns[:30]))
     final = result.final_eval_return
     layers = POLICY_PRESET["num_layers"]
@@ -2549,15 +2708,19 @@ def policy_path(torch, kernels):
         f"{result.learner_steps} learner steps in {seconds:.3f} s "
         f"({env_steps / seconds:.1f} env steps/s); learner step host time "
         f"(ms): p50={step_ms.get('p50', 0):.3f} "
-        f"p95={step_ms.get('p95', 0):.3f}; launches={launches}")
+        f"p95={step_ms.get('p95', 0):.3f}; {prefills} acting prefill "
+        f"passes; launches={launches}")
     log(f"  final eval {final} vs the mean of the first 30 train returns "
         f"{early:.3f}")
     check(launches["decode_attention"] > 0,
           "policy path: acting never launched the decode kernel")
-    check(launches["flash_attention"] == 2 * layers * result.learner_steps
-          > 0, f"policy path: {launches['flash_attention']} flash launches "
-          f"for {result.learner_steps} learner steps of {layers} layer(s), "
-          f"expected two a layer a step")
+    check(launches["flash_attention"]
+          == layers * (2 * result.learner_steps + prefills)
+          and result.learner_steps > 0 and prefills > 0,
+          f"policy path: {launches['flash_attention']} flash launches for "
+          f"{result.learner_steps} learner steps and {prefills} acting "
+          f"prefill passes of {layers} layer(s), expected two a layer a "
+          f"step and one a layer a prefill")
     check(launches["vtrace"] == launches["ssd_scan"] == 0,
           f"policy path launched a kernel of another slice: {launches}")
     check(all(t.device.type == "cuda" for t in tree.leaves(learner.state)),
@@ -2570,6 +2733,7 @@ def policy_path(torch, kernels):
           f"does not beat the mean of the first 30 train returns {early}")
     return {"launches": launches, "episodes": len(result.train_returns),
             "env_steps": env_steps, "learner_steps": result.learner_steps,
+            "acting_prefills": prefills,
             "seconds": seconds, "env_steps_per_s": env_steps / seconds,
             "learner_step_ms_p50": step_ms.get("p50"),
             "learner_step_ms_p95": step_ms.get("p95"),
@@ -2615,14 +2779,21 @@ def policy_learner_profile(torch, kernels):
     top policy, T 16, B 16): host ms a step (p50, p95 over
     POLICY_TIMED_STEPS after 10 warm-up steps; each step ends in its one
     host copy), flash launches a step, then a windowed actor on the same
-    weights for one Catch episode: decode launches and host ms a decode
-    call."""
+    weights for one Catch episode: flash launches of its first call (the
+    window prefill), decode launches and host ms a decode call; then the
+    acting prefill (``network.q_prefill``, POLICY_PREFILL_ROWS rows of the
+    full window) on flash beside the same call on the masked softmax
+    (``ops._on_card`` held false), by CUDA events (``time_ms`` over 20
+    calls)."""
     import itertools
+    from unittest import mock
 
     from repro_torch.core import VariableClient, make_environment_spec
     from repro_torch.envs import Catch
+    from repro_torch.kernels import ops
     from repro_torch.policies import (TransformerPolicyBuilder,
-                                      TransformerPolicyConfig, learning)
+                                      TransformerPolicyConfig, learning,
+                                      network)
 
     cfg = TransformerPolicyConfig(**POLICY_LEARNER)
     spec = make_environment_spec(Catch())
@@ -2651,7 +2822,12 @@ def policy_learner_profile(torch, kernels):
     env = Catch(seed=SEED)
     ts = env.reset()
     actor.observe_first(ts)
+    before = flash.launches
     actor.select_action(ts.observation)          # the episode's prefill
+    prefill_flash = flash.launches - before
+    check(prefill_flash == cfg.num_layers, f"policy acting: the window "
+          f"prefill launched flash {prefill_flash} times, expected "
+          f"{cfg.num_layers}")
     decode_launches, act_ms = [], []
     while True:
         ts = env.step(0)
@@ -2667,8 +2843,33 @@ def policy_learner_profile(torch, kernels):
     out = {"learner_step_ms_p50": float(np.percentile(times, 50)),
            "learner_step_ms_p95": float(np.percentile(times, 95)),
            "flash_launches_per_learner_step": per_step,
+           "flash_launches_per_acting_prefill": prefill_flash,
            "decode_launches_per_acting_call": cfg.num_layers,
            "acting_call_ms_p50": float(np.percentile(act_ms, 50))}
+    arch = network.make_arch(cfg, NUM_ACTIONS)
+    params = learner.state.params
+    rows, window = POLICY_PREFILL_ROWS, cfg.window
+    cache = network.init_cache(arch, rows, device="cuda")
+    obs = torch.as_tensor(np.random.RandomState(SEED).rand(
+        rows, window, int(np.prod(OBS_SHAPE))).astype(np.float32),
+        device="cuda")
+    lengths = torch.full((rows,), window, dtype=torch.int64, device="cuda")
+
+    def prefill():
+        return network.q_prefill(params, arch, cache, obs, lengths)[0]
+    on_flash = prefill()
+    with mock.patch.object(ops, "_on_card", lambda t: False):
+        masked = prefill()
+        out["acting_prefill_masked_ms"] = time_ms(prefill, launches=20)
+        out["acting_prefill_masked_eager_ms"] = time_ms(
+            prefill, launches=20, graph=False)
+    out["acting_prefill_ms"] = time_ms(prefill, launches=20)
+    out["acting_prefill_eager_ms"] = time_ms(prefill, launches=20,
+                                             graph=False)
+    out["acting_prefill_max_abs_err"] = (on_flash - masked).abs().max().item()
+    check(out["acting_prefill_max_abs_err"] <= TOL["float32"],
+          f"policy acting prefill: flash and the masked softmax differ by "
+          f"{out['acting_prefill_max_abs_err']}")
     log(f"  fig17-width learner (T {cfg.sequence_length}, B "
         f"{cfg.batch_size}): {json.dumps(out)}")
     # where a step's and an acting call's time goes (decode calls: each
@@ -3412,10 +3613,12 @@ def fig17_placement(torch, kernels, policy):
     """Phase 20: fig17's tier 2 at d_model 256 on the card, once per
     inference mode, then the reference's two server acceptances.  In
     "server" mode the inference node (this process) decodes on the decode
-    kernel — one launch a layer a decode batch — and the learner (this
-    process) runs flash attention twice a layer a step; the actors hold no
-    network.  In "local" mode each actor process decodes on its own copy of
-    the policy on the card, so this process launches flash attention only.
+    kernel — one launch a layer a decode batch — and prefills windows on
+    flash attention — one launch a layer a prefill batch — and the learner
+    (this process) runs flash attention twice a layer a step; the actors
+    hold no network.  In "local" mode each actor process acts on its own
+    copy of the policy on the card, so this process launches the learner's
+    flash attention only.
     Which mode moves more env steps a second is printed, not gated (fig17's
     claim that the server wins at the top width is a TPU-era one)."""
     from repro_torch.experiments import ExperimentConfig
@@ -3431,15 +3634,24 @@ def fig17_placement(torch, kernels, policy):
             torch, kernels, config, num_actors=FIG17_ACTORS,
             max_actor_steps=FIG17_STEPS, timeout_s=FIG17_TIMEOUT_S)
         launches = entry["launches"]
+        # window prefills counted by the engines' telemetry after the stop:
+        # the inference node's, here, in server mode; the actor processes'
+        # in local mode, which launch nothing here
+        entry["prefill_batches"] = result.extras["telemetry"]["merged"].get(
+            "inference/engine/prefill_ms", {}).get("count", 0)
+        prefills = entry["prefill_batches"] if mode == "server" else 0
         log(f"  fig17 placement, inference={mode!r}: {json.dumps(entry)}")
         check(entry["actor_steps"] >= FIG17_STEPS, f"fig17 {mode}: "
               f"{entry['actor_steps']} actor steps in {FIG17_TIMEOUT_S} s")
         check(entry["learner_steps"] > 0, f"fig17 {mode}: the learner never "
               f"stepped")
+        check(mode != "server" or prefills > 0, f"fig17 server: no window "
+              f"prefill counted")
         check(launches["flash_attention"]
-              == 2 * layers * entry["learner_steps"], f"fig17 {mode}: "
-              f"{launches['flash_attention']} flash launches for "
-              f"{entry['learner_steps']} learner steps of {layers} layers")
+              == layers * (2 * entry["learner_steps"] + prefills),
+              f"fig17 {mode}: {launches['flash_attention']} flash launches "
+              f"for {entry['learner_steps']} learner steps and {prefills} "
+              f"prefill batches of {layers} layers")
         check(launches["vtrace"] == launches["ssd_scan"] == 0,
               f"fig17 {mode} launched a kernel of another slice: {launches}")
         if mode == "server":
@@ -3621,11 +3833,12 @@ def fig17_failover(torch, kernels, fig17):
     the card, with a chaos kill of replica 1 and of the parameter service
     under the reference's restart policy, then the same run without
     either.  Each replica's learner runs flash attention (twice a layer a
-    step) and the inference node decodes (once a layer a decode batch), in
-    this process: both counts are held exactly to the steps and batches the
-    run's telemetry counted after the stop (a replica restored from a
-    snapshot redoes the steps it lost, so its launches exceed the steps it
-    reports)."""
+    step), and the inference node decodes (once a layer a decode batch)
+    and prefills windows on flash attention (once a layer a prefill
+    batch), in this process: both counts are held exactly to the steps and
+    batches the run's telemetry counted after the stop (a replica restored
+    from a snapshot redoes the steps it lost, so its launches exceed the
+    steps it reports)."""
     from repro_torch.experiments import ExperimentConfig
     from repro_torch.resilience import ChaosPolicy, RestartPolicy
 
@@ -3652,11 +3865,13 @@ def fig17_failover(torch, kernels, fig17):
         learners = result.extras["learners"]
         executed = merged["learner/step_ms"]["count"]
         decode_batches = merged["inference/engine/decode_ms"]["count"]
+        prefill_batches = merged["inference/engine/prefill_ms"]["count"]
         entry.update({
             "resilience": result.extras.get("resilience"),
             "restores": restores.restores,
             "learner_steps_executed": executed,
             "decode_batches": decode_batches,
+            "prefill_batches": prefill_batches,
             "learner_steps_per_s_a_replica": [
                 n / entry["walltime_s"]
                 for n in learners["per_replica_steps"]],
@@ -3682,11 +3897,14 @@ def fig17_failover(torch, kernels, fig17):
         check(all(n > 0 for n in learners["per_replica_steps"])
               and learners["sync"] == "async" and learners["rounds"] >= 1,
               f"fig17 {name}: {learners}")
-        check(launches["flash_attention"] == 2 * layers * executed
-              and executed >= sum(learners["per_replica_steps"]),
+        check(launches["flash_attention"]
+              == layers * (2 * executed + prefill_batches)
+              and executed >= sum(learners["per_replica_steps"])
+              and prefill_batches > 0,
               f"fig17 {name}: {launches['flash_attention']} flash launches "
               f"for {executed} learner steps executed "
-              f"({learners['per_replica_steps']} kept) of {layers} layers")
+              f"({learners['per_replica_steps']} kept) and {prefill_batches} "
+              f"prefill batches of {layers} layers")
         check(launches["decode_attention"] == layers * decode_batches > 0,
               f"fig17 {name}: {launches['decode_attention']} decode "
               f"launches for {decode_batches} decode batches")
@@ -4113,6 +4331,512 @@ def zoo_scoring(torch, kernels):
     return {"configs": results, "reduced": reduced}
 
 
+# ------------------------------------------------ the model zoo's serving
+def decode_launches_per_step(cfg):
+    """Decode-kernel launches of one serve step: one a layer of the dense
+    family, one a shared-attention site, two a Whisper decoder layer (self
+    and cross), none for an attention-free SSM."""
+    return {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every,
+                                                      1),
+            "audio": 2 * cfg.num_layers}.get(cfg.arch_type, cfg.num_layers)
+
+
+def evented_calls(torch, fn, events):
+    """``fn``, recording a CUDA event on the stream after each call into
+    ``events`` without a sync: the calls run as the caller runs them, and
+    the events, read once the run has synced, give each call's end on the
+    card's timeline."""
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+        return out
+    return call
+
+
+def generate_direct(torch, params, cache, prompts, decode_len, serve):
+    """``BatchedServer.generate``'s loop (one serve step a prompt token,
+    then greedy decode) over weights BatchedServer does not draw; returns
+    the (slots, decode_len) greedy tokens as numpy."""
+    prompt_len = prompts.shape[1]
+    positions = torch.arange(prompt_len + decode_len, dtype=torch.int32,
+                             device="cuda")
+    prompts = torch.as_tensor(prompts, device="cuda")
+    for t in range(prompt_len):
+        tok, _, cache = serve(params, cache, prompts[:, t:t + 1],
+                              positions[t])
+    outs = [tok]
+    for i in range(decode_len - 1):
+        tok, _, cache = serve(params, cache, tok, positions[prompt_len + i])
+        outs.append(tok)
+    return torch.cat(outs, dim=1).cpu().numpy()
+
+
+def requested_rise(torch, fn):
+    """``fn()``, and the most bytes it held from the allocator at once
+    beyond what was allocated before it (requested sizes, unrounded)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()["requested_bytes.all.peak"] - base
+
+
+def serve_parity(torch, cfg, params, cache_dtype, prompts, tokens, rel_tol):
+    """The kernel route against the plain route (``ops.decode_attention``
+    and ``ops.flash_attention`` patched to their plain versions), each on
+    a fresh cache of the serving length, teacher-forced on the timed run's
+    tokens: the prompt (one batched prefill for dense and MoE, else its
+    first PARITY_PROMPT tokens a step each), then PARITY_STEPS decode
+    steps.  Phase 10's rule at each step's logits, and for MoE the tokens
+    a router sends to another expert on one route (left out of the rule at
+    that step, counted under MOE_REROUTED_MAX of the routed tokens)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import (make_batched_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import transformer
+
+    serve = make_serve_step(cfg)
+    batched = cfg.arch_type in ("dense", "moe")
+    prefill = make_batched_prefill_step(cfg) if batched else None
+    max_len = prompts.shape[1] + tokens.shape[1]
+    if not batched:
+        prompts = prompts[:, :PARITY_PROMPT]
+    slots, prompt_len = prompts.shape
+    decode_len = min(PARITY_STEPS + 1, tokens.shape[1])
+    positions = torch.arange(max_len, dtype=torch.int32, device="cuda")
+    prompts_t = torch.as_tensor(prompts, device="cuda")
+    tokens_t = torch.as_tensor(tokens, device="cuda")
+    caches = {route: transformer.init_cache(cfg, slots, max_len,
+                                            getattr(torch, cache_dtype),
+                                            "cuda")
+              for route in ("kernel", "plain")}
+
+    def step(route, i):
+        cache = caches[route]
+        if i > 0:
+            return serve(params, cache, tokens_t[:, i - 1:i],
+                         positions[prompt_len + i - 1])[1]
+        if prefill is not None:
+            return prefill(params, cache, prompts_t)[1]
+        for t in range(prompt_len):
+            logits = serve(params, cache, prompts_t[:, t:t + 1],
+                           positions[t])[1]
+        return logits
+
+    def on_route(route, i):
+        if route == "kernel":
+            return step(route, i)
+        with mock.patch.object(ops, "decode_attention",
+                               ref.decode_attention_ref), \
+                mock.patch.object(ops, "flash_attention",
+                                  ref.flash_attention_ref):
+            return step(route, i)
+
+    worst = {"max_abs_err": 0.0, "rel_err": 0.0, "tol": 0.0}
+    counts = {"prompt": prompt_len, "steps": decode_len - 1, "rows": 0,
+              "equal": 0, "decided": 0,
+              "rerouted_tokens": 0, "routed_tokens": 0, "rows_left_out": 0}
+    for i in range(decode_len):
+        if cfg.arch_type == "moe":
+            kernel, kernel_choices = router_choices(lambda: on_route(
+                "kernel", i))
+            plain, plain_choices = router_choices(lambda: on_route(
+                "plain", i))
+            shape = (slots, prompt_len if i == 0 else 1)
+            _, rerouted = differing_choices(torch, cfg, kernel_choices,
+                                            plain_choices, shape)
+            counts["rerouted_tokens"] += int(rerouted.sum())
+            counts["routed_tokens"] += rerouted.numel()
+            kept = ~rerouted[:, -1].cpu()
+        else:
+            kernel, plain = on_route("kernel", i), on_route("plain", i)
+            kept = torch.ones(slots, dtype=torch.bool)
+        kernel, plain = kernel.float().cpu(), plain.float().cpu()
+        tol = rel_tol * plain[:, :cfg.vocab_size].abs().max().item()
+        rows = (kernel - plain).abs().amax(dim=-1)
+        check(bool(torch.isfinite(kernel).all()), f"{cfg.name}: non-finite "
+              f"logits on the kernel route at step {i}")
+        counts["rows_left_out"] += int((~kept).sum())
+        err = rows[kept].max().item() if bool(kept.any()) else 0.0
+        check(err <= tol, f"{cfg.name} serving parity, step {i}: logits "
+              f"differ by {err} > {tol}")
+        top2 = torch.topk(plain, 2, dim=-1).values
+        decided = ((top2[:, 0] - top2[:, 1]) > 2 * tol) & kept
+        same = kernel.argmax(-1) == plain.argmax(-1)
+        check(bool(same[decided].all()), f"{cfg.name} serving parity, step "
+              f"{i}: greedy tokens differ where the plain top-2 margin "
+              f"exceeds {2 * tol}")
+        counts["rows"] += slots
+        counts["equal"] += int(same.sum())
+        counts["decided"] += int(decided.sum())
+        if err / max(tol, 1e-30) * rel_tol >= worst["rel_err"]:
+            worst = {"max_abs_err": err, "tol": tol,
+                     "rel_err": err / max(tol, 1e-30) * rel_tol, "step": i}
+    if cfg.arch_type == "moe":
+        check(counts["rerouted_tokens"]
+              <= MOE_REROUTED_MAX * counts["routed_tokens"],
+              f"{cfg.name}: {counts['rerouted_tokens']} of "
+              f"{counts['routed_tokens']} routed tokens rerouted, more than "
+              f"{MOE_REROUTED_MAX:.0%}")
+    del caches
+    return dict(worst, **counts)
+
+
+def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
+                 server=None):
+    """One config served at full width and depth: SERVE_SLOTS requests of
+    SERVE_PROMPT tokens, then SERVE_DECODE greedy tokens, through
+    ``BatchedServer.generate`` (``how`` "server"; ``server`` reuses one
+    already drawn) or its loop over ``make_serve_step`` ("direct"), which
+    sync once, at the end; a CUDA event after each prefill call and serve
+    step times them on the card's timeline without another sync (prefill
+    and decode tokens/s, the intervals between decode steps); launch
+    counts zeroed just before and read just after; peak memory; the bytes
+    one more decode step requests; a profile of it; then the kernel route
+    against the plain route."""
+    from repro_torch import configs, tree
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+
+    cfg = configs.get_arch(name)
+    dtype = getattr(torch, dtype_name)
+    max_len = SERVE_PROMPT + SERVE_DECODE
+    t0 = time.monotonic()
+    if how == "server":
+        if server is None:
+            server = BatchedServer(cfg, SERVE_SLOTS, max_len, seed=SEED,
+                                   device="cuda")
+        server.cache = transformer.init_cache(
+            cfg, SERVE_SLOTS, max_len, getattr(torch, cache_dtype), "cuda")
+        params = server.params
+    else:
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            device="cuda", dtype=dtype)
+        cache = transformer.init_cache(cfg, SERVE_SLOTS, max_len,
+                                       getattr(torch, cache_dtype), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT)).astype(np.int32)
+    batched = how == "server" and server._prefill is not None
+
+    step_events, prefill_events = [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches(kernels)
+    start = torch.cuda.Event(enable_timing=True)
+    t0 = time.monotonic()
+    start.record()
+    if how == "server":
+        serve, prefill = server._serve, server._prefill
+        server._serve = evented_calls(torch, serve, step_events)
+        if prefill is not None:
+            server._prefill = evented_calls(torch, prefill, prefill_events)
+        try:
+            tokens = server.generate(prompts, SERVE_DECODE)
+        finally:
+            server._serve, server._prefill = serve, prefill
+        cache = server.cache
+    else:
+        serve = make_serve_step(cfg)
+        tokens = generate_direct(torch, params, cache, prompts, SERVE_DECODE,
+                                 evented_calls(torch, serve, step_events))
+    wall_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = kernel_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    if not batched:             # the prompt went a serve step a token
+        prefill_events, step_events = (step_events[:SERVE_PROMPT],
+                                       step_events[SERVE_PROMPT:])
+
+    decode_steps = SERVE_DECODE - 1
+    check(len(step_events) == decode_steps and len(prefill_events) >= 1,
+          f"{name}: {len(step_events)} decode steps and "
+          f"{len(prefill_events)} prefill calls timed, expected "
+          f"{decode_steps} and at least 1")
+    prefill_end = prefill_events[-1]
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip([prefill_end] + step_events[:-1], step_events)]
+    check(tokens.shape == (SERVE_SLOTS, SERVE_DECODE)
+          and tokens.dtype == np.int32 and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size,
+          f"{name}: bad tokens {tokens.shape} {tokens.dtype}")
+    per_step = decode_launches_per_step(cfg)
+    expected = {"decode_attention": per_step * (
+                    decode_steps + (0 if batched else SERVE_PROMPT)),
+                "flash_attention": cfg.num_layers if batched else 0,
+                "ssd_scan": 0, "vtrace": 0}
+    check(launches == expected, f"{name}: launches {launches}, expected "
+          f"{expected} ({per_step} decode launches a step)")
+
+    # one more decode step (the cache's last position): the bytes it
+    # requests, then its profile
+    serve_step = make_serve_step(cfg)
+    tok = torch.as_tensor(tokens[:, -1:], device="cuda")
+    last = torch.tensor(max_len - 1, dtype=torch.int32, device="cuda")
+    (_, logits, _), step_bytes = requested_rise(
+        torch, lambda: serve_step(params, cache, tok, last))
+    check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    layer_kv_f32 = None
+    if "kv" in cache or "attn_kv" in cache:
+        kv = cache.get("kv", cache.get("attn_kv"))
+        layer_kv_f32 = 2 * kv["k"][0].numel() * 4
+        if cache_dtype == "bfloat16" and dtype_name == "float32":
+            check(step_bytes < layer_kv_f32, f"{name}: a decode step over "
+                  f"a bfloat16 cache requested {step_bytes} bytes, more "
+                  f"than one layer's K and V in float32 ({layer_kv_f32}): "
+                  f"a cache-sized copy")
+    profile = profile_step(torch, lambda p, _: serve_step(p, cache, tok,
+                                                          last),
+                           params, None)
+    # what a sync after every step costs: the same step, synced after each
+    # call, then unsynced with an event after each
+    synced, events = [], []
+    for _ in range(SERVE_SYNC_STEPS):
+        t_step = time.monotonic()
+        serve_step(params, cache, tok, last)
+        torch.cuda.synchronize()
+        synced.append((time.monotonic() - t_step) * 1e3)
+    first = torch.cuda.Event(enable_timing=True)
+    first.record()
+    for _ in range(SERVE_SYNC_STEPS):
+        evented_calls(torch, serve_step, events)(params, cache, tok, last)
+    torch.cuda.synchronize()
+    unsynced = [a.elapsed_time(b)
+                for a, b in zip([first] + events[:-1], events)]
+
+    prefill_s = start.elapsed_time(prefill_end) / 1e3
+    decode_s = prefill_end.elapsed_time(step_events[-1]) / 1e3
+    entry = {
+        "config": name, "arch_type": cfg.arch_type, "dtype": dtype_name,
+        "cache_dtype": cache_dtype, "driven_by": how, "n_params": n_params,
+        "init_s": init_s, "slots": SERVE_SLOTS, "prompt": SERVE_PROMPT,
+        "decode": SERVE_DECODE, "batched_prefill": batched,
+        "launches": launches, "decode_launches_per_step": per_step,
+        "prefill_tokens_per_s": SERVE_SLOTS * SERVE_PROMPT / prefill_s,
+        "decode_tokens_per_s": SERVE_SLOTS * decode_steps / decode_s,
+        "prefill_ms": prefill_s * 1e3,
+        "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p95": float(np.percentile(step_ms, 95)),
+        "generate_wall_s": wall_s, "peak_gib": peak / 2 ** 30,
+        "last_step_ms_p50_synced": float(np.percentile(synced, 50)),
+        "last_step_ms_p50_unsynced": float(np.percentile(unsynced, 50)),
+        "decode_step_requested_bytes": step_bytes,
+        "layer_kv_f32_bytes": layer_kv_f32,
+        "profile": {k: v for k, v in profile.items() if k != "top"},
+        "top_kernels": profile.get("top")}
+    log(f"  {name} ({cfg.arch_type}, {dtype_name} params, {cache_dtype} "
+        f"cache, {how}): {n_params} params drawn in {init_s:.2f} s; "
+        f"prefill {entry['prefill_tokens_per_s']:.1f} tokens/s "
+        f"({'one batched call' if batched else 'a step a token'}), decode "
+        f"{entry['decode_tokens_per_s']:.1f} tokens/s, step ms p50 "
+        f"{entry['step_ms_p50']:.3f} p95 {entry['step_ms_p95']:.3f} (CUDA "
+        f"events, one sync a generate); generate {wall_s:.3f} s; the last "
+        f"position's step p50 {entry['last_step_ms_p50_synced']:.3f} ms "
+        f"synced after each, {entry['last_step_ms_p50_unsynced']:.3f} "
+        f"unsynced; peak "
+        f"{entry['peak_gib']:.3f} GiB; a decode step requested {step_bytes} "
+        f"B (one layer's K and V in f32: {layer_kv_f32}); launches "
+        f"{launches}")
+
+    rel_tol = ZOO_LOGIT_REL_TOL[dtype_name]
+    if per_step == 0 and not batched:
+        entry["parity"] = None
+        log(f"  {name}: no kernel on its serving path, so no route to "
+            f"compare (its reduced config runs card vs CPU below)")
+    else:
+        t0 = time.monotonic()
+        entry["parity"] = serve_parity(torch, cfg, params, cache_dtype,
+                                       prompts, tokens, rel_tol)
+        entry["parity"]["seconds"] = time.monotonic() - t0
+        log(f"  {name}, kernel vs plain route over "
+            f"{entry['parity']['prompt']} prompt tokens and "
+            f"{entry['parity']['steps']} decode steps: "
+            f"{json.dumps(entry['parity'])} (rule {rel_tol} x max |logit|)")
+    return entry, server
+
+
+def serve_reduced(torch, name, cache_dtype="float32"):
+    """A reduced config served on the card's kernels against the same
+    weights on the CPU's plain versions, step by step on the CPU's greedy
+    tokens: logits within REDUCED_TOL of the largest, greedy tokens equal
+    where the top-2 margin exceeds twice that.
+
+    Under a bfloat16 cache each device rounds its own float32 K/V (and SSM
+    state) to bf16, so an element whose two float32 values straddle a
+    rounding boundary lands one bf16 step apart, and the caches drift.  So
+    there the CPU's cache is copied to the card before every step: both
+    steps read the same bf16 cache, and the rule holds at REDUCED_TOL.  The
+    cache elements each step then writes differently are counted, with
+    their largest gap over their leaf's largest |value|, and beside them
+    the gap of a card run on its own cache (not held to the rule) is
+    reported."""
+    from repro_torch import configs, tree
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+
+    cfg = configs.reduced(configs.get_arch(name))
+    slots, prompt_len, decode_len = 4, 12, 8
+    cpu = BatchedServer(cfg, slots, prompt_len + decode_len, seed=SEED,
+                        device="cpu")
+    params = tree.map(lambda t: t.to("cuda"), cpu.params)
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (slots, prompt_len)).astype(np.int32)
+    tokens = cpu.generate(prompts, decode_len)
+    shared = cache_dtype == "bfloat16"
+    caches = {label: transformer.init_cache(
+        cfg, slots, prompt_len + decode_len, getattr(torch, cache_dtype),
+        device) for label, device in (("cpu", "cpu"), ("card", "cuda"),
+                                      ("own", "cuda"))}
+    serve = make_serve_step(cfg)
+    out = {"worst": 0.0, "own_cache_worst": None, "differing_elements": 0,
+           "max_gap_of_leaf_max": 0.0}
+    own = 0.0
+    sequence = np.concatenate([prompts, tokens[:, :-1]], axis=1)
+    for t in range(sequence.shape[1]):
+        tok = torch.as_tensor(sequence[:, t:t + 1])
+        if shared:
+            tree.map(lambda a, b: b.copy_(a), caches["cpu"], caches["card"])
+        _, expected, _ = serve(cpu.params, caches["cpu"], tok, t)
+        _, logits, _ = serve(params, caches["card"], tok.to("cuda"), t)
+        largest = expected.abs().max().item()
+        tol = REDUCED_TOL * largest
+        err = (logits.cpu() - expected).abs().max().item()
+        top2 = torch.topk(expected, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        same = logits.argmax(-1).cpu() == expected.argmax(-1)
+        check(err <= tol and bool(same[decided].all()),
+              f"reduced {name} serving ({cache_dtype} cache), card vs CPU, "
+              f"position {t}: logits differ by {err} (tol {tol}) or greedy "
+              f"tokens differ")
+        out["worst"] = max(out["worst"], err / largest)
+        if shared:
+            for a, b in zip(tree.leaves(caches["cpu"]),
+                            tree.leaves(caches["card"])):
+                a, b = a.float(), b.cpu().float()
+                out["differing_elements"] += int((a != b).sum())
+                out["max_gap_of_leaf_max"] = max(
+                    out["max_gap_of_leaf_max"], (a - b).abs().max().item()
+                    / max(a.abs().max().item(), 1e-30))
+            _, alone, _ = serve(params, caches["own"], tok.to("cuda"), t)
+            own = max(own, (alone.cpu() - expected).abs().max().item()
+                      / largest)
+    if shared:
+        out["own_cache_worst"] = own
+    log(f"  reduced {name} ({cache_dtype} cache), card kernels vs CPU plain "
+        f"route over {sequence.shape[1]} serve steps"
+        f"{', the CPU cache copied to the card before each' if shared else ''}"
+        f": max |d logits| = {out['worst']:.3e} of the largest (tol "
+        f"{REDUCED_TOL})" + (
+            f"; {out['differing_elements']} cache elements written "
+            f"differently, the largest gap {out['max_gap_of_leaf_max']:.3e} "
+            f"of its leaf's largest |value| (one bf16 step of it: "
+            f"{2.0 ** -8:.3e}); on the card's own cache {own:.3e} (not held)"
+            if shared else ""))
+    return out
+
+
+def fig17_prefill(torch, kernels):
+    """fig17's tier 1 on the card: BatchedServer on reduced qwen3-1.7b,
+    prefill tokens/s with one batched call against one serve step a
+    token, each over FIG17_PREFILL's iterations after one untimed call;
+    the batched call must be at least FIG17_PREFILL["ratio"]x faster."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import BatchedServer
+
+    cfg = configs.reduced(configs.get_arch("qwen3-1.7b"))
+    slots, length, iters = (FIG17_PREFILL[k] for k in ("slots", "length",
+                                                       "iters"))
+    rates = {}
+    for batched in (False, True):
+        server = BatchedServer(cfg, slots, length, batched_prefill=batched,
+                               device="cuda")
+        prompts = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (slots, length)).astype(np.int32)
+        fresh = server.cache
+        server.prefill(prompts).cpu()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            server.cache = fresh
+            server.prefill(prompts).cpu()
+        rates["batched" if batched else "token_at_a_time"] = (
+            iters * slots * length / (time.perf_counter() - t0))
+        rates[f"launches_{'batched' if batched else 'token_at_a_time'}"] = (
+            kernel_launches(kernels))
+    ratio = rates["batched"] / rates["token_at_a_time"]
+    rates["ratio"] = ratio
+    log(f"  fig17 tier 1 (reduced qwen3-1.7b, {slots} x {length} tokens): "
+        f"batched prefill {rates['batched']:.1f} tokens/s, token at a time "
+        f"{rates['token_at_a_time']:.1f}: {ratio:.2f}x; launches "
+        f"{rates['launches_token_at_a_time']} and "
+        f"{rates['launches_batched']}")
+    check(ratio >= FIG17_PREFILL["ratio"], f"fig17 tier 1: batched prefill "
+          f"only {ratio:.2f}x token-at-a-time")
+    return rates
+
+
+def time_decode_serving(kernel, ref, torch, plan_splits):
+    """Phase 5: the decode kernel at phase 24's serving shapes
+    (DECODE_SERVING), beside its bound and SDPA."""
+    from repro_torch import configs
+
+    shapes = []
+    length = SERVE_PROMPT + SERVE_DECODE
+    for label, name, dtype_name, kv_dtype in DECODE_SERVING:
+        cfg = configs.get_arch(name)
+        entry = time_decode_shape(kernel, ref, torch, plan_splits,
+                                  SERVE_SLOTS, cfg.num_heads,
+                                  cfg.num_kv_heads, length, cfg.head_dim,
+                                  length, dtype_name, kv_dtype)
+        entry["label"] = label
+        shapes.append(entry)
+        log(f"  decode_attention at {label}'s serving shape "
+            f"{json.dumps(entry)}; {entry['bound_ms'] / entry['ms']:.3f} of "
+            f"its bound, {entry['ms'] / entry['library_ms']:.3f}x SDPA")
+        check(entry["max_abs_err_timed"] <= TOL[dtype_name],
+              f"decode_attention at {label}: max_abs_err "
+              f"{entry['max_abs_err_timed']}")
+    return shapes
+
+
+def zoo_serving(torch, kernels):
+    """Phase 24: SERVE_ZOO in turn, each model freed before the next;
+    fig17's tier 1; then a reduced config of each family served on the
+    card against the CPU."""
+    import gc
+
+    results, server = [], None
+    for i, (name, dtype_name, cache_dtype, how) in enumerate(SERVE_ZOO):
+        t0 = time.monotonic()
+        entry, server = serve_config(torch, kernels, name, dtype_name,
+                                     cache_dtype, how, server)
+        if i + 1 == len(SERVE_ZOO) or SERVE_ZOO[i + 1][0] != name:
+            server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry["seconds"] = time.monotonic() - t0
+        results.append(entry)
+        log(f"  {name}: {entry['seconds']:.1f} s in all")
+
+    fig17 = fig17_prefill(torch, kernels)
+    reduced = {f"{name}_{cache_dtype}_cache": serve_reduced(torch, name,
+                                                            cache_dtype)
+               for cache_dtype in ("float32", "bfloat16") for name in
+               ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-780m",
+                "zamba2-1.2b", "internvl2-26b", "whisper-base")}
+    return {"configs": results, "fig17": fig17, "reduced": reduced}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4170,6 +4894,7 @@ def main() -> int:
     plan_splits = decode_module.plan_splits
     worst = check_decode_attention(decode, ref, torch, plan_splits,
                                    decode_module.HEAD_DIMS)
+    mixed = check_decode_mixed(decode, ref, torch, plan_splits)
     worst_vtrace = check_vtrace(vtrace, ref, torch)
     flash = flash_module.flash_attention
     ssd = ssd_module.ssd_scan
@@ -4200,6 +4925,7 @@ def main() -> int:
         f"{timed['ms'] / floor['launch_floor_ms']:.2f}x the launch floor")
     long_cache = time_decode_attention(decode, ref, torch, plan_splits, 64,
                                        2048, 2048)
+    decode_serving = time_decode_serving(decode, ref, torch, plan_splits)
     log(f"  decode_attention, long cache (not on the main path) "
         f"{json.dumps(long_cache)}; "
         f"{long_cache['bound_ms'] / long_cache['ms']:.3f} of its bound")
@@ -4332,6 +5058,16 @@ def main() -> int:
           f"kernel vs plain route; reduced configs card vs CPU")
     zoo = zoo_scoring(torch, kernels)
 
+    phase(f"phase 24: the model zoo's serving path — BatchedServer at full "
+          f"width and depth, {SERVE_SLOTS} slots x {SERVE_PROMPT} prompt "
+          f"tokens + {SERVE_DECODE} decoded, for "
+          f"{', '.join(f'{n} ({d} params, {c} cache)' for n, d, c, _ in SERVE_ZOO)}"
+          f"; kernel vs plain route; the decode kernel at the serving "
+          f"shapes; fig17's tier 1; reduced configs card vs CPU")
+    t24 = time.monotonic()
+    serving = zoo_serving(torch, kernels)
+    serving["seconds"] = time.monotonic() - t24
+
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
         "name": "decode_attention", "route": "cuda",
@@ -4339,6 +5075,7 @@ def main() -> int:
         "launches": path["launches"]["decode_attention"],
         "max_abs_err": max(worst["float32"], timed["max_abs_err_timed"]),
         "max_abs_err_bf16": worst["bfloat16"],
+        "max_abs_err_bf16_cache_f32_q": mixed["max_abs_err"],
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
         "library_ms": timed["library_ms"], "eager_ms": timed["eager_ms"],
@@ -4354,7 +5091,11 @@ def main() -> int:
             "fig17_local_parent": fig17["local"]["launches"][
                 "decode_attention"],
             "fig17_async_failover": failover["fig17"]["with_failover"][
-                "launches"]["decode_attention"]},
+                "launches"]["decode_attention"],
+            **{f"zoo_serving_{row['config']}_{row['cache_dtype']}_cache":
+               row["launches"]["decode_attention"]
+               for row in serving["configs"]}},
+        "serving_shapes": decode_serving,
         "launches_per_acting_call_fig17": policy["fig17_learner"][
             "decode_launches_per_acting_call"],
         "long_cache": {key: long_cache[key] for key in (
@@ -4406,6 +5147,7 @@ def main() -> int:
         "backward": grads["flash_attention"],
         "launches_by_path": {
             "scoring": scoring["launches"]["flash_attention"],
+            "serving": path["launches"]["flash_attention"],
             "transformer_policy_catch": policy["launches"][
                 "flash_attention"],
             "fig17_server": fig17["server"]["launches"]["flash_attention"],
@@ -4413,10 +5155,19 @@ def main() -> int:
             "fig17_async_failover": failover["fig17"]["with_failover"][
                 "launches"]["flash_attention"],
             **{f"zoo_{row['config']}": row["launches"]["flash_attention"]
-               for row in zoo["configs"]}},
+               for row in zoo["configs"]},
+            **{f"zoo_serving_{row['config']}_{row['cache_dtype']}_cache":
+               row["launches"]["flash_attention"]
+               for row in serving["configs"]}},
         "zoo_shapes": flash_zoo,
         "policy_learner": dict(flash_policy, launches_per_learner_step=(
             policy["fig17_learner"]["flash_launches_per_learner_step"])),
+        "policy_acting_prefill": {
+            key: policy["fig17_learner"][key] for key in (
+                "flash_launches_per_acting_prefill", "acting_prefill_ms",
+                "acting_prefill_eager_ms", "acting_prefill_masked_ms",
+                "acting_prefill_masked_eager_ms",
+                "acting_prefill_max_abs_err")},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": kernels[3]["source"], "replaces": kernels[3]["replaces"],
@@ -4437,6 +5188,7 @@ def main() -> int:
     log(f"  phase 21 {json.dumps(dist_dqn)}")
     log(f"  phase 22 {json.dumps(failover)}")
     log(f"  phase 23 {json.dumps(zoo)}")
+    log(f"  phase 24 {json.dumps(serving)}")
     log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

@@ -15,6 +15,12 @@
 // head i reads KV head i / (h / kv), so K/V are never repeated in memory);
 // lengths (b,) int32; out (b, h, d).  All contiguous.
 //
+// Dtypes (q, K/V): (f32, f32), (bf16, bf16), and (f32, bf16), a bf16
+// decode cache under f32 params.  K/V are read and staged in their own
+// dtype and widened to f32 as each staged element is read, so a bf16 cache
+// costs half the bytes of an f32 one and is never copied; q is widened
+// once into shared memory, and `out` takes q's dtype.
+//
 // What bounds it: bytes.  Each K/V element feeds at most h/kv (here <= 8 a
 // block) multiply-adds, far below the ~20 f32 operations per byte the card
 // needs before compute is the limit, so the least time is the K and V rows
@@ -151,15 +157,15 @@ struct Plan {
   static_assert(kFront % 16 == 0, "q must stay 16-byte aligned");
 };
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
+    decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                        const KV* __restrict__ v,
                         const int32_t* __restrict__ lengths,
                         T* __restrict__ out, float* __restrict__ part, int b,
                         int h, int s, int kv, int head_blocks, int splits,
                         int keys_per_split, float scale, bool vec) {
-  using P = Plan<T, D>;
+  using P = Plan<KV, D>;
   constexpr int TK = P::kTileKeys;
   constexpr int KW = P::kWarpKeys;
   constexpr int LDS = P::kLds;
@@ -177,20 +183,20 @@ __global__ void __launch_bounds__(kThreads)
   const int head0 = kvh * group + g_first;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tiles = reinterpret_cast<T*>(smem_raw);
+  KV* tiles = reinterpret_cast<KV*>(smem_raw);
   float* q_s = reinterpret_cast<float*>(smem_raw + P::kFront);
   float* sc = q_s + kGroupMax * D + warp * kGroupMax * KW;
   float* ml = q_s + kGroupMax * D + kWarps * kGroupMax * KW;
 
   const size_t key_stride = (size_t)kv * D;
-  const T* k_row = k + ((size_t)row * s * kv + kvh) * D;
-  const T* v_row = v + ((size_t)row * s * kv + kvh) * D;
+  const KV* k_row = k + ((size_t)row * s * kv + kvh) * D;
+  const KV* v_row = v + ((size_t)row * s * kv + kvh) * D;
   const int begin = split * keys_per_split;
   // Stage tile t of the keys [begin, stop).
   auto issue = [&](int t, int stop) {
     const int key0 = begin + t * TK;
     const int rows = min(TK, stop - key0);
-    T* k_s = tiles + (size_t)(t % kStages) * 2 * TK * LDS;
+    KV* k_s = tiles + (size_t)(t % kStages) * 2 * TK * LDS;
     tc::stage(k_s, LDS, k_row + key0 * key_stride, (long long)key_stride,
               rows, rows, D, D, vec);
     tc::stage(k_s + TK * LDS, LDS, v_row + key0 * key_stride,
@@ -256,8 +262,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (t + 1 < n_tiles) issue(t + 1, end);
 
-    const T* k_s = tiles + (size_t)(t % kStages) * 2 * TK * LDS;
-    const T* v_s = k_s + TK * LDS;
+    const KV* k_s = tiles + (size_t)(t % kStages) * 2 * TK * LDS;
+    const KV* v_s = k_s + TK * LDS;
     const int tile_len = min(TK, end - (begin + t * TK));
     // this warp's keys: a quarter of the tile, spread evenly when it is
     // short
@@ -326,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
         o.z *= a;
         o.w *= a;
         const float* w = sc + g * KW;
-        const T* vp = v_s + j0 * LDS + e;
+        const KV* vp = v_s + j0 * LDS + e;
 #pragma unroll 4
         for (int jj = 0; jj < nw; ++jj) {
           const float pw = w[jj];
@@ -445,14 +451,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+// T: q's and out's type; KV: K's and V's.
+template <typename T, typename KV, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* out, void* part, int b, int h,
                    int s, int kv, int splits, int keys_per_split, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = Plan<T, D>::kSmem;
+  constexpr size_t smem = Plan<KV, D>::kSmem;
   static_assert(smem <= kMaxSmem, "decode tiles exceed shared memory");
-  auto kernel = decode_split_kernel<T, D>;
+  auto kernel = decode_split_kernel<T, KV, D>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -463,8 +470,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   const dim3 grid(splits, kv * head_blocks, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const int32_t*>(lengths),
       static_cast<T*>(out), static_cast<float*>(part), b, h, s, kv,
       head_blocks, splits, keys_per_split, scale, vec);
   cudaError_t err = cudaGetLastError();
@@ -476,7 +483,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               const void* lengths, void* out, void* part,
                               int b, int h, int s, int kv, int d, int splits,
@@ -484,20 +491,20 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, out, part, b, h, s, kv, splits,
-                           keys_per_split, scale, stream);
+      return launch<T, KV, 16>(q, k, v, lengths, out, part, b, h, s, kv,
+                               splits, keys_per_split, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, part, b, h, s, kv, splits,
-                           keys_per_split, scale, stream);
+      return launch<T, KV, 32>(q, k, v, lengths, out, part, b, h, s, kv,
+                               splits, keys_per_split, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, part, b, h, s, kv, splits,
-                           keys_per_split, scale, stream);
+      return launch<T, KV, 64>(q, k, v, lengths, out, part, b, h, s, kv,
+                               splits, keys_per_split, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, part, b, h, s, kv, splits,
-                            keys_per_split, scale, stream);
+      return launch<T, KV, 128>(q, k, v, lengths, out, part, b, h, s, kv,
+                                splits, keys_per_split, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, lengths, out, part, b, h, s, kv, splits,
-                            keys_per_split, scale, stream);
+      return launch<T, KV, 256>(q, k, v, lengths, out, part, b, h, s, kv,
+                                splits, keys_per_split, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -505,29 +512,36 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  `part` holds splits * b * h * (d + 2)
+// dtype (q and out) and kv_dtype (K and V): 0 = float32, 1 = bfloat16; the
+// pairs (0, 0), (1, 1) and (0, 1).  `part` holds splits * b * h * (d + 2)
 // floats and is read only when splits > 1.  The key ranges of the splits,
-// keys_per_split each, must cover s with none empty.  Returns the launches'
-// cudaError_t.
+// keys_per_split each, must cover s with none empty.  Returns the
+// launches' cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* lengths,
                                       void* out, void* part, int b, int h,
                                       int s, int kv, int d, int dtype,
-                                      int splits, int keys_per_split,
-                                      float scale, void* stream) {
+                                      int kv_dtype, int splits,
+                                      int keys_per_split, float scale,
+                                      void* stream) {
   if (b < 1 || b > 65535 || kv < 1 || h % kv != 0 || s < 1 || splits < 1 ||
       keys_per_split < 1 || (long long)splits * keys_per_split < s ||
       (long long)(splits - 1) * keys_per_split >= s ||
       (splits > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(q, k, v, lengths, out, part, b, h, s, kv,
-                                    d, splits, keys_per_split, scale, st);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(q, k, v, lengths, out, part, b,
-                                            h, s, kv, d, splits,
-                                            keys_per_split, scale, st);
+  if (dtype == 0 && kv_dtype == 0)
+    return dispatch_head_dim<float, float>(q, k, v, lengths, out, part, b, h,
+                                           s, kv, d, splits, keys_per_split,
+                                           scale, st);
+  if (dtype == 1 && kv_dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, lengths, out, part, b, h, s, kv, d, splits, keys_per_split,
+        scale, st);
+  if (dtype == 0 && kv_dtype == 1)
+    return dispatch_head_dim<float, __nv_bfloat16>(
+        q, k, v, lengths, out, part, b, h, s, kv, d, splits, keys_per_split,
+        scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -8,6 +8,10 @@ counts the wrapper's calls that launched the kernel, so a run can show
 that its decode steps went through it.  A call is one CUDA launch, or two
 when ``plan_splits`` cuts the cache into several ranges (the second merges
 their partial results).
+
+K and V are read in their own dtype: a bfloat16 decode cache under float32
+queries (``transformer.init_cache``'s default under float32 params) is
+widened inside the kernel, never copied.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:27"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (q's dtype, K's and V's): same dtypes, or a bf16 cache under f32 queries
+PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.float32, torch.bfloat16))
 _MAX_ROWS = 65535          # the grid's y extent
 TILE_ELEMS = 4096          # kTileElems in csrc/decode_attention.cu
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -58,7 +65,7 @@ class DecodeAttention:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_decode_attention
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
@@ -66,15 +73,15 @@ class DecodeAttention:
 
     def __call__(self, q, k, v, lengths):
         """q: (b, h, d); k, v: (b, s, kv, d), kv dividing h; lengths: (b,)
-        int32.  K and V are cast to q's dtype first.  Returns (b, h, d) in
-        q's dtype."""
+        int32.  (q, K/V) dtypes: one of ``PAIRS``; K and V are read as they
+        are.  Returns (b, h, d) in q's dtype."""
         if q.device.type != "cuda":
             raise ValueError(
                 f"decode_attention kernel needs CUDA tensors, got {q.device}")
-        if q.dtype not in _DTYPES:
-            raise ValueError(f"decode_attention: dtype {q.dtype} not in "
-                             f"{sorted(map(str, _DTYPES))}")
-        k, v = k.to(q.dtype), v.to(q.dtype)
+        if k.dtype != v.dtype or (q.dtype, k.dtype) not in PAIRS:
+            raise ValueError(f"decode_attention: dtypes q {q.dtype}, k "
+                             f"{k.dtype}, v {v.dtype}; supported (q, k/v): "
+                             f"{[(str(a), str(b)) for a, b in PAIRS]}")
         if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
             raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)}"
                              f" k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -108,8 +115,8 @@ class DecodeAttention:
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       lengths.data_ptr(), out.data_ptr(),
                       part.data_ptr() if part is not None else None, b, h, s,
-                      kv, d, _DTYPES[q.dtype], splits, keys_per_split,
-                      d ** -0.5, stream)
+                      kv, d, _DTYPES[q.dtype], _DTYPES[k.dtype], splits,
+                      keys_per_split, d ** -0.5, stream)
         build.check(self._lib, code, "decode_attention launch")
         with self._lock:
             self.launches += 1

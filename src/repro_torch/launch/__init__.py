@@ -1,4 +1,6 @@
-"""Step functions over the model zoo (the JAX package's ``repro.launch``).
+"""Step functions and drivers over the model zoo (the JAX package's
+``repro.launch``).
 
-Ported so far: ``steps.make_prefill_step``, actor-side batched scoring.
+Ported so far: ``steps`` (``make_prefill_step``, ``make_serve_step``,
+``make_batched_prefill_step``) and ``serve`` (``BatchedServer``).
 """

@@ -1,9 +1,10 @@
 """Step functions over the model zoo.
 
 ``prefill_step`` scores full sequences: actor-side batched inference, the
-greedy action at every position and the logits at the last one.  The
-learner's ``train_step``, the token-by-token ``serve_step`` and the batched
-prefill into a decode cache come with their slices.
+greedy action at every position and the logits at the last one.
+``serve_step`` decodes one token against a KV/SSM cache, and the batched
+prefill step pushes a whole prompt through the cache in one call.  The
+learner's ``train_step`` comes with the training slice.
 """
 from __future__ import annotations
 
@@ -37,4 +38,41 @@ def make_prefill_step(cfg: ArchConfig, *, chunk: int = 1024):
         return {"actions": torch.cat(actions, dim=1).to(torch.int32),
                 "last_logits": last_logits}
 
+    return prefill_step
+
+
+def _greedy(logits):
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def make_serve_step(cfg: ArchConfig, *, backend: str = "auto"):
+    """One-token incremental decode against the cache: ``serve_step(params,
+    cache, token (b, 1), pos) -> (next_token (b, 1) int32, logits (b,
+    padded_V), cache)``, the cache updated in place.  ``backend`` selects
+    the decode-attention path: ``"auto"`` (the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors), ``"kernel"``, ``"ref"`` or
+    ``"grouped"`` (the grouped-GQA einsum, the JAX package's ``"jnp"``)."""
+
+    def serve_step(params, cache, token, pos):
+        logits, cache = transformer.decode_step(params, cfg, cache, token, pos,
+                                                backend=backend)
+        return _greedy(logits), logits, cache
+    return serve_step
+
+
+def make_batched_prefill_step(cfg: ArchConfig):
+    """Whole-prompt prefill THROUGH the decode cache in one call — the
+    batched replacement for stepping ``serve_step`` once per prompt token.
+    Dense and MoE archs with the stacked ``"kv"`` cache layout only
+    (``transformer.prefill`` raises otherwise).
+
+    Returns ``prefill_step(params, cache, tokens, lengths=None) ->
+    (next_token (b, 1) int32, logits (b, padded_V), cache)`` where
+    ``tokens`` is right-padded (b, s) and ``lengths`` masks the padding;
+    decode then continues at position ``lengths[i]`` (or ``s``)."""
+
+    def prefill_step(params, cache, tokens, lengths=None):
+        logits, cache = transformer.prefill(params, cfg, cache, tokens,
+                                            lengths=lengths)
+        return _greedy(logits), logits, cache
     return prefill_step

@@ -15,7 +15,10 @@ requests that are at different depths of their episodes in ONE dispatch.
 Caches are dicts ``{"k", "v"}`` of ``(batch, length, kv_heads, head_dim)``
 tensors, and the decode and prefill paths write the new K/V into them IN
 PLACE (the JAX package returns updated copies); both still return the
-cache, so callers read the same as in the reference.
+cache, so callers read the same as in the reference.  A cache may hold
+another dtype than the params (``transformer.init_cache`` defaults to
+bfloat16): the decode kernel reads a bfloat16 cache under float32 queries
+as it is.
 """
 from __future__ import annotations
 
@@ -137,14 +140,52 @@ def _decode_backend(backend: str, device: torch.device) -> str:
     return backend
 
 
+def _grouped_out(params, cfg: ArchConfig, q, k, v, valid):
+    """Grouped-GQA scores, softmax and output projection (no KV repeat):
+    with sq == 1 every tensor here is tiny except the cache itself, which
+    is read once.  ``valid``: (b, length) bools, or None for every key."""
+    b = q.shape[0]
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    qg = q.reshape(b, 1, k.shape[2], cfg.q_per_kv, cfg.head_dim)
+    scores = torch.einsum("bqngh,bsnh->bngqs", qg, k) * cfg.head_dim ** -0.5
+    if valid is not None:
+        scores = torch.where(valid.reshape(b, 1, 1, 1, -1), scores,
+                             torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    out = torch.einsum("bngqs,bsnh->bqngh", p, v)
+    out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def _kernel_out(params, q, k, v, lengths, backend):
+    """The decode kernel (``"kernel"``) or its plain version (``"ref"``)
+    over the valid prefix ``lengths`` of each row, then the output
+    projection.  Both index the KV head of each query head directly (no
+    repeat); the kernel reads a bfloat16 cache under float32 queries as it
+    is, and a cache wider than bfloat16 queries is narrowed first, as the
+    JAX package casts every cache to q's dtype."""
+    if backend == "kernel":
+        if q.dtype == torch.bfloat16 and k.dtype != q.dtype:
+            k, v = k.to(q.dtype), v.to(q.dtype)
+        out_h = ops.decode_attention(q[:, 0].contiguous(), k, v, lengths)
+    else:
+        out_h = kernels_ref.decode_attention_ref(q[:, 0], k.to(q.dtype),
+                                                 v.to(q.dtype), lengths)
+    out = torch.einsum("bhk,hkd->bd", out_h.to(q.dtype), params["wo"])
+    return out[:, None]
+
+
 def decode_attention(params, cfg: ArchConfig, x, cache, pos, *,
-                     backend: str = "grouped"):
+                     cross_kv=None, backend: str = "grouped"):
     """One-token decode. x: (b, 1, d); pos: scalar (current index, shared)
     or ``(b,)`` per-row positions (continuous batching: rows at different
     episode depths decoded in one dispatch).
 
     K is stored after RoPE.  Writes the new K/V into ``cache`` in place and
-    returns (out (b, 1, d), cache).
+    returns (out (b, 1, d), cache).  With ``cross_kv`` = (k, v), each (b,
+    encoder_len, kv_heads, head_dim) (Whisper's cross-attention), only q is
+    projected, without RoPE, it attends to every encoder key, and ``cache``
+    is passed through untouched.
 
     ``backend`` selects the score/softmax path once the cache is updated
     (see ``_decode_backend``): ``"kernel"`` (the CUDA flash-decoding kernel,
@@ -152,6 +193,15 @@ def decode_attention(params, cfg: ArchConfig, x, cache, pos, *,
     ``"grouped"`` (grouped-GQA einsum) or ``"auto"``.
     """
     b = x.shape[0]
+    backend = _decode_backend(backend, x.device)
+    if cross_kv is not None:
+        q, (k, v) = _project_q(params, cfg, x), cross_kv
+        if backend == "grouped":
+            return _grouped_out(params, cfg, q, k, v, None), cache
+        lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
+                             device=x.device)
+        return _kernel_out(params, q, k, v, lengths, backend), cache
+
     pos = torch.as_tensor(pos, device=x.device).long()
     if pos.dim() == 0:
         pos = pos.expand(b)
@@ -164,26 +214,16 @@ def decode_attention(params, cfg: ArchConfig, x, cache, pos, *,
     cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
 
-    backend = _decode_backend(backend, x.device)
     if backend in ("kernel", "ref"):
         # Both mask a VALID PREFIX per row.  That is exactly the occupancy
         # of our caches: a linear cache holds slots [0, pos] and a full ring
         # holds all L slots — min(pos+1, L) either way.  Ring wraparound
         # scrambles chronological order, but softmax attention is
         # permutation-invariant over the key set and K is stored post-RoPE,
-        # so prefix masking stays correct after wrap.  Both index the KV
-        # head of each query head directly (no repeat).
+        # so prefix masking stays correct after wrap.
         lengths = torch.clamp(pos + 1, max=length).to(torch.int32)
-        if backend == "kernel":
-            out_h = ops.decode_attention(q[:, 0].contiguous(), k, v, lengths)
-        else:
-            out_h = kernels_ref.decode_attention_ref(q[:, 0], k.to(q.dtype),
-                                                     v.to(q.dtype), lengths)
-        out = torch.einsum("bhk,hkd->bd", out_h.to(q.dtype), params["wo"])
-        return out[:, None], cache
+        return _kernel_out(params, q, k, v, lengths, backend), cache
 
-    # grouped GQA (no KV repeat): with sq == 1 every tensor here is tiny
-    # except the cache itself, which is read exactly once.
     slots = torch.arange(length, device=x.device)
     pos_col = pos[:, None]
     if cfg.sliding_window:
@@ -191,15 +231,7 @@ def decode_attention(params, cfg: ArchConfig, x, cache, pos, *,
         valid = pos_col - torch.remainder(pos_col - slots, length) >= 0
     else:
         valid = slots <= pos_col
-    k, v = k.to(q.dtype), v.to(q.dtype)
-    qg = q.reshape(b, 1, k.shape[2], cfg.q_per_kv, cfg.head_dim)
-    scores = torch.einsum("bqngh,bsnh->bngqs", qg, k) * cfg.head_dim ** -0.5
-    scores = torch.where(valid.reshape(b, 1, 1, 1, length), scores,
-                         torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-    out = torch.einsum("bngqs,bsnh->bqngh", p, v)
-    out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+    return _grouped_out(params, cfg, q, k, v, valid), cache
 
 
 def prefill_attention(params, cfg: ArchConfig, x, cache, positions,
@@ -214,6 +246,13 @@ def prefill_attention(params, cfg: ArchConfig, x, cache, positions,
     zero-padded batch slots), though their outputs are still computed
     (callers read only positions < length).  Returns (out, cache).
 
+    On the card the scores and softmax run in ``ops.flash_attention``
+    (causal, the config's window) over the prompt's own K/V, without the
+    ``lengths`` mask: under the causal mask a row's query at a position
+    below its length sees only keys below it, so the mask changes only rows
+    at or past the length, which callers never read.  On the CPU the JAX
+    package's masked softmax runs as it is.
+
     The prompt must fit the cache (s <= cache length): continuous-batching
     callers re-prefill from a bounded window rather than wrap mid-prompt.
     """
@@ -225,6 +264,11 @@ def prefill_attention(params, cfg: ArchConfig, x, cache, positions,
     cache["k"][:, :s] = k_new.to(cache["k"].dtype)
     cache["v"][:, :s] = v_new.to(cache["v"].dtype)
 
+    if ops._on_card(x):
+        out = ops.flash_attention(q.transpose(1, 2), k_new.transpose(1, 2),
+                                  v_new.transpose(1, 2), causal=True,
+                                  window=cfg.sliding_window)
+        return torch.einsum("bhsk,hkd->bsd", out, params["wo"]), cache
     k = _repeat_kv(k_new, cfg.q_per_kv)
     v = _repeat_kv(v_new, cfg.q_per_kv)
     scores = torch.einsum("bqhk,bshk->bhqs", q, k) * cfg.head_dim ** -0.5

@@ -1,5 +1,4 @@
-"""Mamba2 block via SSD (state-space duality, arXiv:2405.21060), forward
-half.
+"""Mamba2 block via SSD (state-space duality, arXiv:2405.21060).
 
 Prefill and scoring use the chunked SSD algorithm: quadratic
 attention-like compute *within* fixed-size chunks plus a linear recurrence
@@ -11,8 +10,10 @@ Head layout follows Mamba2: d_inner = expand*d_model split into H heads of
 P=head_dim channels; B and C are shared across heads (single group, like
 MQA); per-head scalar dt and A.
 
-The one-token decode half (``init_ssm_cache``, ``ssm_step``) comes with
-the slice that serves SSM and hybrid models token by token.
+Decode runs one token at a time through a constant-size cache
+(``init_ssm_cache``, ``ssm_step``): the recurrent state and the last
+``conv_width - 1`` conv inputs, updated IN PLACE (the JAX package returns
+updated copies); ``ssm_step`` still returns the cache.
 """
 from __future__ import annotations
 
@@ -117,3 +118,55 @@ def ssm_forward(params, cfg: ArchConfig, x):
     y = y.reshape(*x.shape[:2], di).to(x.dtype)
     y = layers.rmsnorm(params["norm"], y * F.silu(z), cfg.rmsnorm_eps)
     return torch.einsum("bsi,id->bsd", y, params["out_proj"]), final
+
+
+# ------------------------------------------------------------------ decode
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                   device="cuda"):
+    """One layer's decode cache: ``state`` (b, heads, d_state, head_dim)
+    and the rolling conv window ``conv`` (b, conv_width - 1, conv_dim)."""
+    s = cfg.ssm
+    nh = s.num_heads(cfg.d_model)
+    conv_dim = s.d_inner(cfg.d_model) + 2 * s.d_state
+    return {
+        "state": torch.zeros((batch, nh, s.d_state, s.head_dim), dtype=dtype,
+                             device=device),
+        "conv": torch.zeros((batch, s.conv_width - 1, conv_dim), dtype=dtype,
+                            device=device),
+    }
+
+
+def ssm_step(params, cfg: ArchConfig, x, cache):
+    """One-token decode. x: (b, 1, d).  The conv, softplus, exp and state
+    update run in float32; the new state and conv window are written into
+    ``cache`` in its dtype.  Returns (y (b, 1, d), cache)."""
+    s_cfg = cfg.ssm
+    di = s_cfg.d_inner(cfg.d_model)
+    nh = s_cfg.num_heads(cfg.d_model)
+    n, p = s_cfg.d_state, s_cfg.head_dim
+
+    proj = torch.einsum("bsd,de->bse", x, params["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+
+    # rolling conv: window = [cached (w-1), current]
+    window = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", window.float(),
+                            params["conv_w"].float())
+    xbc1 = F.silu(conv_out + params["conv_b"].float())[:, None, :]
+    cache["conv"].copy_(window[:, 1:])
+
+    xi, B, C = torch.split(xbc1, [di, n, n], dim=-1)
+    xh = xi.reshape(xi.shape[0], nh, p)                    # (b,h,p)
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (b,h)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dt * A[None, :])                         # (b,h)
+
+    h_prev = cache["state"].float()
+    Bx = torch.einsum("bn,bhp,bh->bhnp", B[:, 0].float(), xh, dt)
+    h_new = h_prev * a[..., None, None] + Bx
+    y = torch.einsum("bn,bhnp->bhp", C[:, 0].float(), h_new)
+    y = y + xh * params["D"][None, :, None]
+    y = y.reshape(x.shape[0], 1, di).to(x.dtype)
+    y = layers.rmsnorm(params["norm"], y * F.silu(z), cfg.rmsnorm_eps)
+    cache["state"].copy_(h_new)
+    return torch.einsum("bsi,id->bsd", y, params["out_proj"]), cache

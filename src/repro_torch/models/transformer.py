@@ -1,6 +1,5 @@
 """Unified model zoo: dense/GQA, MoE, Mamba2-SSM, Zamba2-hybrid, VLM,
-Whisper, the forward pass of each; the dense stack's decode over
-pre-embedded inputs.
+Whisper: the forward pass, batched prefill and token-by-token decode.
 
 Plain functions over a dict of tensors.  The JAX package stacks per-layer
 parameters along a leading ``layers`` axis and scans over it; here
@@ -9,10 +8,14 @@ per-layer dicts (same leaf names, no layer axis) and the layers run in a
 Python loop.  An MoE layer's expert bank stays stacked on its expert axis.
 A hybrid model's blocks are a list of groups, each a list of
 ``hybrid_attn_every`` Mamba2 layers, followed by ``tail_blocks`` and one
-``shared_attn`` block applied after every group.  The decode cache keeps
-the reference's stacked layout, ``{"kv": {"k", "v"}}`` with leaves
-``(layers, batch, length, kv_heads, head_dim)``, and each layer updates
-its row of it in place.
+``shared_attn`` block applied after every group.
+
+Decode caches keep the reference's layouts, leaf names, shapes and dtypes
+(``init_cache``): stacked leaves with a leading layers axis (``(groups,
+every, ...)`` for the hybrid's Mamba2 layers), or ``"kv_list"``, one
+cache per layer.  Each layer reads and updates a view of its own slice IN
+PLACE (the JAX package returns updated copies); every entry point still
+returns the cache.
 
 Public API:
   init(generator, cfg, device, dtype)              -> params
@@ -20,16 +23,17 @@ Public API:
   forward_features(params, cfg, batch)             -> (features, aux)
   forward(params, cfg, batch)                      -> (logits, aux)
   unembed_table(params, cfg), mask_pad_logits(logits, cfg)
-  forward_embedded(params, cfg, x)                 -> features (dense)
-  init_cache(cfg, batch, max_len, dtype, device)   -> decode cache (dense)
+  forward_embedded(params, cfg, x)                 -> features (dense, MoE)
+  init_cache(cfg, batch, max_len, dtype, device)   -> decode cache
+  decode_step(params, cfg, cache, token, pos)      -> (logits, cache)
+  prefill(params, cfg, cache, tokens, lengths)     -> (last logits, cache)
   prefill_embedded(params, cfg, cache, x, lengths) -> (features, cache)
   decode_step_embedded(params, cfg, cache, x, pos) -> (features, cache)
 
 The ``*_embedded`` entry points' ``params`` hold ``"blocks"`` and
 ``"final_norm"``; ``repro_torch.policies.network`` adds the observation
-projection and the Q head around them.  Token-by-token decoding of every
-family, the MoE family's ``*_embedded`` entry points, and ``remat`` (a
-forward-only port has nothing to rematerialize) come with later slices.
+projection and the Q head around them.  ``remat`` (a forward-only port has
+nothing to rematerialize) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -48,9 +52,10 @@ Params = Dict[str, Any]
 DENSE_FAMILY = ("dense", "moe", "vlm")
 
 
-def _check_dense(cfg: ArchConfig, what: str):
-    if cfg.arch_type != "dense":
-        raise ValueError(f"{what} supports dense archs, got {cfg.arch_type}")
+def _check_arch(cfg: ArchConfig, what: str, families=("dense", "moe")):
+    if cfg.arch_type not in families:
+        raise ValueError(f"{what} supports {'/'.join(families)} archs, got "
+                         f"{cfg.arch_type}")
 
 
 # ======================================================================
@@ -74,7 +79,7 @@ def _dense_block_init(generator, cfg: ArchConfig, device="cuda",
 def init_blocks(generator, cfg: ArchConfig, device="cuda",
                 dtype=torch.float32):
     """One parameter dict per layer."""
-    _check_dense(cfg, "init_blocks")
+    _check_arch(cfg, "init_blocks", ("dense",))
     return [_dense_block_init(generator, cfg, device, dtype)
             for _ in range(cfg.num_layers)]
 
@@ -306,9 +311,10 @@ def forward_embedded(params: Params, cfg: ArchConfig, x):
 
     x: (b, s, d_model) — e.g. projected observations rather than token
     embeddings.  Runs ``params["blocks"]`` + final norm and returns the
-    features (b, s, d_model); the dense stack has no auxiliary losses.
+    features (b, s, d_model); an MoE stack's auxiliary losses, which the
+    JAX package returns beside them and its callers drop, are not kept.
     """
-    _check_dense(cfg, "forward_embedded")
+    _check_arch(cfg, "forward_embedded")
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_dense_stack(params["blocks"], cfg, x, positions)
     return layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
@@ -318,27 +324,89 @@ def forward_embedded(params: Params, cfg: ArchConfig, x):
 # Decode
 # ======================================================================
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
-    """Stacked per-layer decode caches: ``{"kv": {"k", "v"}}`` with leaves
-    (layers, batch, length, kv_heads, head_dim)."""
-    _check_dense(cfg, "init_cache")
-    one = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
-    return {"kv": {name: torch.zeros((cfg.num_layers,) + t.shape, dtype=dtype,
-                                     device=device)
-                   for name, t in one.items()}}
+               dtype=torch.bfloat16, device="cuda", layout: str = "stacked"):
+    """Per-layer decode caches, zeros, with the JAX package's leaf names,
+    shapes and dtypes.
+
+    Dense, MoE and VLM: ``{"kv": {"k", "v"}}`` with leaves (layers, batch,
+    length, kv_heads, head_dim), or with ``layout="list"`` ``{"kv_list":
+    [{"k", "v"}, ...]}``, one cache per layer.  SSM: ``{"ssm": {"state",
+    "conv"}}`` (float32, as ``ssm.init_ssm_cache``'s default).  Hybrid:
+    ``"ssm"`` with leaves (groups, every, ...), ``"attn_kv"`` with one KV
+    cache per shared-attention site (the sites share the block's params,
+    not its caches) and, when ``num_layers % every``, ``"tail_ssm"``.
+    Audio: ``"kv"`` and the cross-attention K/V ``"cross_k"`` and
+    ``"cross_v"`` (layers, batch, encoder_seq, kv_heads, head_dim), which
+    stay zeros: nothing in the JAX package fills them.  ``layout`` applies
+    to the dense family only.  Sliding-window archs use a ring of the
+    window's length.
+    """
+    def stack(lead, one):
+        return {name: torch.zeros(lead + t.shape, dtype=t.dtype,
+                                  device=device)
+                for name, t in one.items()}
+
+    def kv():
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+
+    def ssm():
+        return ssm_lib.init_ssm_cache(cfg, batch, device=device)
+
+    if cfg.arch_type in DENSE_FAMILY:
+        if layout == "list":
+            return {"kv_list": [kv() for _ in range(cfg.num_layers)]}
+        return {"kv": stack((cfg.num_layers,), kv())}
+    if cfg.arch_type == "ssm":
+        return {"ssm": stack((cfg.num_layers,), ssm())}
+    if cfg.arch_type == "hybrid":
+        every = cfg.hybrid_attn_every
+        n_groups, rem = divmod(cfg.num_layers, every)
+        cache = {"ssm": stack((n_groups, every), ssm()),
+                 "attn_kv": stack((n_groups,), kv())}
+        if rem:
+            cache["tail_ssm"] = stack((rem,), ssm())
+        return cache
+    if cfg.arch_type == "audio":
+        cross = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"kv": stack((cfg.num_layers,), kv()),
+                "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+                "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
+    raise ValueError(cfg.arch_type)
 
 
-def _layer_cache(cache, i: int):
-    return {name: t[i] for name, t in cache["kv"].items()}
+def _slice(tree, *index):
+    """Views of every leaf of a cache dict at ``index`` on its leading
+    axes: writes through them land in the stacked cache."""
+    return {name: t[index] for name, t in tree.items()}
 
 
-def _decode_dense_block(bp, cfg, x, kv_cache, pos, backend="grouped"):
+def _dense_caches(cache, num_layers):
+    """Each layer's KV cache of a dense-family cache, in either layout."""
+    if "kv_list" in cache:
+        return cache["kv_list"]
+    return [_slice(cache["kv"], i) for i in range(num_layers)]
+
+
+def _ffn(bp, cfg, y):
+    if cfg.arch_type == "moe":
+        return moe_lib.moe_ffn(bp["moe"], cfg, y)[0]
+    return layers.mlp(bp["mlp"], y)
+
+
+def _decode_dense_block(bp, cfg, x, kv_cache, pos, cross_kv=None,
+                        backend="grouped"):
     h, kv_cache = attn.decode_attention(
         bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.rmsnorm_eps),
         kv_cache, pos, backend=backend)
     x = x + h
+    if cross_kv is not None:
+        h, _ = attn.decode_attention(
+            bp["xattn"], cfg, layers.rmsnorm(bp["lnx"], x, cfg.rmsnorm_eps),
+            None, pos, cross_kv=cross_kv, backend=backend)
+        x = x + h
     y = layers.rmsnorm(bp["ln2"], x, cfg.rmsnorm_eps)
-    return x + layers.mlp(bp["mlp"], y), kv_cache
+    return x + _ffn(bp, cfg, y), kv_cache
 
 
 def _prefill_dense_block(bp, cfg, x, kv_cache, positions, lengths=None):
@@ -349,7 +417,80 @@ def _prefill_dense_block(bp, cfg, x, kv_cache, positions, lengths=None):
         kv_cache, positions, lengths=lengths)
     x = x + h
     y = layers.rmsnorm(bp["ln2"], x, cfg.rmsnorm_eps)
-    return x + layers.mlp(bp["mlp"], y), kv_cache
+    return x + _ffn(bp, cfg, y), kv_cache
+
+
+def _decode_ssm_block(bp, cfg, x, cache):
+    h, cache = ssm_lib.ssm_step(
+        bp["ssm"], cfg, layers.rmsnorm(bp["ln"], x, cfg.rmsnorm_eps), cache)
+    return x + h, cache
+
+
+def decode_positional(pos, d_model: int, device):
+    """Whisper's decode-time sinusoid at scalar ``pos``: (d_model,) float32,
+    sin at even channels, cos at odd, with the angle pos / 10000^(2i/d) by
+    division, as the JAX package's ``decode_step`` writes it inline (its
+    full-sequence twin is ``layers.sinusoid_positions``)."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+    angle = torch.as_tensor(pos, device=device).float() / torch.pow(
+        10000.0, dim / d_model)
+    pe = torch.zeros((d_model,), dtype=torch.float32, device=device)
+    pe[0::2] = torch.sin(angle)
+    pe[1::2] = torch.cos(angle)
+    return pe
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache, token, pos, *,
+                backend: str = "grouped"):
+    """One token for every row: token (b, 1) ints; pos a scalar (or (b,)
+    per-row positions for the dense family; Whisper's positional term is
+    one row, so audio takes a scalar only).  Updates the cache in place.
+    Returns (logits (b, padded_V), cache).
+
+    ``backend`` picks the decode-attention path (``attention.
+    _decode_backend``) of every attention call: the dense family's layers,
+    the hybrid's shared-attention sites and Whisper's self- and
+    cross-attention (the JAX package passes it to the dense family's only;
+    the paths compute the same function)."""
+    table = params["embed"]["table"]
+    token = torch.as_tensor(token, device=table.device).long()
+    x = layers.embed(params["embed"], token)
+    pos = torch.as_tensor(pos, device=x.device)
+
+    if cfg.arch_type in DENSE_FAMILY:
+        for bp, kv in zip(params["blocks"],
+                          _dense_caches(cache, cfg.num_layers)):
+            x, _ = _decode_dense_block(bp, cfg, x, kv, pos, backend=backend)
+    elif cfg.arch_type == "ssm":
+        for i, bp in enumerate(params["blocks"]):
+            x, _ = _decode_ssm_block(bp, cfg, x, _slice(cache["ssm"], i))
+    elif cfg.arch_type == "hybrid":
+        shared = params["shared_attn"]
+        for g, group in enumerate(params["blocks"]):
+            for j, bp in enumerate(group):
+                x, _ = _decode_ssm_block(bp, cfg, x,
+                                         _slice(cache["ssm"], g, j))
+            x, _ = _decode_dense_block(shared, cfg, x,
+                                       _slice(cache["attn_kv"], g), pos,
+                                       backend=backend)
+        for i, bp in enumerate(params.get("tail_blocks", ())):
+            x, _ = _decode_ssm_block(bp, cfg, x, _slice(cache["tail_ssm"], i))
+    elif cfg.arch_type == "audio":
+        if pos.dim() != 0:
+            raise ValueError("audio decode_step takes a scalar pos: the "
+                             "positional term is one row for the batch")
+        x = x + decode_positional(pos, cfg.d_model, x.device).to(x.dtype)
+        for i, bp in enumerate(params["blocks"]):
+            x, _ = _decode_dense_block(
+                bp, cfg, x, _slice(cache["kv"], i), pos,
+                cross_kv=(cache["cross_k"][i], cache["cross_v"][i]),
+                backend=backend)
+    else:
+        raise ValueError(cfg.arch_type)
+
+    x = layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    logits = layers.unembed(unembed_table(params, cfg), x)[:, 0]
+    return mask_pad_logits(logits, cfg), cache
 
 
 def prefill_embedded(params: Params, cfg: ArchConfig, cache, x, *,
@@ -360,13 +501,18 @@ def prefill_embedded(params: Params, cfg: ArchConfig, cache, x, *,
     right-padded and masked out via ``lengths`` (b,) int.  The whole
     prompt's K/V lands in the cache (in place) in ONE call per layer, so
     decode can continue at position ``lengths[i]`` without per-token replay.
+    Stacked ``"kv"`` layout, dense and MoE archs.  Attention runs as
+    ``attention.prefill_attention`` runs it: flash attention on the card,
+    the masked softmax on the CPU.
 
     Returns (features (b, s, d_model), cache).
     """
-    _check_dense(cfg, "prefill_embedded")
+    _check_arch(cfg, "prefill_embedded")
+    if "kv" not in cache:
+        raise ValueError("prefill_embedded needs the stacked 'kv' cache layout")
     positions = torch.arange(x.shape[1], device=x.device)
     for i, bp in enumerate(params["blocks"]):
-        x, _ = _prefill_dense_block(bp, cfg, x, _layer_cache(cache, i),
+        x, _ = _prefill_dense_block(bp, cfg, x, _slice(cache["kv"], i),
                                     positions, lengths=lengths)
     return layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), cache
 
@@ -376,12 +522,43 @@ def decode_step_embedded(params: Params, cfg: ArchConfig, cache, x, pos, *,
     """Incremental decode over PRE-EMBEDDED inputs.
 
     x: (b, 1, d_model); pos: scalar or per-row (b,) positions (continuous
-    batching — each row advances independently).  Updates the cache in
-    place.  Returns (features (b, d_model), cache).
+    batching — each row advances independently).  Stacked ``"kv"`` layout,
+    dense and MoE archs.  Updates the cache in place.  Returns (features
+    (b, d_model), cache).
     """
-    _check_dense(cfg, "decode_step_embedded")
+    _check_arch(cfg, "decode_step_embedded")
+    if "kv" not in cache:
+        raise ValueError(
+            "decode_step_embedded needs the stacked 'kv' cache layout")
     for i, bp in enumerate(params["blocks"]):
-        x, _ = _decode_dense_block(bp, cfg, x, _layer_cache(cache, i), pos,
+        x, _ = _decode_dense_block(bp, cfg, x, _slice(cache["kv"], i), pos,
                                    backend=backend)
     x = layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     return x[:, 0], cache
+
+
+def prefill(params: Params, cfg: ArchConfig, cache, tokens, *, lengths=None):
+    """Batched token prefill: embed, run the stack through the cache, and
+    return next-token logits at each row's last REAL token.
+
+    tokens: (b, s) ints, right-padded; lengths: (b,) real lengths (None
+    means every row uses all ``s`` tokens).  Dense and MoE archs with the
+    stacked ``"kv"`` cache layout.  On the card each layer's attention is
+    one flash-attention call.
+
+    Returns (logits (b, padded_V), cache) — decode continues at position
+    ``lengths[i]`` (or ``s``).
+    """
+    table = params["embed"]["table"]
+    tokens = torch.as_tensor(tokens, device=table.device).long()
+    x = layers.embed(params["embed"], tokens)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=x.device)
+    feats, cache = prefill_embedded(params, cfg, cache, x, lengths=lengths)
+    if lengths is None:
+        last = feats[:, -1]
+    else:
+        rows = torch.arange(feats.shape[0], device=x.device)
+        last = feats[rows, torch.clamp(lengths.long() - 1, min=0)]
+    logits = layers.unembed(unembed_table(params, cfg), last)
+    return mask_pad_logits(logits, cfg), cache

@@ -113,7 +113,8 @@ def q_prefill(params, arch: ArchConfig, cache, obs, lengths):
 
     obs (b, W, obs_dim) LEFT-aligned, zero-padded on the right; lengths (b,)
     real window lengths.  Returns ((b, W, A), cache) — decode continues
-    at per-row position ``lengths[i]``.
+    at per-row position ``lengths[i]``.  On the card the window's attention
+    runs in flash attention (``attention.prefill_attention``).
     """
     feats, cache = transformer.prefill_embedded(
         params, arch, cache, embed_obs(params, obs), lengths=lengths)

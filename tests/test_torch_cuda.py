@@ -4,7 +4,9 @@ argument checks and launch counts, the kernel-backed engine against the
 plain one, an IMPALA learner step that launches V-trace once and syncs
 once, the reduced Zamba2 and Mamba2 scoring steps and those of every
 dense, MoE, VLM and Whisper arch on the kernels against the same steps on
-the plain versions, flash attention at the model zoo's shapes, gradients through flash attention
+the plain versions, flash attention at the model zoo's shapes, the
+decode kernel over a bfloat16 cache under float32 queries, every family's
+reduced config served on the card against the CPU, gradients through flash attention
 and the SSD scan (their autograd Functions) against the plain route's, a
 DQN learner step that syncs once and matches the CPU's, and the
 distributed slice: the inference servers on the card, replica averaging
@@ -160,11 +162,141 @@ def test_kernel_rejects_unsupported_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("s", [1, 384, 1500])
+@pytest.mark.parametrize("group", [1, 2, 3, 6])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_reads_a_bf16_cache_under_f32_queries(cuda_device, b, s, group,
+                                                     d):
+    """A bfloat16 cache under float32 queries: read as it is (no
+    cache-sized buffer is allocated: the call's peak is its output and the
+    split plan's partials) and within the float32 tolerance of the plain
+    version on the upcast cache; the output is float32."""
+    kv = 2
+    q, _, _, lens = _inputs(b, kv * group, kv, s, d, torch.float32,
+                            cuda_device, seed=s + group)
+    _, k, v, _ = _inputs(b, kv * group, kv, s, d, torch.bfloat16, cuda_device,
+                         lengths=lens.cpu().numpy(), seed=s + group + 1)
+    splits = plan_splits(b, kv, s, d)[0]
+    needed = 4 * (q.numel() + (splits * b * kv * group * (d + 2)
+                               if splits > 1 else 0))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    assert peak - base <= needed
+    assert decode_attention.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    expected = ref.decode_attention_ref(q, k.float(), v.float(), lens)
+    torch.testing.assert_close(out, expected, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_kernel_same_dtype_routes_unchanged_beside_the_mixed_one(
+        cuda_device):
+    """Whisper's cross-attention shape (b 8, h 8, 1500 keys, d 64) in the
+    three dtype pairs; a bfloat16 query over a float32 cache raises."""
+    for q_dtype, kv_dtype in ((torch.float32, torch.float32),
+                              (torch.bfloat16, torch.bfloat16),
+                              (torch.float32, torch.bfloat16)):
+        q, _, _, lens = _inputs(8, 8, 8, 1500, 64, q_dtype, cuda_device,
+                                lengths=np.full(8, 1500), seed=3)
+        _, k, v, _ = _inputs(8, 8, 8, 1500, 64, kv_dtype, cuda_device,
+                             lengths=np.full(8, 1500), seed=4)
+        out = decode_attention(q, k, v, lens)
+        expected = ref.decode_attention_ref(q, k, v, lens)
+        torch.testing.assert_close(out.float(), expected.float(),
+                                   atol=TOL[q_dtype], rtol=TOL[q_dtype])
+    q, k, v, lens = _inputs(2, 4, 2, 8, 64, torch.float32, cuda_device)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_attention(q.bfloat16(), k, v, lens)
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_attention(q, k.bfloat16(), v, lens)
+    assert decode_attention.launches == before
+
+
+SERVE_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-780m",
+               "zamba2-1.2b", "internvl2-26b", "whisper-base"]
+SERVE_TOL = 1e-4       # logits, of the largest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVE_ARCHS)
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_reduced_serving_on_the_card_matches_the_cpu(cuda_device, name,
+                                                     cache_dtype):
+    """BatchedServer on a reduced config: the card's kernels (decode once
+    a layer a step, flash once a layer a batched prefill) against the same
+    weights and cache dtype on the CPU's plain versions, step by step on
+    the CPU's tokens: logits within SERVE_TOL of the largest, equal greedy
+    tokens where the CPU's top-2 margin exceeds twice that.  Under a
+    bfloat16 cache each device rounds its own float32 K/V to bf16, and an
+    element whose two values straddle a rounding boundary lands one bf16
+    step apart, so the caches drift; there the CPU's cache is copied to the
+    card before each step, and both steps read the same cache."""
+    from repro_torch import configs, tree
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+
+    cfg = configs.reduced(configs.get_arch(name))
+    slots, prompt_len, decode_len = 4, 12, 8
+    cpu = BatchedServer(cfg, slots, prompt_len + decode_len, device="cpu")
+    card = BatchedServer(cfg, slots, prompt_len + decode_len,
+                         device=cuda_device)
+    card.params = tree.map(lambda t: t.to(cuda_device), cpu.params)
+    for server in (cpu, card):
+        server.cache = transformer.init_cache(
+            cfg, slots, server.max_len, cache_dtype, server.device)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                               (slots, prompt_len))
+    tokens = cpu.generate(prompts, decode_len)
+    for server in (cpu, card):
+        server.cache = transformer.init_cache(
+            cfg, slots, server.max_len, cache_dtype, server.device)
+    flash0, decode0 = flash_attention.launches, decode_attention.launches
+    card.prefill(prompts)
+    cpu.prefill(prompts)
+    batched = cfg.arch_type in ("dense", "moe")
+    per_step = (0 if cfg.arch_type == "ssm" else
+                cfg.num_layers // cfg.hybrid_attn_every
+                if cfg.arch_type == "hybrid" else
+                2 * cfg.num_layers if cfg.arch_type == "audio" else
+                cfg.num_layers)
+    assert flash_attention.launches - flash0 == (
+        cfg.num_layers if batched else 0)
+    assert decode_attention.launches - decode0 == (
+        0 if batched else per_step * prompt_len)
+    serve = make_serve_step(cfg)
+    for i in range(decode_len - 1):
+        tok = torch.as_tensor(tokens[:, i:i + 1])
+        if cache_dtype == torch.bfloat16:
+            tree.map(lambda a, b: b.copy_(a), cpu.cache, card.cache)
+        _, expected, _ = serve(cpu.params, cpu.cache, tok, prompt_len + i)
+        _, logits, _ = serve(card.params, card.cache, tok.to(cuda_device),
+                             prompt_len + i)
+        tol = SERVE_TOL * expected.abs().max().item()
+        assert (logits.cpu() - expected).abs().max().item() <= tol
+        top2 = torch.topk(expected, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        same = logits.argmax(-1).cpu() == expected.argmax(-1)
+        assert bool(same[decided].all())
+
+
+@pytest.mark.cuda
 def test_kernel_engine_matches_plain_engine(cuda_device):
     """Four episodes for 3x the window with a mid-run restart: the engine on
     the kernel and the engine on the plain version give equal actions and
-    Q-values within 1e-4, and every decode batch launches the kernel once
+    Q-values within 1e-4, every decode batch launches the kernel once per
+    layer, and every prefill batch of either engine flash attention once
     per layer."""
+    from repro_torch.kernels.flash_attention import flash_attention
     cfg = TransformerPolicyConfig(num_layers=2, d_model=32, num_heads=4,
                                   num_kv_heads=2, head_dim=16, d_ff=64,
                                   window=WINDOW)
@@ -175,7 +307,7 @@ def test_kernel_engine_matches_plain_engine(cuda_device):
                             device=cuda_device) for b in ("kernel", "ref")]
     rng = np.random.RandomState(9)
     bufs = [_WindowBuffer(WINDOW, OBS_SHAPE) for _ in range(4)]
-    before = decode_attention.launches
+    before, flash0 = decode_attention.launches, flash_attention.launches
     for t in range(3 * WINDOW):
         if t == 6:
             bufs[2].reset()
@@ -191,6 +323,10 @@ def test_kernel_engine_matches_plain_engine(cuda_device):
     assert decode_batches > 0
     assert decode_attention.launches - before == \
         decode_batches * arch.num_layers
+    prefill_batches = sum(e.stats()["prefill_batches"] for e in engines)
+    assert prefill_batches > 0
+    assert flash_attention.launches - flash0 == \
+        prefill_batches * arch.num_layers
 
 
 # ------------------------------------------------------------------ V-trace
@@ -550,6 +686,42 @@ def test_flash_kernel_pv_reads_the_key_of_each_weight(cuda_device, d):
                                rtol=TOL[torch.float32])
     torch.testing.assert_close(out[0, 0], v[0, 0, target], atol=1e-3,
                                rtol=0)
+
+
+@pytest.mark.cuda
+def test_policy_q_prefill_through_flash_kernel(cuda_device):
+    """The policy's window prefill (acting) on the card runs flash attention
+    once a layer; at every position below a row's length its Q-values and
+    cache slots match the CPU's masked softmax on the same weights."""
+    from repro_torch import tree
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = TransformerPolicyConfig(num_layers=2, d_model=256, num_heads=4,
+                                  num_kv_heads=2, head_dim=64, d_ff=512,
+                                  window=8)
+    arch = network.make_arch(cfg, 3)
+    params = network.init(torch.Generator().manual_seed(0), arch, 50, 3,
+                          device="cpu")
+    rng = np.random.RandomState(4)
+    lengths = np.asarray([8, 5, 1, 8, 3])
+    obs = (rng.rand(5, 8, 50) < 0.2) * (np.arange(8)[None, :, None]
+                                        < lengths[:, None, None])
+    obs = torch.as_tensor(obs, dtype=torch.float32)
+    cache = network.init_cache(arch, 5, device="cpu")
+    expected, cache = network.q_prefill(params, arch, cache, obs,
+                                        torch.as_tensor(lengths))
+    card_cache = network.init_cache(arch, 5, device=cuda_device)
+    before = flash_attention.launches
+    q, card_cache = network.q_prefill(
+        tree.map(lambda t: t.to(cuda_device), params), arch, card_cache,
+        obs.to(cuda_device), torch.as_tensor(lengths, device=cuda_device))
+    assert flash_attention.launches == before + arch.num_layers
+    for i, n in enumerate(lengths):
+        torch.testing.assert_close(q[i, :n].cpu(), expected[i, :n],
+                                   atol=1e-4, rtol=1e-4)
+        for name in ("k", "v"):
+            torch.testing.assert_close(
+                card_cache["kv"][name][:, i, :n].cpu(),
+                cache["kv"][name][:, i, :n], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -1399,6 +1571,7 @@ def test_transformer_inference_server_decodes_through_the_kernel(
         cuda_device):
     from repro_torch.core import make_environment_spec
     from repro_torch.envs import Catch
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.policies import TransformerPolicyBuilder
     cfg = TransformerPolicyConfig(num_layers=2, d_model=64, num_heads=4,
                                   num_kv_heads=2, head_dim=16, d_ff=128,
@@ -1412,6 +1585,7 @@ def test_transformer_inference_server_decodes_through_the_kernel(
         assert server._engine.device.type == "cuda"
         actor = builder.make_inference_actor(server, adders=[None] * 4)
         obs = np.zeros((4,) + OBS_SHAPE, np.float32)
+        flash0 = flash_attention.launches
         actor.select_action(obs)                       # prefill
         before = decode_attention.launches
         for _ in range(3):
@@ -1419,6 +1593,8 @@ def test_transformer_inference_server_decodes_through_the_kernel(
         assert actions.shape == (4,)
         assert decode_attention.launches - before == 3 * cfg.num_layers
         assert server.stats()["decode_rows"] == 12
+        assert flash_attention.launches - flash0 == (
+            server.stats()["prefill_batches"] * cfg.num_layers)
     finally:
         server.stop()
 

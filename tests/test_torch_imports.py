@@ -181,6 +181,22 @@ def test_spawned_actor_child_imports_neither_jax_nor_repro(tmp_path):
     assert reports[0] == {"modules": [], "cuda_initialized": False}
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.serve", "repro_torch.launch.steps",
+    "repro_torch.models.transformer", "repro_torch.models.ssm"])
+def test_serving_slice_imports_neither_jax_nor_repro(module):
+    """The model zoo's serving slice's modules, each on its own in a fresh
+    interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys\nimport {module}\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
