@@ -59,7 +59,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    library call for the same function, at the main paths' shapes, beside
    the least time the card could take: CUDA events over 200 calls, median
    of 5 (20 calls for flash attention and the SSD scan at the Zamba2
-   path's shapes, flash attention on the model's strided views), both
+   path's shapes, flash attention on the model's strided views, and for
+   V-trace's plain version, a Python loop over T), both
    replayed from a CUDA graph (device time: ``ms``) and called eagerly
    (with the host's per-call cost: ``eager_ms``).  Flash attention and the
    SSD scan also carry their tensor-core bound (``bound_tc_ms``: three
@@ -95,11 +96,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 9. the Zamba2-1.2B scoring path: ``make_prefill_step`` over
    ``transformer.init`` of ``configs.get_arch("zamba2-1.2b")`` at full width
    and depth (38 Mamba2 layers, the shared attention block at 6 sites,
-   1.2 B parameters in float32 from seed 0), 3 batches of 4 requests x 2048
+   1.2 B parameters in float32 from seed 0 on the card's generator), 3
+   batches of 4 requests x 2048
    tokens from ``numpy.random.RandomState(0)``; launch counts are zeroed
    just before and read just after those 3, and each step must launch
    flash attention 6 times and the SSD scan 38 times; then the same
-   batches in turn up to 20 timed steps, for requests/s, tokens/s and the
+   batches in turn up to 8 timed steps, for requests/s, tokens/s and the
    step time's min, p50, p95 and max; peak device memory and a profile of
    one more step;
 10. the scoring path's kernel route against its plain route: the first
@@ -117,7 +119,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    train returns must be > 0 (the quickstart's acceptance) and the final
    eval must beat the mean of the first 20 (scripts/ci.sh's); prints env
    steps/s, learner steps, the learner step's p50/p95 and the wall time,
-   then profiles a 20-episode run of the same config for the device's idle
+   then profiles a 10-episode run of the same config for the device's idle
    share;
 12. the DQN learner on the card against the same learner on the CPU, from
    the same init on the same 10 replay batches: losses, |td| priorities,
@@ -224,7 +226,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bit for bit; env steps/s, learner steps/s, averaging rounds and the
    effective SPI;
 22. fault tolerance on the card: phase 20's policy in server mode, for
-   its 1500 actor steps, with two learner replicas
+   750 actor steps, with two learner replicas
    exchanging through the async parameter service every 10 steps (``learner_sync="async"``), once under the reference's
    ``RestartPolicy(max_restarts=3)`` with a chaos kill of
    ``learner/replica_1`` and ``learner/param_service`` at their 10th step
@@ -258,7 +260,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    batches each from ``numpy.random.RandomState(0)``: launch counts are
    zeroed just before and read just after, and each step must launch
    flash attention 28, 32, 18 (6 encoder, 6 causal, 6 cross) and 48
-   times; then the same batches in turn up to 8 timed steps, for
+   times; then the same batches in turn up to 5 timed steps, for
    requests/s, tokens/s, step p50/p95, peak memory, the seconds of init
    and a profile of one step; the first batch again on the plain route,
    by phase 10's rule (float32: 1e-4 of the largest plain |logit|;
@@ -275,9 +277,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bfloat16 cache), granite-moe-3b-a800m, mamba2-780m, zamba2-1.2b and
    whisper-base, and internvl2-26b in bfloat16 through BatchedServer's
    loop over ``make_serve_step`` (its float32 weights do not fit): 8 slots
-   x 256 prompt tokens from ``numpy.random.RandomState(0)`` (one batched
-   prefill for dense and MoE, a serve step a token otherwise), then 128
-   greedy tokens; launch counts zeroed just before and read just after:
+   x 256 prompt tokens from ``numpy.random.RandomState(0)`` in one
+   batched prefill for dense and MoE, 32 a serve step a token otherwise,
+   then 32 greedy tokens; launch counts zeroed just before and read just after:
    the decode kernel once a layer a step (a shared-attention site for
    Zamba2, self and cross for Whisper, none for Mamba2), flash once a
    layer a batched prefill, the SSD scan and V-trace never; prefill and
@@ -298,7 +300,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the bfloat16 cache, whose rounding each device does on its own, the
    CPU's cache is copied to the card before each step, and the cache
    elements the two write differently are counted, with their largest gap
-   over their leaf's largest |value|.
+   over their leaf's largest |value|;
+25. training: (a) ``repro_torch.launch.train.main`` as a user runs it on
+   Zamba2-1.2B at full width and depth (``--full-size --steps 20 --batch
+   4 --seq 1024``: float32, remat "none", Adam with a cosine schedule and
+   clip 1.0, weights from seed 0 on the card's generator), each step
+   timed by CUDA events: it must return 0 (the CE fell), and each step
+   launch the SSD scan 38 times and flash attention 6 times; prints the
+   CE first and last, steps/s, tokens/s, step p50/p95, the peak memory,
+   then one more step under torch.profiler (device ms in GEMMs, in the
+   flash and SSD kernels, and in their autograd Functions'
+   plain-recompute backwards; the idle share) with the optimizer update's
+   own peak in param-sized copies, and the two backwards timed at the
+   step's shapes; (b) qwen3-1.7b at its published width and 4 of its 28
+   layers (Adam's update holds ~11 param-sized float32 copies: the full
+   depth would need ~89 GB) through ``make_train_step(remat="full",
+   microbatches=2)``, 3 steps of 4 x 2048 tokens: flash launched 16 times
+   a step (twice a layer a microbatch), the first step's loss and grads
+   (Adam's first moments) equal to remat "none"'s within 1e-6 of each
+   leaf's largest, step ms and peak memory; (c) one ``remat="full"`` step
+   of a reduced config of each family (and the DQN objective for dense
+   and MoE) on the card against the CPU's plain versions from the same
+   state: metrics, params, Adam's moments and the target within 1e-4 of
+   each leaf's largest, exact launch counts, MoE tokens rerouted between
+   the two routes at most 1%.
 
 Phases 17-19, 21 and 22's DQN parts launch none of the four kernels: each
 zeros the launch counts before it and requires 0 after.  The actor
@@ -378,7 +403,7 @@ ZAMBA_BATCHES = 3
 ZAMBA_BATCH = 4
 ZAMBA_SEQ = 2048
 # step times: the 3 counted batches, then the same batches in turn
-ZAMBA_TIMED_STEPS = 20
+ZAMBA_TIMED_STEPS = 8
 # Kernel route vs plain route: |d last_logits| <= this x the largest plain
 # |logit| (f32 sums in other orders through 38 Mamba2 layers and 6
 # attention sites; greedy actions must agree where the plain top-2 margin
@@ -391,7 +416,7 @@ REDUCED_TOL = 1e-4        # the same rule: reduced Zamba2, card vs CPU
 DQN_QUICKSTART = dict(min_replay_size=50, samples_per_insert=0.0,
                       batch_size=32, n_step=1, epsilon=0.2)
 DQN_EPISODES = 250
-DQN_PROFILED_EPISODES = 20
+DQN_PROFILED_EPISODES = 10
 DQN_PROFILED_STEPS = 50
 # the card learner against the CPU learner after 10 steps, max |d| over
 # the CPU's largest magnitude per leaf (TF32 off: the same f32 math in
@@ -488,7 +513,7 @@ CONTINUOUS_KINK_TOL = 1e-3
 CONTINUOUS_DUAL_TOL = 1e-3
 CONTINUOUS_DUALS = ("log_temp", "log_alpha_mean", "log_alpha_std")
 CONTINUOUS_BATCHES = 10
-CONTINUOUS_TIMED_STEPS = 50
+CONTINUOUS_TIMED_STEPS = 25
 # Phase 19: examples/offline_bc.py (120 expert Catch episodes, BCConfig(),
 # 400 learner steps, 25 eval episodes); the reference's BC and offline DQN
 # acceptance (tests/test_system.py:51-104) and MCTS acceptance
@@ -513,6 +538,9 @@ FIG17_POLICY = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
                     samples_per_insert=0.0, backend="auto")
 FIG17_ACTORS = 4
 FIG17_STEPS = 1500
+# phase 22's two fig17 runs (with failover and without): a quarter of
+# fig17's 3000, for the script's time limit
+FIG17_FAILOVER_STEPS = 750
 FIG17_TIMEOUT_S = 300.0
 # Phase 21: the reference's distributed DQN acceptances on the card:
 # tests/test_distributed.py:631-662 (2 replay shards, an evaluator, 4000
@@ -534,7 +562,7 @@ ONE_REPLICA_STEPS = 10
 # (the like-for-like run the learner step's host ms is compared with).
 # The replicas start once each shard holds min_replay_size sequences; the
 # kill fires at replica 1's 10th step and at the service's 10th push or
-# pull (5 exchanges), both in the first fifth of the replicas' steps.
+# pull (5 exchanges), both early in the replicas' steps.
 FIG17_FAILOVER = dict(num_learner_replicas=2, learner_average_period=10,
                       learner_sync="async")
 FIG17_KILL_AFTER = 10
@@ -592,7 +620,7 @@ ZOO_BATCHES = 3
 ZOO_BATCH = 4
 ZOO_SEQ = 2048            # positions a request (the VLM's: vision + text)
 WHISPER_TEXT = 448        # Whisper's decoder context, over 1500 frames
-ZOO_TIMED_STEPS = 8       # the 3 counted batches, then the same in turn
+ZOO_TIMED_STEPS = 5       # the 3 counted batches, then the same in turn
 # Kernel route vs plain route, the phase-10 rule: |d last_logits| <= this x
 # the largest plain |logit|; greedy actions equal where the plain top-2
 # margin exceeds twice that.  float32 as phase 10.  bfloat16 (the VLM):
@@ -625,19 +653,26 @@ SERVE_ZOO = [("qwen3-1.7b", "float32", "float32", "server"),
              ("whisper-base", "float32", "float32", "server"),
              ("internvl2-26b", "bfloat16", "bfloat16", "direct")]
 SERVE_SLOTS = 8
+# prompt tokens: one batched prefill for dense and MoE; the families that
+# take a prompt a serve step a token (SSM, hybrid, audio, the VLM's loop)
+# get a shorter one, and every family decodes SERVE_DECODE tokens: depth
+# cut from 256 and 128 (and the parity check below from 32 and 16) for the
+# script's time limit
 SERVE_PROMPT = 256
-SERVE_DECODE = 128
+SERVE_STEPPED_PROMPT = 32
+SERVE_DECODE = 32
 # steps at the cache's last position timed synced after each, then unsynced
 SERVE_SYNC_STEPS = 8
 # the kernel route against the plain route, teacher-forced on the timed
 # run's tokens: the whole prompt where it is one batched prefill, else its
 # first PARITY_PROMPT tokens a step each, then PARITY_STEPS decode steps
 # (a step of the 48-layer VLM takes ~60-90 ms of host time on each route)
-PARITY_PROMPT = 32
-PARITY_STEPS = 16
+PARITY_PROMPT = 16
+PARITY_STEPS = 8
 # the decode kernel at the serving shapes (phase 5): (label, config, q
-# dtype, cache dtype), b SERVE_SLOTS, a full cache of SERVE_PROMPT +
-# SERVE_DECODE keys
+# dtype, cache dtype), b SERVE_SLOTS, a full cache of DECODE_SERVING_KEYS
+# keys (256 prompt tokens and 128 decoded)
+DECODE_SERVING_KEYS = 384
 DECODE_SERVING = [("qwen3_1_7b", "qwen3-1.7b", "float32", "float32"),
                   ("qwen3_1_7b_bf16_cache", "qwen3-1.7b", "float32",
                    "bfloat16"),
@@ -647,6 +682,38 @@ DECODE_SERVING = [("qwen3_1_7b", "qwen3-1.7b", "float32", "float32"),
 # token, BatchedServer on reduced qwen3-1.7b, 8 slots x 32 tokens, 20 timed
 # prefills of each after one untimed
 FIG17_PREFILL = dict(slots=8, length=32, iters=20, ratio=4.0)
+# Phase 25: training.  (a) launch/train.py's ``main`` on Zamba2-1.2B at
+# full width and depth, as a user runs it (float32, remat "none", one
+# microbatch, Adam with a cosine schedule and clip 1.0), 4 x 1024 tokens:
+# each sequence spans four 256-token SSD chunks.
+TRAIN_ZAMBA_ARGV = ["--arch", ZAMBA, "--full-size", "--steps", "20",
+                    "--batch", "4", "--seq", "1024"]
+TRAIN_ZAMBA_STEPS = 20
+TRAIN_ZAMBA_SHAPE = (4, 1024)
+# (b) qwen3-1.7b at its published width (d_model 2048, 16/8 heads of 128,
+# d_ff 6144, vocab 151,936) and 4 of its 28 layers: Adam's update holds ~11
+# param-sized float32 copies, and the full depth's 2.03 B params (8.1 GB a
+# copy) would need ~89 GB.  make_train_step(remat="full", microbatches=2)
+# with train.py's optimizer, 3 steps of 4 x 2048 tokens; its first step's
+# loss and grads (Adam's first moments, 0.1 x the clipped grads) equal
+# remat="none"'s within TRAIN_REMAT_TOL of each leaf's largest magnitude
+TRAIN_DENSE = "qwen3-1.7b"
+TRAIN_DENSE_LAYERS = 4
+TRAIN_DENSE_SHAPE = (4, 2048)
+TRAIN_DENSE_STEPS = 3
+TRAIN_DENSE_MICROBATCHES = 2
+TRAIN_REMAT_TOL = 1e-6
+# (c) one step of a reduced config of each family (and the DQN objective
+# for dense and MoE) on the card's kernels against the CPU's plain
+# versions from the same state: loss, params, Adam's moments and the
+# target within TRAIN_CARD_TOL of each leaf's largest magnitude
+TRAIN_FAMILIES = [("qwen3-1.7b", "bc"), ("qwen3-1.7b", "dqn"),
+                  ("granite-moe-3b-a800m", "bc"),
+                  ("granite-moe-3b-a800m", "dqn"), ("mamba2-780m", "bc"),
+                  ("zamba2-1.2b", "bc"), ("internvl2-26b", "bc"),
+                  ("whisper-base", "bc")]
+TRAIN_REDUCED_SHAPE = (2, 64)
+TRAIN_CARD_TOL = 1e-4
 # flash attention at the zoo's attention shapes (phases 2 and 5): (label,
 # b, h, kv, sq, sk, d, causal, the dtypes checked; the first is the path's,
 # timed in phase 5).  Whisper's 1500 keys end inside a 64-key tile; f32
@@ -1082,9 +1149,12 @@ def time_vtrace(kernel, ref, torch, T, B, batch_major):
         check(len(names) == 1 and "vtrace_kernel" in names[0],
               f"vtrace: one call launched {names}, not vtrace_kernel alone")
         timed["cuda_launches_per_call"] = 1
+    # the plain version loops over T in Python: 20 calls a sample, not 200
     for prefix, fn in calls.items():
-        timed[f"{prefix}ms"] = time_ms(fn, graph=True)
-        timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
+        launches = 20 if prefix else 200
+        timed[f"{prefix}ms"] = time_ms(fn, launches=launches, graph=True)
+        timed[f"eager_{prefix}ms"] = time_ms(fn, launches=launches,
+                                             graph=False)
     return timed
 
 
@@ -2036,8 +2106,8 @@ def zamba2_path(torch, kernels, cfg):
     from repro_torch.models import transformer
 
     t0 = time.monotonic()
-    params = transformer.init(torch.Generator().manual_seed(SEED), cfg,
-                              device="cuda")
+    params = transformer.init(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in tree.leaves(params))
@@ -2594,7 +2664,8 @@ def kernel_grads(torch, kernels, zamba):
         dtype=torch.float32, device="cuda")
 
     def zamba_loss(p):
-        feats, _ = transformer.forward_features(p, small, {"tokens": tokens})
+        feats, _ = transformer.forward_features(p, small, {"tokens": tokens},
+                                                remat="none")
         logits = layers.unembed(transformer.unembed_table(p, small), feats)
         return (logits * weights).sum()
 
@@ -3860,7 +3931,8 @@ def fig17_failover(torch, kernels, fig17):
         with RestoreLog(replicas) as restores:
             result, entry = distributed_run(
                 torch, kernels, config, num_actors=FIG17_ACTORS,
-                max_actor_steps=FIG17_STEPS, timeout_s=FIG17_TIMEOUT_S)
+                max_actor_steps=FIG17_FAILOVER_STEPS,
+                timeout_s=FIG17_TIMEOUT_S)
         merged = result.extras["telemetry"]["merged"]
         learners = result.extras["learners"]
         executed = merged["learner/step_ms"]["count"]
@@ -3892,7 +3964,7 @@ def fig17_failover(torch, kernels, fig17):
         })
         log(f"  fig17 async, {name}: {json.dumps(entry)}")
         launches = entry["launches"]
-        check(entry["actor_steps"] >= FIG17_STEPS, f"fig17 {name}: "
+        check(entry["actor_steps"] >= FIG17_FAILOVER_STEPS, f"fig17 {name}: "
               f"{entry['actor_steps']} actor steps")
         check(all(n > 0 for n in learners["per_replica_steps"])
               and learners["sync"] == "async" and learners["rounds"] >= 1,
@@ -4490,7 +4562,8 @@ def serve_parity(torch, cfg, params, cache_dtype, prompts, tokens, rel_tol):
 def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
                  server=None):
     """One config served at full width and depth: SERVE_SLOTS requests of
-    SERVE_PROMPT tokens, then SERVE_DECODE greedy tokens, through
+    SERVE_PROMPT tokens (SERVE_STEPPED_PROMPT where the prompt goes a
+    serve step a token), then SERVE_DECODE greedy tokens, through
     ``BatchedServer.generate`` (``how`` "server"; ``server`` reuses one
     already drawn) or its loop over ``make_serve_step`` ("direct"), which
     sync once, at the end; a CUDA event after each prefill call and serve
@@ -4506,7 +4579,9 @@ def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
 
     cfg = configs.get_arch(name)
     dtype = getattr(torch, dtype_name)
-    max_len = SERVE_PROMPT + SERVE_DECODE
+    batched = how == "server" and cfg.arch_type in ("dense", "moe")
+    prompt_len = SERVE_PROMPT if batched else SERVE_STEPPED_PROMPT
+    max_len = prompt_len + SERVE_DECODE
     t0 = time.monotonic()
     if how == "server":
         if server is None:
@@ -4525,8 +4600,9 @@ def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in tree.leaves(params))
     prompts = np.random.RandomState(SEED).randint(
-        0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT)).astype(np.int32)
-    batched = how == "server" and server._prefill is not None
+        0, cfg.vocab_size, (SERVE_SLOTS, prompt_len)).astype(np.int32)
+    check(batched == (how == "server" and server._prefill is not None),
+          f"{name}: BatchedServer's batched prefill is not the expected one")
 
     step_events, prefill_events = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -4554,8 +4630,8 @@ def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
     launches = kernel_launches(kernels)
     peak = torch.cuda.max_memory_allocated()
     if not batched:             # the prompt went a serve step a token
-        prefill_events, step_events = (step_events[:SERVE_PROMPT],
-                                       step_events[SERVE_PROMPT:])
+        prefill_events, step_events = (step_events[:prompt_len],
+                                       step_events[prompt_len:])
 
     decode_steps = SERVE_DECODE - 1
     check(len(step_events) == decode_steps and len(prefill_events) >= 1,
@@ -4571,7 +4647,7 @@ def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
           f"{name}: bad tokens {tokens.shape} {tokens.dtype}")
     per_step = decode_launches_per_step(cfg)
     expected = {"decode_attention": per_step * (
-                    decode_steps + (0 if batched else SERVE_PROMPT)),
+                    decode_steps + (0 if batched else prompt_len)),
                 "flash_attention": cfg.num_layers if batched else 0,
                 "ssd_scan": 0, "vtrace": 0}
     check(launches == expected, f"{name}: launches {launches}, expected "
@@ -4618,10 +4694,10 @@ def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
     entry = {
         "config": name, "arch_type": cfg.arch_type, "dtype": dtype_name,
         "cache_dtype": cache_dtype, "driven_by": how, "n_params": n_params,
-        "init_s": init_s, "slots": SERVE_SLOTS, "prompt": SERVE_PROMPT,
+        "init_s": init_s, "slots": SERVE_SLOTS, "prompt": prompt_len,
         "decode": SERVE_DECODE, "batched_prefill": batched,
         "launches": launches, "decode_launches_per_step": per_step,
-        "prefill_tokens_per_s": SERVE_SLOTS * SERVE_PROMPT / prefill_s,
+        "prefill_tokens_per_s": SERVE_SLOTS * prompt_len / prefill_s,
         "decode_tokens_per_s": SERVE_SLOTS * decode_steps / decode_s,
         "prefill_ms": prefill_s * 1e3,
         "step_ms_p50": float(np.percentile(step_ms, 50)),
@@ -4791,7 +4867,7 @@ def time_decode_serving(kernel, ref, torch, plan_splits):
     from repro_torch import configs
 
     shapes = []
-    length = SERVE_PROMPT + SERVE_DECODE
+    length = DECODE_SERVING_KEYS
     for label, name, dtype_name, kv_dtype in DECODE_SERVING:
         cfg = configs.get_arch(name)
         entry = time_decode_shape(kernel, ref, torch, plan_splits,
@@ -4835,6 +4911,466 @@ def zoo_serving(torch, kernels):
                ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-780m",
                 "zamba2-1.2b", "internvl2-26b", "whisper-base")}
     return {"configs": results, "fig17": fig17, "reduced": reduced}
+
+
+# ------------------------------------------------------------- training
+def train_optimizer(steps, lr=3e-4):
+    """launch/train.py's optimizer for a run of ``steps`` steps."""
+    from repro_torch.optim import adam, cosine_schedule
+    return adam(cosine_schedule(lr, steps, warmup_steps=10), clip=1.0)
+
+
+def kernel_sites(cfg):
+    """(attention sites, Mamba2 layers) of one forward pass: flash
+    launches once a site (Whisper's encoder, its decoder's self- and
+    cross-attention) and the SSD scan once a layer."""
+    if cfg.arch_type in ("dense", "moe", "vlm"):
+        return cfg.num_layers, 0
+    if cfg.arch_type == "ssm":
+        return 0, cfg.num_layers
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every, cfg.num_layers
+    return cfg.encoder_layers + 2 * cfg.num_layers, 0
+
+
+def train_launches(cfg, objective, remat, microbatches=1):
+    """Kernel launches of one train step: the forward with grad once a
+    site or layer, twice under remat (a checkpointed block runs again in
+    the backward, its kernels included), DQN's target forward (no grad)
+    once more, for each microbatch; a backward (plain recompute) none."""
+    attention, mamba = kernel_sites(cfg)
+    passes = (1 if remat == "none" else 2) + (objective == "dqn")
+    return {"flash_attention": attention * passes * microbatches,
+            "ssd_scan": mamba * passes * microbatches,
+            "decode_attention": 0, "vtrace": 0}
+
+
+def device_time(events, DeviceType):
+    """Device ms of the CUDA entries of ``key_averages()``, and them."""
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sum(e.self_device_time_total for e in cuda) / 1e3, cuda
+
+
+def backward_device_ms(prof, name):
+    """Device ms of the kernels launched inside the backward of autograd
+    Function ``name`` (its plain recompute), over the outermost profiler
+    events that carry its name, and their count."""
+    outer = []
+    for e in prof.events():
+        if name not in e.name:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and name not in parent.name:
+            parent = parent.cpu_parent
+        if parent is None:
+            outer.append(e)
+    return sum(e.device_time_total for e in outer) / 1e3, len(outer)
+
+
+def profile_train_step(torch, run):
+    """``run()`` (one train step) under torch.profiler: the wall ms, the
+    device's busy ms and idle share, and device ms by kind: the flash and
+    SSD kernels' forwards, their autograd Functions' plain-recompute
+    backwards, and GEMMs (any kernel named ``*gemm*``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    device_ms, cuda = device_time(prof.key_averages(), DeviceType)
+    if device_ms == 0:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+
+    def kind(test):
+        return sum(e.self_device_time_total for e in cuda
+                   if test(e.key.lower())) / 1e3
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": 1 - device_ms / wall_ms,
+           "gemm_ms": kind(lambda k: "gemm" in k),
+           "flash_forward_ms": kind(lambda k: "flash_attention_kernel" in k),
+           "ssd_forward_ms": kind(lambda k: "ssd_" in k and "kernel" in k)}
+    for key, fn in (("flash_backward", "FlashAttentionFunctionBackward"),
+                    ("ssd_backward", "SSDScanFunctionBackward")):
+        out[f"{key}_ms"], out[f"{key}_calls"] = backward_device_ms(prof, fn)
+    for key in ("gemm", "flash_forward", "ssd_forward", "flash_backward",
+                "ssd_backward"):
+        out[f"{key}_share"] = out[f"{key}_ms"] / device_ms
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]
+    out["top"] = [(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                  for e in top]
+    log(f"  profile of one train step: wall {wall_ms:.1f} ms, device busy "
+        f"{device_ms:.1f} ms, idle share {out['idle_share']:.3f}; GEMMs "
+        f"{out['gemm_ms']:.1f} ms ({out['gemm_share']:.3f}), plain-recompute "
+        f"backwards: flash {out['flash_backward_ms']:.1f} ms "
+        f"({out['flash_backward_share']:.3f}, {out['flash_backward_calls']} "
+        f"calls), SSD {out['ssd_backward_ms']:.1f} ms "
+        f"({out['ssd_backward_share']:.3f}, {out['ssd_backward_calls']} "
+        f"calls); kernel forwards: flash {out['flash_forward_ms']:.1f} ms, "
+        f"SSD {out['ssd_forward_ms']:.1f} ms")
+    for key, count, ms in out["top"]:
+        log(f"    {ms:9.3f} ms  x{count:<5d} {key}")
+    return out
+
+
+def measured_update(torch, opt, steps_module, record):
+    """``opt`` with its update measured: the device memory allocated just
+    before ``update`` and the peak from there to the end of the
+    ``apply_updates`` that follows it (patched in ``steps_module``), into
+    ``record``.  Resets the allocator's peak."""
+    from repro_torch.optim import Optimizer
+    apply = steps_module.apply_updates
+
+    def update(grads, state, params=None):
+        record["before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return opt.update(grads, state, params)
+
+    def apply_updates(params, updates):
+        out = apply(params, updates)
+        record["peak"] = torch.cuda.max_memory_allocated()
+        return out
+    return Optimizer(opt.init, update), apply_updates
+
+
+def train_zamba2(torch, kernels):
+    """Phase 25 (a): ``launch.train.main`` on Zamba2-1.2B at full width
+    and depth, each step timed by CUDA events (``make_train_step``
+    wrapped; the step itself is train.py's); exact launch counts; the CE
+    must fall.  Then one more step under torch.profiler with its optimizer
+    update's memory measured, and the plain-recompute backwards timed at
+    the step's attention and SSD shapes."""
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+
+    seen = {"events": [], "ce": []}
+    make = train.make_train_step
+
+    def timed_make(cfg, opt, **kwargs):
+        seen.update(cfg=cfg, opt=opt, kwargs=kwargs)
+        step = make(cfg, opt, **kwargs)
+
+        def timed(state, batch):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+            seen["events"].append((start, end))
+            seen["ce"].append(metrics["ce"])
+            seen.update(state=state, batch=batch)
+            return state, metrics
+        return timed
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    t0 = time.monotonic()
+    with mock.patch.object(train, "make_train_step", timed_make):
+        rc = train.main(TRAIN_ZAMBA_ARGV)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = kernel_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = seen["cfg"]
+    per_step = train_launches(cfg, "bc", seen["kwargs"]["remat"])
+    ce = [float(x) for x in seen["ce"]]
+    step_ms = [a.elapsed_time(b) for a, b in seen["events"]]
+    check(rc == 0, f"train.main({' '.join(TRAIN_ZAMBA_ARGV)}) returned {rc}: "
+          f"the CE did not fall ({ce[0]} -> {ce[-1]})")
+    check(all(math.isfinite(x) for x in ce), f"non-finite CE: {ce}")
+    check(launches == {k: n * TRAIN_ZAMBA_STEPS for k, n in per_step.items()},
+          f"train.main on {ZAMBA}: launches {launches}, expected "
+          f"{per_step} a step x {TRAIN_ZAMBA_STEPS}")
+    b, s = TRAIN_ZAMBA_SHAPE
+    params = seen["state"].params
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(params))
+    p50 = float(np.percentile(step_ms, 50))
+    p95 = float(np.percentile(step_ms, 95))
+    out = {"argv": TRAIN_ZAMBA_ARGV, "rc": rc, "ce_first": ce[0],
+           "ce_last": ce[-1], "launches": launches,
+           "launches_per_step": per_step, "wall_s": wall_s,
+           "step_ms": step_ms, "step_ms_p50": p50, "step_ms_p95": p95,
+           "steps_per_s": 1e3 * len(step_ms) / sum(step_ms),
+           "tokens_per_s": 1e3 * len(step_ms) * b * s / sum(step_ms),
+           "peak_gib": peak / 2 ** 30, "param_gb": param_bytes / 1e9}
+    log(f"  {ZAMBA}: {TRAIN_ZAMBA_STEPS} steps of {b} x {s} tokens through "
+        f"train.main in {wall_s:.1f} s (init included): CE {ce[0]:.4f} -> "
+        f"{ce[-1]:.4f}; launches {launches}; step ms (CUDA events) p50 "
+        f"{p50:.3f} p95 {p95:.3f} min {min(step_ms):.3f} max "
+        f"{max(step_ms):.3f}; {out['steps_per_s']:.4f} steps/s, "
+        f"{out['tokens_per_s']:.1f} tokens/s; peak {out['peak_gib']:.3f} "
+        f"GiB; params {param_bytes / 1e9:.3f} GB")
+
+    record = {}
+    opt, apply_updates = measured_update(torch, seen["opt"], steps, record)
+    step = make(cfg, opt, **seen["kwargs"])
+    state, batch = seen.pop("state"), seen.pop("batch")
+    with mock.patch.object(steps, "apply_updates", apply_updates):
+        out["profile"] = profile_train_step(
+            torch, lambda: step(state, batch))
+    del state
+    out["update"] = {
+        "allocated_before_gib": record["before"] / 2 ** 30,
+        "peak_gib": record["peak"] / 2 ** 30,
+        "peak_param_copies": record["peak"] / param_bytes,
+        "rise_param_copies": (record["peak"] - record["before"])
+        / param_bytes}
+    log(f"  the optimizer update (Adam, clip, apply_updates) alone: "
+        f"{out['update']['allocated_before_gib']:.3f} GiB allocated before, "
+        f"peak {out['update']['peak_gib']:.3f} GiB = "
+        f"{out['update']['peak_param_copies']:.2f} param-sized copies "
+        f"({out['update']['rise_param_copies']:.2f} above what was live)")
+
+    # the plain-recompute backwards at this step's shapes
+    torch.cuda.empty_cache()
+    qkv = [t.requires_grad_() for t in flash_inputs(
+        b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.head_dim,
+        torch.float32, np.random.RandomState(SEED + 25))]
+    fwd, bwd = time_backward(torch, lambda *t: ops.flash_attention(
+        *t, causal=True, window=cfg.sliding_window), qkv)
+    out["flash_attention"] = {"shape": [b, cfg.num_heads, s, cfg.head_dim],
+                              "fwd_ms": fwd, "bwd_ms": bwd}
+    del qkv
+    ssm = cfg.ssm
+    inputs = [t.requires_grad_() for t in ssd_inputs(
+        b, s, ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
+        np.random.RandomState(SEED + 26), model_like=True)]
+    fwd, bwd = time_backward(torch, lambda *t: ops.ssd_scan(
+        *t, chunk=ssm.chunk_size), inputs)
+    out["ssd_scan"] = {"shape": [b, s, ssm.num_heads(cfg.d_model),
+                                 ssm.head_dim, ssm.d_state],
+                       "fwd_ms": fwd, "bwd_ms": bwd}
+    del inputs
+    for name in ("flash_attention", "ssd_scan"):
+        entry = out[name]
+        entry["bwd_ms_per_step"] = entry["bwd_ms"] * per_step[name]
+        log(f"  {name} at the training shape {entry['shape']}, eager ms: "
+            f"forward kernel {entry['fwd_ms']:.3f}, backward (plain "
+            f"recompute) {entry['bwd_ms']:.3f}; x{per_step[name]} a step = "
+            f"{entry['bwd_ms_per_step']:.1f} ms, "
+            f"{entry['bwd_ms_per_step'] / p50:.3f} of the step's p50")
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_moments(state):
+    from repro_torch import tree
+    return tree.leaves(state.opt_state.mu)
+
+
+def train_dense_width(torch, kernels):
+    """Phase 25 (b): qwen3-1.7b's published width at TRAIN_DENSE_LAYERS
+    layers, make_train_step(remat="full", microbatches=2): the first step
+    against remat="none" from the same state (loss, and every grad leaf
+    through Adam's first moments), then TRAIN_DENSE_STEPS steps timed by
+    CUDA events with exact flash launches and the peak memory of the
+    steps after the first (which holds remat "none"'s moments beside its
+    own to compare them)."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.launch import steps, train
+
+    cfg = dataclasses.replace(configs.get_arch(TRAIN_DENSE),
+                              num_layers=TRAIN_DENSE_LAYERS)
+    opt = train_optimizer(TRAIN_DENSE_STEPS)
+    b, s = TRAIN_DENSE_SHAPE
+    state = steps.init_train_state(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, opt,
+        device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(state.params))
+    batch = train.make_corpus_sampler(cfg.vocab_size, s, b)()
+    out = {"config": f"{TRAIN_DENSE} at {TRAIN_DENSE_LAYERS} of its "
+           f"{configs.get_arch(TRAIN_DENSE).num_layers} layers",
+           "n_params": n_params, "shape": [b, s],
+           "microbatches": TRAIN_DENSE_MICROBATCHES}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain_step = steps.make_train_step(
+        cfg, opt, remat="none", microbatches=TRAIN_DENSE_MICROBATCHES)
+    after, metrics_none = plain_step(state, batch)
+    mu_none = first_moments(after)
+    del after
+    out["peak_gib_remat_none"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    step = steps.make_train_step(cfg, opt, remat="full",
+                                 microbatches=TRAIN_DENSE_MICROBATCHES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    times = []
+    for i in range(TRAIN_DENSE_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        times.append((start, end))
+        if i == 0:
+            launches = kernel_launches(kernels)
+            first = metrics
+            worst = 0.0
+            for a, c in zip(first_moments(state), mu_none):
+                scale = max(c.abs().max().item(), 1e-30)
+                worst = max(worst, (a - c).abs().max().item() / scale)
+            # the peak over the steps after, without remat "none"'s moments
+            del mu_none
+            torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(c) for a, c in times]
+    per_step = train_launches(cfg, "bc", "full", TRAIN_DENSE_MICROBATCHES)
+    loss_err = {k: abs(float(first[k]) - float(metrics_none[k]))
+                / max(abs(float(metrics_none[k])), 1e-30)
+                for k in metrics_none}
+    out.update(launches_first_step=launches, launches_per_step=per_step,
+               step_ms=step_ms, step_ms_p50=float(np.percentile(step_ms, 50)),
+               tokens_per_s=1e3 * b * s * len(step_ms) / sum(step_ms),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               remat_full_vs_none={"metrics_rel_err": loss_err,
+                                   "grads_max_rel_err": worst},
+               ce=[float(first["ce"]), float(metrics["ce"])])
+    log(f"  {out['config']} ({n_params} parameters, float32), "
+        f"{TRAIN_DENSE_STEPS} steps of {b} x {s} tokens in "
+        f"{TRAIN_DENSE_MICROBATCHES} microbatches under remat 'full': "
+        f"flash launches in the first step {launches['flash_attention']}; "
+        f"step ms {', '.join(f'{t:.1f}' for t in step_ms)}; "
+        f"{out['tokens_per_s']:.1f} tokens/s; peak {out['peak_gib']:.3f} "
+        f"GiB (remat 'none': {out['peak_gib_remat_none']:.3f}); CE "
+        f"{out['ce'][0]:.4f} -> {out['ce'][1]:.4f}; first step against "
+        f"remat 'none': metrics {loss_err}, grads {worst:.3e} of each "
+        f"leaf's largest (tol {TRAIN_REMAT_TOL})")
+    check(launches == per_step, f"{out['config']}: launches {launches} in "
+          f"the first step, expected {per_step}")
+    check(worst <= TRAIN_REMAT_TOL
+          and all(e <= TRAIN_REMAT_TOL for e in loss_err.values()),
+          f"{out['config']}: remat 'full' against 'none': grads {worst}, "
+          f"metrics {loss_err} (tol {TRAIN_REMAT_TOL})")
+    check(all(math.isfinite(x) for x in out["ce"]), f"non-finite CE "
+          f"{out['ce']}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_batch(cfg, objective, seed=SEED):
+    """A numpy batch of TRAIN_REDUCED_SHAPE: tokens, labels, rewards,
+    discounts, and the VLM's vision or Whisper's frames (0.1 x normal)."""
+    b, s = TRAIN_REDUCED_SHAPE
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (b, s)),
+             "labels": rng.randint(0, cfg.vocab_size, (b, s)),
+             "rewards": rng.rand(b, s).astype(np.float32),
+             "discounts": (0.9 * (rng.rand(b, s) > 0.1)).astype(np.float32)}
+    extra = {"vlm": ("vision", cfg.vision_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.arch_type)
+    if extra:
+        batch[extra[0]] = (0.1 * rng.randn(b, extra[1], cfg.d_model)
+                           ).astype(np.float32)
+    return batch
+
+
+def train_card_vs_cpu(torch, kernels, name, objective):
+    """Phase 25 (c): one make_train_step(remat="full") step of a reduced
+    ``name`` on the card's kernels against the CPU's plain versions from
+    the same state (train.py's optimizer): the metrics, and params, Adam's
+    moments (the first are 0.1 x the clipped grads) and the DQN target
+    leaf for leaf, within TRAIN_CARD_TOL of each leaf's largest magnitude;
+    exact launch counts; for MoE the tokens a router sends to another
+    expert on one route, counted under MOE_REROUTED_MAX."""
+    from repro_torch import configs, tree
+    from repro_torch.launch import steps
+
+    cfg = configs.reduced(configs.get_arch(name))
+    opt = train_optimizer(20)
+    cpu = steps.init_train_state(torch.Generator().manual_seed(SEED), cfg,
+                                 opt, device="cpu", objective=objective)
+    card = tree.map(lambda t: t.to("cuda"), cpu)
+    batch = train_batch(cfg, objective)
+    step = steps.make_train_step(cfg, opt, objective=objective, remat="full")
+
+    zero_launches(kernels)
+    if cfg.arch_type == "moe":
+        (card, card_metrics), card_choices = router_choices(
+            lambda: step(card, batch))
+        launches = kernel_launches(kernels)
+        (cpu, cpu_metrics), cpu_choices = router_choices(
+            lambda: step(cpu, batch))
+        check(len(card_choices) == len(cpu_choices),
+              f"{name}: {len(card_choices)} and {len(cpu_choices)} router "
+              "calls")
+        rerouted = routed = 0
+        layers = cfg.num_layers
+        for i in range(0, len(card_choices), layers):
+            _, moved = differing_choices(
+                torch, cfg, card_choices[i:i + layers],
+                [c.to("cuda") for c in cpu_choices[i:i + layers]],
+                TRAIN_REDUCED_SHAPE)
+            rerouted += int(moved.sum())
+            routed += moved.numel()
+        check(rerouted <= MOE_REROUTED_MAX * routed,
+              f"{name} {objective}: {rerouted} of {routed} routed tokens "
+              f"rerouted, more than {MOE_REROUTED_MAX:.0%}")
+        routing = {"rerouted_tokens": rerouted, "routed_tokens": routed}
+    else:
+        card, card_metrics = step(card, batch)
+        launches = kernel_launches(kernels)
+        cpu, cpu_metrics = step(cpu, batch)
+        routing = None
+    expected = train_launches(cfg, objective, "full")
+    check(launches == expected, f"reduced {name} {objective} train step: "
+          f"launches {launches}, expected {expected}")
+
+    worst = {}
+    for key in cpu_metrics:
+        a, c = float(card_metrics[key]), float(cpu_metrics[key])
+        worst[f"metric_{key}"] = abs(a - c) / max(abs(c), 1e-30)
+    for part, a_tree, c_tree in (
+            ("params", card.params, cpu.params),
+            ("mu", card.opt_state.mu, cpu.opt_state.mu),
+            ("nu", card.opt_state.nu, cpu.opt_state.nu),
+            ("target", card.target_params, cpu.target_params)):
+        err = 0.0
+        for a, c in zip(tree.leaves(a_tree), tree.leaves(c_tree)):
+            scale = max(c.abs().max().item(), 1e-30)
+            err = max(err, (a.cpu() - c).abs().max().item() / scale)
+        if c_tree is not None:
+            worst[part] = err
+    log(f"  reduced {name} ({cfg.arch_type}), {objective}, remat 'full', "
+        f"card kernels vs CPU plain versions after one step: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (tol {TRAIN_CARD_TOL}); launches {launches}"
+        + ("" if routing is None else f"; rerouted {routing}"))
+    check(all(v <= TRAIN_CARD_TOL for v in worst.values()),
+          f"reduced {name} {objective} train step, card vs CPU: {worst} "
+          f"(tol {TRAIN_CARD_TOL})")
+    return {"config": name, "objective": objective, "launches": launches,
+            "max_rel_err": worst, "routing": routing}
+
+
+def training(torch, kernels):
+    """Phase 25: (a) train.main on Zamba2-1.2B, (b) qwen3-1.7b's width
+    under full remat and microbatches, (c) reduced families card vs CPU."""
+    t0 = time.monotonic()
+    out = {"zamba2": train_zamba2(torch, kernels)}
+    out["zamba2"]["seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["dense_width"] = train_dense_width(torch, kernels)
+    out["dense_width"]["seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["reduced"] = [train_card_vs_cpu(torch, kernels, name, objective)
+                      for name, objective in TRAIN_FAMILIES]
+    out["reduced_seconds"] = time.monotonic() - t0
+    return out
 
 
 def main() -> int:
@@ -5038,7 +5574,8 @@ def main() -> int:
           f"phase 21 launched a kernel: {launches}")
 
     phase(f"phase 22: fault tolerance on the card — fig17's policy with two "
-          f"async replicas, {FIG17_ACTORS} actor processes, {FIG17_STEPS} "
+          f"async replicas, {FIG17_ACTORS} actor processes, "
+          f"{FIG17_FAILOVER_STEPS} "
           f"actor steps, chaos kills of {' and '.join(FIG17_KILL_TARGETS)} "
           f"and a run without; the reference's four resilience "
           f"acceptances; fig20's async vs barrier; blends card vs CPU")
@@ -5060,13 +5597,31 @@ def main() -> int:
 
     phase(f"phase 24: the model zoo's serving path — BatchedServer at full "
           f"width and depth, {SERVE_SLOTS} slots x {SERVE_PROMPT} prompt "
-          f"tokens + {SERVE_DECODE} decoded, for "
+          f"tokens ({SERVE_STEPPED_PROMPT} a step a token) + {SERVE_DECODE} "
+          f"decoded, for "
           f"{', '.join(f'{n} ({d} params, {c} cache)' for n, d, c, _ in SERVE_ZOO)}"
           f"; kernel vs plain route; the decode kernel at the serving "
           f"shapes; fig17's tier 1; reduced configs card vs CPU")
     t24 = time.monotonic()
     serving = zoo_serving(torch, kernels)
     serving["seconds"] = time.monotonic() - t24
+
+    phase(f"phase 25: training — launch/train.py's main on {ZAMBA} at full "
+          f"width and depth ({TRAIN_ZAMBA_STEPS} steps of "
+          f"{TRAIN_ZAMBA_SHAPE[0]} x {TRAIN_ZAMBA_SHAPE[1]} tokens); "
+          f"{TRAIN_DENSE}'s width at {TRAIN_DENSE_LAYERS} layers under full "
+          f"remat and {TRAIN_DENSE_MICROBATCHES} microbatches; reduced "
+          f"configs card vs CPU")
+    t25 = time.monotonic()
+    trained = training(torch, kernels)
+    trained["seconds"] = time.monotonic() - t25
+    train_launch_counts = {
+        name: {"train_zamba2": trained["zamba2"]["launches"][name],
+               "train_qwen3_width_first_step": trained["dense_width"][
+                   "launches_first_step"][name],
+               "train_reduced_card_vs_cpu": sum(
+                   row["launches"][name] for row in trained["reduced"])}
+        for name in ("flash_attention", "ssd_scan")}
 
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
@@ -5158,7 +5713,9 @@ def main() -> int:
                for row in zoo["configs"]},
             **{f"zoo_serving_{row['config']}_{row['cache_dtype']}_cache":
                row["launches"]["flash_attention"]
-               for row in serving["configs"]}},
+               for row in serving["configs"]},
+            **train_launch_counts["flash_attention"]},
+        "backward_train_shape": trained["zamba2"]["flash_attention"],
         "zoo_shapes": flash_zoo,
         "policy_learner": dict(flash_policy, launches_per_learner_step=(
             policy["fig17_learner"]["flash_launches_per_learner_step"])),
@@ -5184,11 +5741,16 @@ def main() -> int:
         "grad_path_launches": grads["zamba2_reduced"]["launches"][
             "ssd_scan"],
         "backward": grads["ssd_scan"],
+        "launches_by_path": {
+            "scoring": scoring["launches"]["ssd_scan"],
+            **train_launch_counts["ssd_scan"]},
+        "backward_train_shape": trained["zamba2"]["ssd_scan"],
     }]
     log(f"  phase 21 {json.dumps(dist_dqn)}")
     log(f"  phase 22 {json.dumps(failover)}")
     log(f"  phase 23 {json.dumps(zoo)}")
     log(f"  phase 24 {json.dumps(serving)}")
+    log(f"  phase 25 {json.dumps(trained)}")
     log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

@@ -8,8 +8,11 @@ and a CUDA generator draws a model too large to draw on the host quickly.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def truncated_normal(generator, shape, stddev, device="cuda",
@@ -110,3 +113,56 @@ def embed(params, tokens):
 
 def unembed(table, x):
     return torch.einsum("...d,vd->...v", x, table)
+
+
+def chunked_cross_entropy(x, table, labels, chunk: int = 1024,
+                          mask: Optional[torch.Tensor] = None,
+                          valid_vocab: Optional[int] = None):
+    """Mean next-token CE without materializing full (b, s, V) f32 logits.
+
+    x: (b, s, d) final hidden states; table: (V, d); labels: (b, s) ints.
+    Runs over seq chunks (and a remainder chunk); under grad mode each
+    chunk's loss goes through ``torch.utils.checkpoint`` (non-reentrant),
+    so its logits are recomputed in the backward and live memory is
+    O(b * chunk * V).  Vocab entries at or past ``valid_vocab`` get -1e30.
+    """
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    n = s // chunk
+    labels = labels.long()
+    mask_f = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+              if mask is None else mask.float())
+
+    def chunk_loss(xc, lc, mc):
+        logits = unembed(table, xc).float()
+        if valid_vocab is not None and valid_vocab < table.shape[0]:
+            pad = torch.arange(table.shape[0], device=x.device) >= valid_vocab
+            logits = logits.masked_fill(pad, -1e30)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum((logz - ll) * mc)
+
+    def loss(lo, hi):
+        inputs = (x[:, lo:hi], labels[:, lo:hi], mask_f[:, lo:hi])
+        if torch.is_grad_enabled():
+            return checkpoint(chunk_loss, *inputs, use_reentrant=False)
+        return chunk_loss(*inputs)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        total = total + loss(i * chunk, (i + 1) * chunk)
+    if s > n * chunk:
+        total = total + loss(n * chunk, s)
+    return total / torch.clamp(torch.sum(mask_f), min=1.0)
+
+
+def cross_entropy(logits, labels, mask: Optional[torch.Tensor] = None):
+    """Mean next-token cross entropy in f32. logits (..., V), labels (...,)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -20,10 +20,11 @@ returns the cache.
 Public API:
   init(generator, cfg, device, dtype)              -> params
   params_from_jax(cfg, tree, device)               -> params
-  forward_features(params, cfg, batch)             -> (features, aux)
-  forward(params, cfg, batch)                      -> (logits, aux)
+  params_to_jax(cfg, params)                       -> the JAX layout
+  forward_features(params, cfg, batch, remat)      -> (features, aux)
+  forward(params, cfg, batch, remat)               -> (logits, aux)
   unembed_table(params, cfg), mask_pad_logits(logits, cfg)
-  forward_embedded(params, cfg, x)                 -> features (dense, MoE)
+  forward_embedded(params, cfg, x, remat)          -> features (dense, MoE)
   init_cache(cfg, batch, max_len, dtype, device)   -> decode cache
   decode_step(params, cfg, cache, token, pos)      -> (logits, cache)
   prefill(params, cfg, cache, tokens, lengths)     -> (last logits, cache)
@@ -32,15 +33,27 @@ Public API:
 
 The ``*_embedded`` entry points' ``params`` hold ``"blocks"`` and
 ``"final_norm"``; ``repro_torch.policies.network`` adds the observation
-projection and the Q head around them.  ``remat`` (a forward-only port has
-nothing to rematerialize) comes with the training slice.
+projection and the Q head around them.
+
+``remat`` picks what a training step keeps for its backward, at the JAX
+package's granularity (one checkpoint a block of the dense, MoE, VLM, SSM
+and audio stacks, one a group of the hybrid's, one a tail block):
+``"none"`` keeps everything, ``"full"`` only each checkpoint's inputs
+(``torch.utils.checkpoint``, non-reentrant: the block runs again in the
+backward, its kernels included), ``"dots"`` also the outputs of products
+without batch dimensions (``jax.checkpoint_policies.
+checkpoint_dots_with_no_batch_dims``).  It applies only under grad mode,
+so scoring and serving run as they are.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
@@ -50,6 +63,34 @@ from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 DENSE_FAMILY = ("dense", "moe", "vlm")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims`` on aten ops: keep a product
+    with no batch dimension, recompute the rest.  ``torch.einsum`` lowers
+    every product of the zoo to ``aten.bmm``; a projection (``bsd,dhk``,
+    the MLP, the router, the unembed) becomes one of batch 1, while
+    attention's q.k and p.v, the SSD's chunk products and the expert bank
+    (batched over experts, as in the JAX package) keep their batch."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` under ``remat`` ("none", "full" or "dots"); as it is when
+    grad mode is off."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(remat)
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots))
 
 
 def _check_arch(cfg: ArchConfig, what: str, families=("dense", "moe")):
@@ -182,6 +223,29 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> Params:
     return params
 
 
+def params_to_jax(cfg: ArchConfig, params: Params):
+    """``params_from_jax``'s inverse: a tree of the port's layout (params,
+    or an optimizer's moments over them) as the JAX package's
+    ``transformer.init`` lays it out, with numpy leaves on the host:
+    ``blocks`` and ``enc_blocks`` stacked on a leading layer axis
+    (``(groups, every)`` for ``hybrid``), ``tail_blocks`` on its own."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return stack([host(v) for v in node])
+        return node.detach().cpu().numpy()
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    if cfg.arch_type not in DENSE_FAMILY + ("ssm", "hybrid", "audio"):
+        raise ValueError(cfg.arch_type)
+    return host(params)
+
+
 # ======================================================================
 # Forward (train / prefill)
 # ======================================================================
@@ -211,18 +275,36 @@ def _ssm_block(bp, cfg: ArchConfig, x):
     return x + h
 
 
-def _run_dense_stack(blocks, cfg: ArchConfig, x, positions, causal=True):
-    """The blocks in turn; an MoE stack's aux losses summed over its layers
-    from float32 zeros."""
+def _run_dense_stack(blocks, cfg: ArchConfig, x, positions, remat="none",
+                     causal=True):
+    """The blocks in turn, one checkpoint a block under ``remat``; an MoE
+    stack's aux losses summed over its layers from float32 zeros."""
     aux = ({name: torch.zeros((), device=x.device)
             for name in ("moe_aux", "moe_z")}
            if cfg.arch_type == "moe" else {})
     for bp in blocks:
-        x, aux = _dense_block(bp, cfg, x, positions, aux, causal=causal)
+        block = functools.partial(_dense_block, bp, cfg, causal=causal)
+        x, aux = _maybe_remat(block, remat)(x, positions, aux)
     return x, aux
 
 
-def forward_features(params: Params, cfg: ArchConfig, batch):
+def _hybrid_group(group, shared, cfg: ArchConfig, positions, x):
+    """One of the hybrid's groups: its Mamba2 layers, then the shared
+    attention block."""
+    for bp in group:
+        x = _ssm_block(bp, cfg, x)
+    return _dense_block(shared, cfg, x, positions, {})[0]
+
+
+def _whisper_decoder_block(bp, cfg: ArchConfig, positions, enc, x):
+    # per-layer cross K/V from the encoder output
+    k = torch.einsum("bsd,dhk->bshk", enc, bp["xattn"]["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc, bp["xattn"]["wv"])
+    return _dense_block(bp, cfg, x, positions, {}, enc=(k, v))[0]
+
+
+def forward_features(params: Params, cfg: ArchConfig, batch, *,
+                     remat: str = "full"):
     """batch: {"tokens": (b, s) ints} (+ "vision": (b, V, d_model) for a
     VLM | "frames": (b, encoder_seq, d_model) for Whisper), tensors or
     arrays: they go to the device of the embedding table, vision and
@@ -230,7 +312,8 @@ def forward_features(params: Params, cfg: ArchConfig, batch):
 
     Returns (final hidden states at text positions (b, s, d_model), aux
     loss dict): ``moe_aux`` and ``moe_z`` summed over layers for MoE, empty
-    for every other family, as in the JAX package.
+    for every other family, as in the JAX package.  ``remat`` applies
+    under grad mode only (module docstring).
     """
     table = params["embed"]["table"]
 
@@ -246,34 +329,32 @@ def forward_features(params: Params, cfg: ArchConfig, batch):
     positions = torch.arange(seq, device=x.device)
     aux: Dict[str, torch.Tensor] = {}
 
+    def run(fn, *args):                    # fn(*args, x) under remat
+        return _maybe_remat(functools.partial(fn, *args), remat)
+
     if cfg.arch_type in DENSE_FAMILY:
-        x, aux = _run_dense_stack(params["blocks"], cfg, x, positions)
+        x, aux = _run_dense_stack(params["blocks"], cfg, x, positions, remat)
     elif cfg.arch_type == "ssm":
         for bp in params["blocks"]:
-            x = _ssm_block(bp, cfg, x)
+            x = run(_ssm_block, bp, cfg)(x)
     elif cfg.arch_type == "hybrid":
-        shared = params["shared_attn"]
         for group in params["blocks"]:
-            for bp in group:
-                x = _ssm_block(bp, cfg, x)
-            x, _ = _dense_block(shared, cfg, x, positions, {})
+            x = run(_hybrid_group, group, params["shared_attn"], cfg,
+                    positions)(x)
         for bp in params.get("tail_blocks", ()):
-            x = _ssm_block(bp, cfg, x)
+            x = run(_ssm_block, bp, cfg)(x)
     elif cfg.arch_type == "audio":
         frames = on_table("frames")
         enc = frames + layers.sinusoid_positions(
             frames.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
         enc_pos = torch.arange(enc.shape[1], device=x.device)
         enc, _ = _run_dense_stack(params["enc_blocks"], cfg, enc, enc_pos,
-                                  causal=False)
+                                  remat, causal=False)
         enc = layers.rmsnorm(params["enc_norm"], enc, cfg.rmsnorm_eps)
         x = x + layers.sinusoid_positions(seq, cfg.d_model,
                                           x.device).to(x.dtype)[None]
         for bp in params["blocks"]:
-            # per-layer cross K/V from the encoder output
-            k = torch.einsum("bsd,dhk->bshk", enc, bp["xattn"]["wk"])
-            v = torch.einsum("bsd,dhk->bshk", enc, bp["xattn"]["wv"])
-            x, _ = _dense_block(bp, cfg, x, positions, {}, enc=(k, v))
+            x = run(_whisper_decoder_block, bp, cfg, positions, enc)(x)
     else:
         raise ValueError(cfg.arch_type)
 
@@ -298,15 +379,16 @@ def mask_pad_logits(logits, cfg: ArchConfig):
                        torch.full_like(logits, -1e30))
 
 
-def forward(params: Params, cfg: ArchConfig, batch):
+def forward(params: Params, cfg: ArchConfig, batch, *, remat: str = "full"):
     """Full logits over all (text) positions: (b, s, padded_V), vocab pad
     masked, and the aux loss dict."""
-    x, aux = forward_features(params, cfg, batch)
+    x, aux = forward_features(params, cfg, batch, remat=remat)
     logits = layers.unembed(unembed_table(params, cfg), x)
     return mask_pad_logits(logits, cfg), aux
 
 
-def forward_embedded(params: Params, cfg: ArchConfig, x):
+def forward_embedded(params: Params, cfg: ArchConfig, x, *,
+                     remat: str = "none"):
     """Dense-stack forward over PRE-EMBEDDED inputs.
 
     x: (b, s, d_model) — e.g. projected observations rather than token
@@ -316,7 +398,7 @@ def forward_embedded(params: Params, cfg: ArchConfig, x):
     """
     _check_arch(cfg, "forward_embedded")
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_dense_stack(params["blocks"], cfg, x, positions)
+    x, _ = _run_dense_stack(params["blocks"], cfg, x, positions, remat)
     return layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
 
 

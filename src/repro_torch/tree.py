@@ -55,36 +55,40 @@ def _rebuild(kind, children):
     return kind(*children)                        # a NamedTuple
 
 
+# The walks below are module functions that take their accumulator as an
+# argument: a nested function that calls itself is a reference cycle
+# (function, closure cell, function), and one that closes over the list of
+# leaves keeps every leaf alive until the cyclic collector runs, which on
+# a large model's update is several param-sized copies on the device.
+def _walk(node, leaves: List[Any]):
+    kind = _kind(node)
+    if kind is None:
+        leaves.append(node)
+        return None
+    return kind, [_walk(child, leaves) for child in _children(node, kind)]
+
+
 def flatten(tree) -> Tuple[List[Any], TreeDef]:
     """The leaves in JAX order, and the structure to rebuild the tree."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        kind = _kind(node)
-        if kind is None:
-            leaves.append(node)
-            return None
-        return kind, [walk(child) for child in _children(node, kind)]
 
-    return leaves, walk(tree)
+def _build(d, leaves, position: List[int]):
+    if d is None:
+        position[0] += 1
+        return leaves[position[0] - 1]
+    kind, kids = d
+    return _rebuild(kind, [_build(k, leaves, position) for k in kids])
 
 
 def unflatten(treedef: TreeDef, leaves) -> Any:
     """The tree of ``treedef`` with ``leaves`` in JAX order."""
     leaves = list(leaves)
-    position = 0
-
-    def build(d):
-        nonlocal position
-        if d is None:
-            position += 1
-            return leaves[position - 1]
-        kind, kids = d
-        return _rebuild(kind, [build(k) for k in kids])
-
-    tree = build(treedef)
-    if position != len(leaves):
-        raise ValueError(f"tree has {position} leaves, got {len(leaves)}")
+    position = [0]
+    tree = _build(treedef, leaves, position)
+    if position[0] != len(leaves):
+        raise ValueError(f"tree has {position[0]} leaves, got {len(leaves)}")
     return tree
 
 
@@ -106,24 +110,24 @@ def _flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
     and a leaf of ``treedef`` takes the whole subtree found there.  Raises
     ``ValueError`` where the structures differ."""
     out: List[Any] = []
-
-    def walk(d, node):
-        if d is None:
-            out.append(node)
-            return
-        kind, kids = d
-        if _kind(node) != kind:
-            raise ValueError(f"tree structures differ: expected "
-                             f"{_name(kind)}, got {node!r}")
-        children = _children(node, kind)
-        if len(children) != len(kids):
-            raise ValueError(f"tree structures differ: {_name(kind)} of "
-                             f"{len(kids)} children, got {len(children)}")
-        for k, child in zip(kids, children):
-            walk(k, child)
-
-    walk(treedef, tree)
+    _walk_up_to(treedef, tree, out)
     return out
+
+
+def _walk_up_to(d, node, out: List[Any]):
+    if d is None:
+        out.append(node)
+        return
+    kind, kids = d
+    if _kind(node) != kind:
+        raise ValueError(f"tree structures differ: expected "
+                         f"{_name(kind)}, got {node!r}")
+    children = _children(node, kind)
+    if len(children) != len(kids):
+        raise ValueError(f"tree structures differ: {_name(kind)} of "
+                         f"{len(kids)} children, got {len(children)}")
+    for k, child in zip(kids, children):
+        _walk_up_to(k, child, out)
 
 
 def map(fn: Callable, tree, *rest):   # noqa: A001 — mirrors jax.tree.map

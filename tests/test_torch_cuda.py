@@ -10,7 +10,9 @@ reduced config served on the card against the CPU, gradients through flash atten
 and the SSD scan (their autograd Functions) against the plain route's, a
 DQN learner step that syncs once and matches the CPU's, and the
 distributed slice: the inference servers on the card, replica averaging
-on the card, and a server-mode actor process that never touches it.
+on the card, and a server-mode actor process that never touches it; and
+training: one train step of every family's reduced config on the card
+against the CPU, and full remat with microbatches equal to none.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1104,7 +1106,8 @@ def test_reduced_zamba2_grads_through_the_kernels_match_the_plain_route(
         device=cuda_device)
 
     def loss(p):
-        feats, _ = transformer.forward_features(p, cfg, {"tokens": tokens})
+        feats, _ = transformer.forward_features(p, cfg, {"tokens": tokens},
+                                                remat="none")
         logits = layers.unembed(transformer.unembed_table(p, cfg), feats)
         return (logits * weights).sum()
 
@@ -1796,3 +1799,114 @@ def test_one_replica_async_multi_learner_on_the_card_is_the_plain_learner(
     for x, y in zip(tree.leaves(multi.state), tree.leaves(plain.state)):
         assert x.device.type == "cuda" and torch.equal(x, y)
     assert multi.async_service.stats()["pushes"] == 2
+
+
+# --------------------------------------------------------------- training
+_TRAIN_FAMILIES = [("qwen3-1.7b", "bc"), ("qwen3-1.7b", "dqn"),
+                   ("granite-moe-3b-a800m", "bc"),
+                   ("granite-moe-3b-a800m", "dqn"), ("mamba2-780m", "bc"),
+                   ("zamba2-1.2b", "bc"), ("internvl2-26b", "bc"),
+                   ("whisper-base", "bc")]
+
+
+def _train_batch(cfg, b=2, s=64, seed=0):
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (b, s)),
+             "labels": rng.randint(0, cfg.vocab_size, (b, s)),
+             "rewards": rng.rand(b, s).astype(np.float32),
+             "discounts": (0.9 * (rng.rand(b, s) > 0.1)).astype(np.float32)}
+    extra = {"vlm": ("vision", cfg.vision_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.arch_type)
+    if extra:
+        batch[extra[0]] = (0.1 * rng.randn(b, extra[1], cfg.d_model)
+                           ).astype(np.float32)
+    return batch
+
+
+def _sites(cfg):
+    """(flash launches, SSD launches) of one forward pass."""
+    if cfg.arch_type in ("dense", "moe", "vlm"):
+        return cfg.num_layers, 0
+    if cfg.arch_type == "ssm":
+        return 0, cfg.num_layers
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every, cfg.num_layers
+    return cfg.encoder_layers + 2 * cfg.num_layers, 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,objective", _TRAIN_FAMILIES)
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, name,
+                                                objective):
+    """One make_train_step(remat="full") step of a reduced config with
+    launch/train.py's optimizer on the card's kernels against the CPU's
+    plain versions from the same state: metrics, params, Adam's moments
+    and the DQN target within 1e-4 of each leaf's largest magnitude; the
+    forward's kernels launched twice a site (once more for DQN's target
+    forward)."""
+    from repro_torch import configs, tree
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam, cosine_schedule
+    cfg = configs.reduced(configs.get_arch(name))
+    opt = adam(cosine_schedule(3e-4, 20, warmup_steps=10), clip=1.0)
+    cpu = steps.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                 device="cpu", objective=objective)
+    card = tree.map(lambda t: t.to(cuda_device), cpu)
+    batch = _train_batch(cfg)
+    step = steps.make_train_step(cfg, opt, objective=objective, remat="full")
+    flash0, ssd0 = flash_attention.launches, ssd_scan.launches
+    card, card_metrics = step(card, batch)
+    torch.cuda.synchronize()
+    passes = 2 + (objective == "dqn")
+    attention, mamba = _sites(cfg)
+    assert flash_attention.launches - flash0 == attention * passes
+    assert ssd_scan.launches - ssd0 == mamba * passes
+    cpu, cpu_metrics = step(cpu, batch)
+    assert sorted(card_metrics) == sorted(cpu_metrics)
+    for k, v in cpu_metrics.items():
+        assert abs(float(card_metrics[k]) - float(v)) <= 1e-4 * abs(float(v))
+    for a_tree, c_tree in ((card.params, cpu.params),
+                           (card.opt_state.mu, cpu.opt_state.mu),
+                           (card.opt_state.nu, cpu.opt_state.nu),
+                           (card.target_params, cpu.target_params)):
+        for a, c in zip(tree.leaves(a_tree), tree.leaves(c_tree)):
+            assert a.device.type == "cuda"
+            scale = max(c.abs().max().item(), 1e-30)
+            assert (a.cpu() - c).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_full_remat_on_the_card_equals_none_with_microbatches(cuda_device):
+    """qwen3-1.7b's family (reduced, 4 layers) under remat="full" and 2
+    microbatches: flash launched twice a layer a microbatch, and the first
+    step's loss and grads (Adam's first moments) equal remat="none"'s
+    within 1e-6 of each leaf's largest magnitude."""
+    import dataclasses
+    from repro_torch import configs, tree
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adam, cosine_schedule
+    cfg = dataclasses.replace(configs.reduced(configs.get_arch(
+        "qwen3-1.7b")), num_layers=4)
+    opt = adam(cosine_schedule(3e-4, 3, warmup_steps=10), clip=1.0)
+    state = steps.init_train_state(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, opt,
+        device=cuda_device)
+    batch = train.make_corpus_sampler(cfg.vocab_size, 256, 4)()
+    out = {}
+    for remat in ("none", "full"):
+        step = steps.make_train_step(cfg, opt, remat=remat, microbatches=2)
+        before = flash_attention.launches
+        after, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out[remat] = (flash_attention.launches - before, metrics,
+                      tree.leaves(after.opt_state.mu))
+    assert out["none"][0] == 4 * 2 and out["full"][0] == 2 * 4 * 2
+    for k, v in out["none"][1].items():
+        assert abs(float(out["full"][1][k]) - float(v)) <= 1e-6 * abs(
+            float(v))
+    for a, c in zip(out["full"][2], out["none"][2]):
+        assert (a - c).abs().max().item() <= 1e-6 * max(
+            c.abs().max().item(), 1e-30)

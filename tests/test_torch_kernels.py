@@ -860,7 +860,8 @@ def test_reduced_zamba2_grads_through_the_functions_equal_the_plain_route(
         2, 64, cfg.padded_vocab_size), dtype=torch.float32)
 
     def loss(p):
-        feats, _ = transformer.forward_features(p, cfg, {"tokens": tokens})
+        feats, _ = transformer.forward_features(p, cfg, {"tokens": tokens},
+                                                remat="none")
         logits = layers.unembed(transformer.unembed_table(p, cfg), feats)
         return (logits * weights).sum()
 
