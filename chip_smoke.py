@@ -324,6 +324,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    state: metrics, params, Adam's moments and the target within 1e-4 of
    each leaf's largest, exact launch counts, MoE tokens rerouted between
    the two routes at most 1%.
+26. the launch layer: (a) ``make_host_mesh("cuda")`` is a (1, 1) mesh
+   with the axes data and model on cuda:0 (phase 25's ``train.main``
+   builds it and runs under its ``ShardingRules``), and a reduced
+   qwen3-1.7b through ``train.main`` under it (5 steps of 4 x 64 tokens)
+   gives every step's metrics and every param leaf bit-equal to the same
+   run without rules, leaving no process group up, each run launching
+   flash attention 10 times (2 layers x 5 steps) and the SSD scan none; (b) the dry run
+   (``python -m repro_torch.launch.dryrun``) of whisper-base x decode_32k
+   and x train_4k on the single production mesh (256 fake ranks, the
+   plain route, the card hidden), each in a subprocess started at the
+   phase's start: each record must be ``ok`` with 256 ranks, fit the
+   card's 80 GB, name a dominant term and count FLOPs (the JAX package's
+   dry-run test); prints each record's memory, roofline terms and trace
+   seconds, and whether it traced within 60 s (a figure, not a gate: the
+   trace's seconds follow the host's speed); (c) phase 25's step
+   (Zamba2-1.2B, 4 x 1024 tokens, float32, remat "none", Adam with clip
+   1.0) dry-run on a (1, 1) fake mesh: its predicted peak bytes and its
+   update's peak in param-sized copies beside phase 25's measured ones,
+   and ``total_memory`` beside ``HBM_PER_CHIP`` (no gate: the plain route
+   keeps score tensors the kernels do not).
 
 Phases 17-19, 21 and 22's DQN parts launch none of the four kernels: each
 zeros the launch counts before it and requires 0 after.  The actor
@@ -344,6 +364,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -714,6 +735,16 @@ TRAIN_FAMILIES = [("qwen3-1.7b", "bc"), ("qwen3-1.7b", "dqn"),
                   ("whisper-base", "bc")]
 TRAIN_REDUCED_SHAPE = (2, 64)
 TRAIN_CARD_TOL = 1e-4
+# Phase 26: the launch layer.  (a) a reduced qwen3-1.7b through train.main
+# under the host mesh's rules against the same run without them; (b) the
+# dry run in subprocesses with the card hidden (the reference test's combo,
+# and one train_4k combo chosen to trace within LAUNCH_TRAIN_TRACE_S); (c)
+# phase 25's own step dry-run on a (1, 1) fake mesh beside its measurement
+LAUNCH_TRAIN_ARGV = ["--arch", "qwen3-1.7b", "--steps", "5", "--batch", "4",
+                     "--seq", "64"]
+LAUNCH_DRYRUNS = [("whisper-base", "decode_32k"), ("whisper-base", "train_4k")]
+LAUNCH_TRAIN_TRACE_S = 60.0
+LAUNCH_DRYRUN_TIMEOUT_S = 300
 # flash attention at the zoo's attention shapes (phases 2 and 5): (label,
 # b, h, kv, sq, sk, d, causal, the dtypes checked; the first is the path's,
 # timed in phase 5).  Whisper's 1500 keys end inside a 64-key tile; f32
@@ -5373,6 +5404,266 @@ def training(torch, kernels):
     return out
 
 
+# ------------------------------------------------------ the launch layer
+def start_dryruns(tmp):
+    """Phase 26 (b): the dry run of each LAUNCH_DRYRUNS combo on the single
+    production mesh, each in a subprocess of its own with the card hidden
+    (it traces fake tensors and launches nothing), started together."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for arch, shape in LAUNCH_DRYRUNS:
+        out = Path(tmp) / f"{arch}_{shape}.jsonl"
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", str(out)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        runs.append((arch, shape, out, proc, time.monotonic()))
+    return runs
+
+
+def finish_dryruns(runs):
+    """Wait for phase 26 (b)'s subprocesses and hold each record to the
+    JAX package's dry-run test (``tests/test_dryrun_small.py:23-29``):
+    status ok, 256 ranks, fits the card's memory, a dominant term, FLOPs
+    counted.  Whether each traced within LAUNCH_TRAIN_TRACE_S is printed,
+    not gated: the trace's seconds follow the host's speed."""
+    records = []
+    for arch, shape, out, proc, t0 in runs:
+        try:
+            _, stderr = proc.communicate(timeout=LAUNCH_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            check(False, f"dry run {arch} x {shape}: no record after "
+                  f"{LAUNCH_DRYRUN_TIMEOUT_S} s")
+        check(proc.returncode == 0, f"dry run {arch} x {shape} exited "
+              f"{proc.returncode}: {stderr[-2000:]}")
+        rec = json.loads(out.read_text().splitlines()[-1])
+        check(rec["status"] == "ok", f"dry run {arch} x {shape}: "
+              f"{rec.get('error')}")
+        check(rec["chips"] == 256, f"dry run {arch} x {shape}: "
+              f"{rec['chips']} ranks")
+        check(rec["memory"]["fits_hbm"], f"dry run {arch} x {shape}: "
+              f"{rec['memory']} does not fit")
+        check(rec["roofline"]["dominant"] in ("compute", "memory",
+                                              "collective"),
+              f"dry run {arch} x {shape}: {rec['roofline']}")
+        check(rec["hlo"]["flops"] > 0, f"dry run {arch} x {shape}: no FLOPs")
+        rec["command_s"] = time.monotonic() - t0
+        rec["within_trace_budget"] = rec["trace_s"] <= LAUNCH_TRAIN_TRACE_S
+        r, m = rec["roofline"], rec["memory"]
+        log(f"  dry run {arch} x {shape} x single (256 fake ranks, plain "
+            f"route; predictions against datasheet figures): trace "
+            f"{rec['trace_s']} s ({rec['command_s']:.1f} s with the "
+            f"interpreter); approx_live_bytes {m['approx_live_bytes']} "
+            f"(fits {m['fits_hbm']}); compute {r['compute_s']:.6f} s, "
+            f"memory {r['memory_s']:.6f} s, collective "
+            f"{r['collective_s']:.6f} s, dominant {r['dominant']}; FLOPs "
+            f"{rec['hlo']['flops']:.4e} a rank; DTensor rules "
+            f"{rec.get('dtensor_rules')}; within {LAUNCH_TRAIN_TRACE_S:.0f} s "
+            f"of tracing: {rec['within_trace_budget']}")
+        rec.pop("traceback", None)
+        records.append(rec)
+    return records
+
+
+def launch_train_parity(torch, kernels):
+    """Phase 26 (a): the host mesh on the card, and a reduced qwen3-1.7b
+    through train.main under it (its rules on) against the same run
+    without rules: every step's metrics and the final params bit-equal."""
+    import argparse
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding, tree
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    check(not dist.is_initialized(), "a process group is up before phase 26")
+    host = mesh_lib.make_host_mesh("cuda")
+    check(host.device_type == "cuda" and tuple(host.shape) == (1, 1)
+          and host.mesh_dim_names == ("data", "model"),
+          f"host mesh {host}")
+    check(dist.get_world_size() == 1, "host mesh's group is not one rank")
+    dist.destroy_process_group()
+    out = {"host_mesh": str(host), "device": str(torch.device("cuda", 0))}
+    log(f"  make_host_mesh('cuda'): {host} on {out['device']}")
+
+    runs = {}
+
+    def recorder(key):
+        make = train.make_train_step
+
+        def recording_make(cfg, opt, **kwargs):
+            step = make(cfg, opt, **kwargs)
+
+            def recorded(state, batch):
+                state, metrics = step(state, batch)
+                run = runs.setdefault(key, {"metrics": [], "rules": []})
+                run["metrics"].append({k: v.detach().cpu() for k, v in
+                                       metrics.items()})
+                run["rules"].append(sharding.current_rules())
+                run["state"] = state
+                return state, metrics
+            return recorded
+        return recording_make
+
+    meshes = []
+    host_mesh = mesh_lib.make_host_mesh
+
+    def spy_mesh(device):
+        meshes.append(host_mesh(device))
+        return meshes[-1]
+
+    cfg = reduced(get_arch("qwen3-1.7b"))
+    per_run = {k: n * 5 for k, n in train_launches(cfg, "bc", "none").items()}
+    zero_launches(kernels)
+    with mock.patch.object(train, "make_train_step", recorder("rules")), \
+            mock.patch.object(train, "make_host_mesh", spy_mesh):
+        rc = train.main(LAUNCH_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = kernel_launches(kernels)
+    check(launches == per_run, f"train.main under the host mesh: launches "
+          f"{launches}, expected {per_run}")
+    check(not dist.is_initialized(), "train.main left its group up")
+    args = argparse.Namespace(
+        arch="qwen3-1.7b", steps=5, batch=4, seq=64, lr=3e-4,
+        objective="bc", checkpoint_dir=None, full_size=False, device="cuda")
+    zero_launches(kernels)
+    with mock.patch.object(train, "make_train_step", recorder("plain")):
+        rc_plain = train._train(cfg, args)
+    torch.cuda.synchronize()
+    check(kernel_launches(kernels) == per_run, f"the run without rules: "
+          f"launches {kernel_launches(kernels)}, expected {per_run}")
+    a, b = runs["rules"], runs["plain"]
+    check(len(meshes) == 1 and meshes[0].device_type == "cuda"
+          and tuple(meshes[0].shape) == (1, 1), f"train.main's mesh {meshes}")
+    check(all(r is not None and r.mesh is meshes[0] for r in a["rules"]),
+          "train.main's steps did not run under the host mesh's rules")
+    check(all(r is None for r in b["rules"]), "rules left on")
+    check(rc == rc_plain and len(a["metrics"]) == len(b["metrics"]) == 5,
+          f"train.main {rc}, without rules {rc_plain}")
+    for i, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
+        check(ma.keys() == mb.keys() and all(
+            torch.equal(ma[k], mb[k]) for k in ma),
+            f"step {i}: metrics {ma} under the host mesh, {mb} without")
+    pa, pb = tree.leaves(a["state"].params), tree.leaves(b["state"].params)
+    check(all(x.device.type == "cuda" for x in pa), "params left the card")
+    check(len(pa) == len(pb) and all(torch.equal(x, y)
+                                     for x, y in zip(pa, pb)),
+          "params after 5 steps differ with and without the rules")
+    out.update(rc=rc, ce=[float(m["ce"]) for m in a["metrics"]],
+               leaves=len(pa), train_mesh=str(meshes[0]), launches=launches)
+    log(f"  train.main {' '.join(LAUNCH_TRAIN_ARGV)} under {meshes[0]}: "
+        f"CE {out['ce'][0]:.6f} -> {out['ce'][-1]:.6f}, launches {launches} "
+        f"in each run; every step's metrics and all {len(pa)} param leaves "
+        f"bit-equal to the run without rules")
+    return out
+
+
+def dryrun_train_step(torch, phase25):
+    """Phase 26 (c): phase 25's step (Zamba2-1.2B, 4 x 1024 tokens,
+    float32, remat "none", one microbatch, Adam with clip 1.0) dry-run on
+    a (1, 1) fake mesh: the predicted peak of live bytes, and the peak of
+    the optimizer update in param-sized copies, beside phase 25's measured
+    ones; the card's memory beside HBM_PER_CHIP.  No gate: the plain route
+    the dry run traces keeps score tensors the kernels do not."""
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, hlo_analysis, mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import Optimizer
+
+    box = {}
+    counter, make = hlo_analysis.LocalCounter, dryrun.make_train_step
+    apply = steps.apply_updates
+
+    def kept_counter():
+        box["counter"] = counter()
+        return box["counter"]
+
+    def measured_make(cfg, opt, **kwargs):
+        def update(grads, state, params=None):
+            # the update's own peak, from the bytes live as it starts
+            c = box["counter"]
+            box["before"], box["step_peak"] = c.live_bytes, c.peak_bytes
+            c.peak_bytes = c.live_bytes
+            return opt.update(grads, state, params)
+        return make(cfg, Optimizer(opt.init, update), **kwargs)
+
+    def apply_updates(params, updates):
+        out = apply(params, updates)
+        c = box["counter"]
+        box["update_peak"] = c.peak_bytes
+        c.peak_bytes = max(c.peak_bytes, box["step_peak"])
+        return out
+
+    b, s = TRAIN_ZAMBA_SHAPE
+    cfg = configs.get_arch(ZAMBA)
+    with mock.patch.object(hlo_analysis, "LocalCounter", kept_counter), \
+            mock.patch.object(dryrun, "make_train_step", measured_make), \
+            mock.patch.object(steps, "apply_updates", apply_updates):
+        rec = dryrun.run_combo(
+            ZAMBA, "phase25_step", ((1, 1), ("data", "model")), cfg=cfg,
+            shape=InputShape("phase25_step", s, b, "train"), remat="none",
+            microbatches=1, param_dtype=torch.float32)
+    check(rec["status"] == "ok", f"dry run of phase 25's step: "
+          f"{rec.get('error')}")
+    param_bytes = 4 * cfg.num_params()
+    peak = rec["memory"]["approx_live_bytes"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"trace_s": rec["trace_s"], "predicted_peak_bytes": peak,
+           "predicted_peak_gib": peak / 2 ** 30,
+           "predicted_update_peak_copies": box["update_peak"] / param_bytes,
+           "predicted_update_rise_copies":
+               (box["update_peak"] - box["before"]) / param_bytes,
+           "measured_peak_gib": phase25["peak_gib"],
+           "measured_update_peak_copies":
+               phase25["update"]["peak_param_copies"],
+           "param_bytes": param_bytes, "total_memory": total,
+           "hbm_per_chip": mesh_lib.HBM_PER_CHIP,
+           "roofline": rec["roofline"], "hlo": rec["hlo"]}
+    log(f"  phase 25's step dry-run on a (1, 1) fake mesh (plain route) in "
+        f"{rec['trace_s']} s: predicted peak {out['predicted_peak_gib']:.3f} "
+        f"GiB, measured (phase 25, kernel route) {out['measured_peak_gib']:.3f}"
+        f" GiB; the update's peak {out['predicted_update_peak_copies']:.2f} "
+        f"param-sized copies predicted ({out['predicted_update_rise_copies']:.2f}"
+        f" above what was live), {out['measured_update_peak_copies']:.2f} "
+        f"measured; the card's total_memory {total} B beside HBM_PER_CHIP "
+        f"{mesh_lib.HBM_PER_CHIP} B (datasheet)")
+    return out
+
+
+def launch_layer(torch, kernels, phase25, tmp):
+    """Phase 26: (b)'s dry runs start first, in subprocesses, and run
+    while (a) trains on the card and (c) traces in this process."""
+    runs = start_dryruns(tmp)
+    try:
+        t0 = time.monotonic()
+        out = {"train": launch_train_parity(torch, kernels)}
+        out["train"]["seconds"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["memory_model"] = dryrun_train_step(torch, phase25)
+        out["memory_model"]["seconds"] = time.monotonic() - t0
+    except BaseException:
+        for *_, proc, _ in runs:
+            proc.kill()
+            proc.communicate()
+        raise
+    t0 = time.monotonic()
+    out["dryruns"] = finish_dryruns(runs)
+    out["dryruns_wait_s"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5615,6 +5906,16 @@ def main() -> int:
     t25 = time.monotonic()
     trained = training(torch, kernels)
     trained["seconds"] = time.monotonic() - t25
+    phase("phase 26: the launch layer — make_host_mesh on the card and "
+          "train.main under its rules bit-equal to the run without; the dry "
+          "run of " + ", ".join(f"{a} x {sh}" for a, sh in LAUNCH_DRYRUNS)
+          + " on 256 fake ranks in subprocesses; phase 25's step dry-run "
+          "beside its measured memory")
+    t26 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = launch_layer(torch, kernels, trained["zamba2"], tmp)
+    launched["seconds"] = time.monotonic() - t26
+    log(f"  phase 26 took {launched['seconds']:.1f} s")
     train_launch_counts = {
         name: {"train_zamba2": trained["zamba2"]["launches"][name],
                "train_qwen3_width_first_step": trained["dense_width"][
@@ -5714,7 +6015,9 @@ def main() -> int:
             **{f"zoo_serving_{row['config']}_{row['cache_dtype']}_cache":
                row["launches"]["flash_attention"]
                for row in serving["configs"]},
-            **train_launch_counts["flash_attention"]},
+            **train_launch_counts["flash_attention"],
+            "train_main_host_mesh": launched["train"]["launches"][
+                "flash_attention"]},
         "backward_train_shape": trained["zamba2"]["flash_attention"],
         "zoo_shapes": flash_zoo,
         "policy_learner": dict(flash_policy, launches_per_learner_step=(
@@ -5743,7 +6046,9 @@ def main() -> int:
         "backward": grads["ssd_scan"],
         "launches_by_path": {
             "scoring": scoring["launches"]["ssd_scan"],
-            **train_launch_counts["ssd_scan"]},
+            **train_launch_counts["ssd_scan"],
+            "train_main_host_mesh": launched["train"]["launches"][
+                "ssd_scan"]},
         "backward_train_shape": trained["zamba2"]["ssd_scan"],
     }]
     log(f"  phase 21 {json.dumps(dist_dqn)}")
@@ -5751,6 +6056,7 @@ def main() -> int:
     log(f"  phase 23 {json.dumps(zoo)}")
     log(f"  phase 24 {json.dumps(serving)}")
     log(f"  phase 25 {json.dumps(trained)}")
+    log(f"  phase 26 {json.dumps(launched)}")
     log(f"all phases passed in {time.monotonic() - start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_lines, **floor}))

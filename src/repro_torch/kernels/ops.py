@@ -32,14 +32,17 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
+def flash_attention(q, k, v, *, causal=True, window=None, q_chunk=None):
     """q: (b, h, sq, d); k, v: (b, kv, sk, d), kv dividing h.  ``window``
-    applies only with ``causal``."""
+    applies only with ``causal``.  ``q_chunk`` sets the plain version's
+    query chunk (``ref.flash_attention_ref``); the kernel bounds its own
+    memory and ignores it."""
     if _on_card(q):
         if _wants_grad(q, k, v):
             return FlashAttentionFunction.apply(q, k, v, causal, window)
         return _flash(q, k, v, causal, window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_chunk=q_chunk)
 
 
 def decode_attention(q, k, v, lengths):

@@ -13,7 +13,8 @@ NEG_INF = -1e30
 Q_CHUNK = 1024
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
+def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None,
+                        q_chunk=None):
     """q: (b, h, sq, d); k, v: (b, kv, sk, d) with kv dividing h (query
     head i reads KV head i // (h // kv)).  Plain softmax attention.
 
@@ -24,7 +25,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
     of ``Q_CHUNK`` when that divides sq, else in one block, as the JAX
     package's ``models/attention.py::attention`` scans them: each row's
     softmax is its own, so this bounds the scores' memory and changes no
-    row."""
+    row.  ``q_chunk`` replaces ``Q_CHUNK`` (sequence-parallel attention
+    passes sq: one block)."""
     sq, sk = q.shape[2], k.shape[2]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group = q.shape[1] // k.shape[1]
@@ -45,7 +47,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
         p = torch.softmax(scores, dim=-1)
         return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
-    chunk = Q_CHUNK if sq % Q_CHUNK == 0 else sq
+    chunk = q_chunk or Q_CHUNK
+    chunk = chunk if sq % chunk == 0 else sq
     if sq <= chunk:
         return block(0, sq)
     return torch.cat([block(i, chunk) for i in range(0, sq, chunk)], dim=2)

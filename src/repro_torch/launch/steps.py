@@ -18,6 +18,7 @@ from repro_torch import tree
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import Optimizer, apply_updates, periodic_update
+from repro_torch.sharding import shard
 
 
 class TrainState(NamedTuple):
@@ -43,6 +44,7 @@ def init_train_state(generator, cfg: ArchConfig, opt: Optimizer, *,
 
 def _bc_loss(params, cfg, batch, remat):
     feats, aux = transformer.forward_features(params, cfg, batch, remat=remat)
+    feats = shard(feats, "batch", None, "d_model")   # gather seq for the CE scan
     table = transformer.unembed_table(params, cfg)
     loss = layers.chunked_cross_entropy(feats[:, :-1], table,
                                         batch["labels"][:, 1:],
@@ -112,11 +114,15 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, objective="bc",
             return grad_fn(params, target_params, batch)
         size = next(iter(batch.values())).shape[0] // microbatches
         leaves, treedef = tree.flatten(params)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         metrics = None
         for i in range(microbatches):
-            mbatch = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            # the JAX package reshapes the batch and scans; a slice of a
+            # batch sharded on its rows gathers them, so each microbatch
+            # is put back on the batch axes (a no-op on plain tensors)
+            mbatch = {k: shard(v[i * size:(i + 1) * size], "batch",
+                               *[None] * (v.dim() - 1))
+                      for k, v in batch.items()}
             g, m = grad_fn(params, target_params, mbatch)
             torch._foreach_add_(acc, torch._foreach_div(
                 [x.float() for x in tree.leaves(g)], microbatches))

@@ -2,9 +2,12 @@
 
 Trains a REDUCED variant of any assigned architecture (or, with
 ``--full-size``, the published one) on the synthetic token-MDP corpus
-(behaviour-cloning / offline-RL objective), on one device with no mesh:
-the JAX package's driver builds a one-device host mesh whose layout hints
-do nothing there.
+(behaviour-cloning / offline-RL objective).  As the JAX package's driver
+does, it builds the one-device host mesh (``make_host_mesh``) and runs
+under its ``ShardingRules``; the tensors are plain, not DTensors, so the
+models' layout hints do nothing on it.  Like the JAX package's, it has no
+``--mesh`` flag: the production meshes are the dry run's
+(``repro_torch.launch.dryrun``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --device cpu --steps 20
@@ -18,10 +21,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding as shlib
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, get_arch, reduced
 from repro_torch.envs import TokenChain
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (TrainState, init_train_state,
                                       make_train_step)
 from repro_torch.models import transformer
@@ -84,6 +90,19 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if not args.full_size:
         cfg = reduced(cfg)
+    # the host mesh's world-size-1 group lives as long as the run, unless
+    # one was up before it
+    owns_group = not dist.is_initialized()
+    rules = shlib.ShardingRules(make_host_mesh(args.device))
+    try:
+        with shlib.use_rules(rules):
+            return _train(cfg, args)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(cfg, args):
     opt = adam(cosine_schedule(args.lr, args.steps, warmup_steps=10), clip=1.0)
     generator = torch.Generator(device=args.device).manual_seed(0)
     state = init_train_state(generator, cfg, opt, device=args.device,

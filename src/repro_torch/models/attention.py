@@ -28,6 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kernels_ref
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding import current_rules, distributed, shard
 
 NEG_INF = -1e30
 
@@ -62,14 +63,18 @@ def _project_qkv(params, cfg: ArchConfig, x, positions):
         pos2d = positions if positions.dim() == 2 else positions[None, :]
         q = layers.apply_rope(q, pos2d, cfg.rope_theta)
         k = layers.apply_rope(k, pos2d, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "kv_seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "kv_seq", "kv_heads", "head_dim")
     return q, k, v
 
 
 def _repeat_kv(k, q_per_kv: int):
-    """(b, s, kv, hd) -> (b, s, h, hd)."""
+    """(b, s, kv, hd) -> (b, s, h, hd), sharded on the full head axis."""
     if q_per_kv == 1:
         return k
-    return torch.repeat_interleave(k, q_per_kv, dim=2)
+    k = torch.repeat_interleave(k, q_per_kv, dim=2)
+    return shard(k, "batch", "kv_seq", "heads", "head_dim")
 
 
 def _project_q(params, cfg: ArchConfig, x):
@@ -93,7 +98,8 @@ def attention(params, cfg: ArchConfig, x, positions, *, causal=True,
     on CUDA tensors, its plain version on CPU tensors), which takes q and
     the unrepeated GQA K/V, after RoPE and qk-norm, as (b, heads, s,
     head_dim) views of the (b, s, heads, head_dim) tensors, without copies;
-    the kernel writes its output in the model's order too.  Both mask by
+    the kernel writes its output in the model's order too (on DTensors
+    K/V are repeated to the full head count first).  Both mask by
     index, not by ``positions``: every
     caller passes contiguous positions (``arange(seq)``), and the causal
     and window masks depend only on q_pos - k_pos, so this is exact.
@@ -101,14 +107,49 @@ def attention(params, cfg: ArchConfig, x, positions, *, causal=True,
     call.  The plain version scans queries in chunks of 1024 when that
     divides sq, as the JAX package does, to bound its memory at long
     sequence lengths; the kernel bounds its own.
+
+    Under sharding rules (``repro_torch.sharding``) the layout hints sit on
+    q, K/V and the output around the ``ops.flash_attention`` call, where
+    the JAX package also pins its scores: those live inside the call here.
+    When the ``q_seq`` rule resolves to a mesh axis (heads that do not
+    divide the model axis), attention is sequence-parallel: q is sharded
+    on its positions, K/V are gathered whole, and queries are not chunked
+    (a chunk would gather the sharded positions).
     """
     if kv is None:
         q, k, v = _project_qkv(params, cfg, x, positions)
     else:
         q, (k, v) = _project_q(params, cfg, x), kv
+    sq = q.shape[1]
+    if distributed(k):
+        # DTensors: K/V repeated to every query head, sharded on heads as
+        # the JAX package repeats them, so the plain version's products
+        # shard on heads (it repeats nothing then); plain tensors, the
+        # kernel's route included, keep the GQA K/V
+        k = _repeat_kv(k, cfg.q_per_kv)
+        v = _repeat_kv(v, cfg.q_per_kv)
+    # sequence-parallel attention: when the q_seq rule maps to a mesh axis
+    # (heads not divisible by the model axis), shard query positions and
+    # compute un-chunked — scores are (b, h, sq/P, sk), already small.
+    rules = current_rules()
+    seq_par = False
+    if rules is not None:
+        spec = rules.mesh_axes(("q_seq",), (sq,))
+        if spec and spec[0] is not None:
+            seq_par = True
+            q = shard(q, "batch", "q_seq", "heads", "head_dim")
+            k = shard(k, "batch", None, None, None)
+            v = shard(v, "batch", None, None, None)
+    unchunked = {"q_chunk": sq} if seq_par else {}
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              window=cfg.sliding_window)
+                              window=cfg.sliding_window, **unchunked)
+    # hints in the (b, s, h, hd) order; a plain tensor comes back as the
+    # same (b, h, s, hd) view
+    out = out.transpose(1, 2)
+    out = shard(out, "batch", "q_seq" if seq_par else None, "heads",
+                "head_dim")
+    out = shard(out, "batch", "seq", "heads", "head_dim").transpose(1, 2)
     return torch.einsum("bhsk,hkd->bsd", out, params["wo"])
 
 
@@ -175,6 +216,20 @@ def _kernel_out(params, q, k, v, lengths, backend):
     return out[:, None]
 
 
+def _write_slots(cache_t, slot, new):
+    """``cache_t[r, slot[r]] = new[r, 0]`` for every row r, in place: a
+    scatter along the length axis, which leaves every other axis where it
+    is (a cache sharded on batch and heads takes it as it is).  A one-byte
+    cache (float8) is written through a byte view: the CPU's scatter has
+    no float8 kernel, and a copy moves the same bits."""
+    b = cache_t.shape[0]
+    index = slot.reshape(b, 1, 1, 1).expand(b, 1, *cache_t.shape[2:])
+    new = new.to(cache_t.dtype)
+    if cache_t.element_size() == 1:
+        cache_t, new = cache_t.view(torch.uint8), new.view(torch.uint8)
+    cache_t.scatter_(1, index, new)
+
+
 def decode_attention(params, cfg: ArchConfig, x, cache, pos, *,
                      cross_kv=None, backend: str = "grouped"):
     """One-token decode. x: (b, 1, d); pos: scalar (current index, shared)
@@ -209,9 +264,8 @@ def decode_attention(params, cfg: ArchConfig, x, cache, pos, *,
 
     length = cache["k"].shape[1]
     slot = torch.remainder(pos, length) if cfg.sliding_window else pos
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    _write_slots(cache["k"], slot, k_new)
+    _write_slots(cache["v"], slot, v_new)
     k, v = cache["k"], cache["v"]
 
     if backend in ("kernel", "ref"):

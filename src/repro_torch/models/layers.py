@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import distributed, shard
+
 
 def truncated_normal(generator, shape, stddev, device="cuda",
                      dtype=torch.float32):
@@ -98,7 +100,8 @@ def mlp_init(generator, d_model, d_ff, device="cuda", dtype=torch.float32):
 def mlp(params, x):
     h = torch.einsum("...d,df->...f", x, params["w_gate"])
     u = torch.einsum("...d,df->...f", x, params["w_up"])
-    return torch.einsum("...f,fd->...d", F.silu(h) * u, params["w_down"])
+    h = shard(F.silu(h) * u, "batch", "seq", "ff")
+    return torch.einsum("...f,fd->...d", h, params["w_down"])
 
 
 # ---------------------------------------------------------------- Embedding
@@ -108,7 +111,56 @@ def embed_init(generator, vocab, d_model, device="cuda", dtype=torch.float32):
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    """The table's rows at ``tokens``; a DTensor table under sharding rules
+    takes ``_sharded_embed``."""
+    table = params["table"]
+    if distributed(table):
+        return _sharded_embed(table, tokens)
+    return table[tokens]
+
+
+def _sharded_embed(table, tokens):
+    """The lookup on a DTensor table as the JAX package's partitioner does
+    it, without gathering the table: each rank looks up the rows its shard
+    holds and zeros the rest.  For each mesh dim:
+
+    * the table sharded on vocab: every rank takes all the tokens, and the
+      rows are a partial sum, which the next layout hint reduces; the
+      table's gradient stays a vocab shard (DTensor's own rule for this
+      lookup leaves a masked partial sum in the gradient, which a tied
+      unembedding's partial sum cannot be added to);
+    * sharded on d_model: the rows are sharded on d_model as well;
+    * replicated: the rows are placed as the tokens are, and the table's
+      gradient is a partial sum over a dim that shards the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = table.device_mesh
+    token_pl, out_pl, grad_pl = [], [], []
+    for tp, xp in zip(table.placements, tokens.placements):
+        if tp.is_shard():
+            token_pl.append(Replicate())
+            out_pl.append(Partial() if tp.dim == 0 else Shard(tokens.ndim))
+            grad_pl.append(tp)
+        else:
+            token_pl.append(xp)
+            out_pl.append(xp)
+            grad_pl.append(Partial() if xp.is_shard() else Replicate())
+    ids = tokens.redistribute(mesh, token_pl).to_local()
+    local = table.to_local(grad_placements=grad_pl)
+    _, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    ids = ids - offset[0]
+    hit = (ids >= 0) & (ids < local.shape[0])
+    rows = F.embedding(torch.where(hit, ids, 0), local)
+    rows = rows.masked_fill(~hit[..., None], 0)
+    shape = (*tokens.shape, table.shape[1])
+    stride = [1]
+    for d in reversed(shape[1:]):
+        stride.insert(0, stride[0] * d)
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def unembed(table, x):
@@ -139,7 +191,10 @@ def chunked_cross_entropy(x, table, labels, chunk: int = 1024,
             pad = torch.arange(table.shape[0], device=x.device) >= valid_vocab
             logits = logits.masked_fill(pad, -1e30)
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        # under sharding rules a vocab-sharded gather is a partial sum
+        # whose mask has the gather's shape: resolve it before the index
+        ll = shard(torch.gather(logits, -1, lc[..., None]),
+                   "batch", None, None)[..., 0]
         return torch.sum((logz - ll) * mc)
 
     def loss(lo, hi):

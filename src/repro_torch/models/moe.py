@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig, MoEConfig
+from repro_torch.sharding import shard
 
 GROUP = 256
 
@@ -52,8 +53,12 @@ def moe_init(generator, cfg: ArchConfig, device="cuda", dtype=torch.float32):
 def _expert_ffn(bank, x):
     """x: (e, g, c, d) -> (e, g, c, d) through per-expert SwiGLU."""
     h = torch.einsum("egcd,edf->egcf", x, bank["w_gate"])
+    h = shard(h, "experts", "moe_groups", None, "expert_ff")
     u = torch.einsum("egcd,edf->egcf", x, bank["w_up"])
-    return torch.einsum("egcf,efd->egcd", F.silu(h) * u, bank["w_down"])
+    u = shard(u, "experts", "moe_groups", None, "expert_ff")
+    h = shard(F.silu(h) * u, "experts", "moe_groups", None, "expert_ff")
+    out = torch.einsum("egcf,efd->egcd", h, bank["w_down"])
+    return shard(out, "experts", "moe_groups", None, "d_model")
 
 
 def route(params, cfg: ArchConfig, xg):
@@ -76,7 +81,11 @@ def moe_ffn(params, cfg: ArchConfig, x):
     capacity = math.ceil(g_tokens * k * m.capacity_factor / e) if e else 0
     capacity = max(capacity, k)
 
+    # gather the sequence-parallel shards BEFORE grouping so the group dim
+    # carries only the batch axes (consistent with the expert einsums).
+    x = shard(x, "batch", "seq", "d_model")
     xg = x.reshape(n_groups, g_tokens, d)
+    xg = shard(xg, "moe_groups", None, "d_model")
     logits, probs, top_vals, top_idx = route(params, cfg, xg)
     top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
                                       min=1e-9)
@@ -96,12 +105,14 @@ def moe_ffn(params, cfg: ArchConfig, x):
     kept = torch.sum(keep, dim=-1).to(x.dtype)                     # (g,t,k)
     dispatch = torch.einsum("gtke,gtkc->gtec",
                             onehot.to(x.dtype) * kept[..., None], slot_oh)
+    dispatch = shard(dispatch, "moe_groups", None, None, None)
     # combine weights: scale each kept assignment by its gate value
     gate_per_expert = torch.einsum("gtke,gtk->gte", onehot.to(x.dtype),
                                    top_vals.to(x.dtype))
     combine = dispatch * gate_per_expert[..., None]
 
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xg)
+    expert_in = shard(expert_in, "experts", "moe_groups", None, "d_model")
     expert_out = _expert_ffn(params["experts"], expert_in)
     y = torch.einsum("gtec,egcd->gtd", combine, expert_out)
 
@@ -115,4 +126,7 @@ def moe_ffn(params, cfg: ArchConfig, x):
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     losses = {"moe_aux": m.router_aux_weight * aux,
               "moe_z": m.router_z_weight * z}
-    return y.reshape(b, s, d), losses
+    # back on the batch axes before the residual add: on DTensors the
+    # reshape of groups into rows leaves a placement the next block's
+    # products cannot take
+    return shard(y.reshape(b, s, d), "batch", "seq", "d_model"), losses

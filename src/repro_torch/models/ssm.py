@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding import shard
 
 
 def ssm_init(generator, cfg: ArchConfig, device="cuda", dtype=torch.float32):
@@ -71,7 +72,10 @@ def _causal_conv(w, b, xbc):
     float32 convolution goes to cuDNN, which runs it in TF32 unless the
     caller has turned that off."""
     width, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    # zeros before the start by a cat, not F.pad, which some torch's
+    # DTensor mis-shards
+    zeros = torch.zeros_like(xbc[:, :1]).expand(-1, width - 1, -1)
+    pad = torch.cat([zeros, xbc], dim=1)
     w = w.to(xbc.dtype)
     out = pad[:, 0:s] * w[0]
     for i in range(1, width):
@@ -110,6 +114,7 @@ def ssm_forward(params, cfg: ArchConfig, x):
     xbc = _causal_conv(params["conv_w"], params["conv_b"], xbc)
     xi, B, C = torch.split(xbc, [di, n, n], dim=-1)
     xh = xi.reshape(*xi.shape[:2], nh, p)
+    xh = shard(xh, "batch", "seq", "ssm_heads", None)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 

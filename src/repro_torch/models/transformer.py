@@ -60,6 +60,7 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding import shard
 
 Params = Dict[str, Any]
 DENSE_FAMILY = ("dense", "moe", "vlm")
@@ -275,6 +276,21 @@ def _ssm_block(bp, cfg: ArchConfig, x):
     return x + h
 
 
+def _act_seq(x):
+    """The sequence-parallel residual stream between blocks (Megatron SP):
+    a checkpoint's carry is then 1/model_parallel the size."""
+    return shard(x, "batch", "act_seq", "d_model")
+
+
+def _ssm_layer(bp, cfg: ArchConfig, x):
+    return _act_seq(_ssm_block(bp, cfg, x))
+
+
+def _stack_block(bp, cfg: ArchConfig, x, positions, aux, *, causal=True):
+    x, aux = _dense_block(bp, cfg, x, positions, aux, causal=causal)
+    return _act_seq(x), aux
+
+
 def _run_dense_stack(blocks, cfg: ArchConfig, x, positions, remat="none",
                      causal=True):
     """The blocks in turn, one checkpoint a block under ``remat``; an MoE
@@ -283,7 +299,7 @@ def _run_dense_stack(blocks, cfg: ArchConfig, x, positions, remat="none",
             for name in ("moe_aux", "moe_z")}
            if cfg.arch_type == "moe" else {})
     for bp in blocks:
-        block = functools.partial(_dense_block, bp, cfg, causal=causal)
+        block = functools.partial(_stack_block, bp, cfg, causal=causal)
         x, aux = _maybe_remat(block, remat)(x, positions, aux)
     return x, aux
 
@@ -292,8 +308,8 @@ def _hybrid_group(group, shared, cfg: ArchConfig, positions, x):
     """One of the hybrid's groups: its Mamba2 layers, then the shared
     attention block."""
     for bp in group:
-        x = _ssm_block(bp, cfg, x)
-    return _dense_block(shared, cfg, x, positions, {})[0]
+        x = _ssm_layer(bp, cfg, x)
+    return _act_seq(_dense_block(shared, cfg, x, positions, {})[0])
 
 
 def _whisper_decoder_block(bp, cfg: ArchConfig, positions, enc, x):
@@ -325,6 +341,7 @@ def forward_features(params: Params, cfg: ArchConfig, batch, *,
     if cfg.arch_type == "vlm":                # projected patch embeddings
         vision = on_table("vision")
         x = torch.cat([vision, x], dim=1)
+    x = shard(x, "batch", "seq", "d_model")
     seq = x.shape[1]
     positions = torch.arange(seq, device=x.device)
     aux: Dict[str, torch.Tensor] = {}
@@ -336,7 +353,7 @@ def forward_features(params: Params, cfg: ArchConfig, batch, *,
         x, aux = _run_dense_stack(params["blocks"], cfg, x, positions, remat)
     elif cfg.arch_type == "ssm":
         for bp in params["blocks"]:
-            x = run(_ssm_block, bp, cfg)(x)
+            x = run(_ssm_layer, bp, cfg)(x)
     elif cfg.arch_type == "hybrid":
         for group in params["blocks"]:
             x = run(_hybrid_group, group, params["shared_attn"], cfg,
@@ -384,7 +401,8 @@ def forward(params: Params, cfg: ArchConfig, batch, *, remat: str = "full"):
     masked, and the aux loss dict."""
     x, aux = forward_features(params, cfg, batch, remat=remat)
     logits = layers.unembed(unembed_table(params, cfg), x)
-    return mask_pad_logits(logits, cfg), aux
+    logits = mask_pad_logits(logits, cfg)
+    return shard(logits, "batch", "seq", "vocab"), aux
 
 
 def forward_embedded(params: Params, cfg: ArchConfig, x, *,
@@ -516,10 +534,10 @@ def decode_positional(pos, d_model: int, device):
     dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
     angle = torch.as_tensor(pos, device=device).float() / torch.pow(
         10000.0, dim / d_model)
-    pe = torch.zeros((d_model,), dtype=torch.float32, device=device)
-    pe[0::2] = torch.sin(angle)
-    pe[1::2] = torch.cos(angle)
-    return pe
+    # interleaved by a stack, not written into zeros: a scalar ``pos``
+    # may be a DTensor, which cannot be written into a plain tensor
+    return torch.stack([torch.sin(angle), torch.cos(angle)],
+                       dim=-1).reshape(d_model)
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache, token, pos, *,
@@ -537,6 +555,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache, token, pos, *,
     table = params["embed"]["table"]
     token = torch.as_tensor(token, device=table.device).long()
     x = layers.embed(params["embed"], token)
+    x = shard(x, "batch", None, "d_model")
     pos = torch.as_tensor(pos, device=x.device)
 
     if cfg.arch_type in DENSE_FAMILY:
@@ -572,7 +591,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache, token, pos, *,
 
     x = layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     logits = layers.unembed(unembed_table(params, cfg), x)[:, 0]
-    return mask_pad_logits(logits, cfg), cache
+    return shard(mask_pad_logits(logits, cfg), "batch", "vocab"), cache
 
 
 def prefill_embedded(params: Params, cfg: ArchConfig, cache, x, *,
@@ -634,6 +653,7 @@ def prefill(params: Params, cfg: ArchConfig, cache, tokens, *, lengths=None):
     table = params["embed"]["table"]
     tokens = torch.as_tensor(tokens, device=table.device).long()
     x = layers.embed(params["embed"], tokens)
+    x = shard(x, "batch", None, "d_model")
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=x.device)
     feats, cache = prefill_embedded(params, cfg, cache, x, lengths=lengths)
@@ -643,4 +663,4 @@ def prefill(params: Params, cfg: ArchConfig, cache, tokens, *, lengths=None):
         rows = torch.arange(feats.shape[0], device=x.device)
         last = feats[rows, torch.clamp(lengths.long() - 1, min=0)]
     logits = layers.unembed(unembed_table(params, cfg), last)
-    return mask_pad_logits(logits, cfg), cache
+    return shard(mask_pad_logits(logits, cfg), "batch", "vocab"), cache

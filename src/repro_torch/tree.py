@@ -12,12 +12,17 @@ port walks trees here instead, as ``jax.tree`` does:
 - ``None`` is an empty subtree;
 - anything else (a tensor, an array, a number) is a leaf.
 
+``flatten_with_path`` and ``map_with_path`` give each leaf its path, a
+tuple of ``DictKey``, ``GetAttrKey`` (a NamedTuple field) and
+``SequenceKey`` (a list or tuple item) entries, the counterparts of
+``jax.tree_util``'s key types.
+
 The one module of the port without a counterpart file in the JAX package:
 there, ``jax.tree`` does this work.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -137,6 +142,54 @@ def map(fn: Callable, tree, *rest):   # noqa: A001 — mirrors jax.tree.map
     flat, treedef = flatten(tree)
     others = [_flatten_up_to(treedef, r) for r in rest]
     return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])
+
+
+class DictKey(NamedTuple):
+    key: Any
+
+
+class GetAttrKey(NamedTuple):
+    name: str
+
+
+class SequenceKey(NamedTuple):
+    idx: int
+
+
+def _path_keys(node, kind) -> list:
+    if kind == "None":
+        return []
+    if isinstance(kind, tuple):                   # a dict
+        return [DictKey(k) for k in kind[1]]
+    if kind in (list, tuple):
+        return [SequenceKey(i) for i in range(len(node))]
+    return [GetAttrKey(f) for f in kind._fields]  # a NamedTuple
+
+
+def _walk_paths(node, path, out: List[Any]):
+    kind = _kind(node)
+    if kind is None:
+        out.append((path, node))
+        return
+    for key, child in zip(_path_keys(node, kind), _children(node, kind)):
+        _walk_paths(child, path + (key,), out)
+
+
+def flatten_with_path(tree) -> Tuple[List[Tuple[tuple, Any]], TreeDef]:
+    """``(path, leaf)`` pairs in JAX order, and the structure to rebuild
+    the tree, as ``jax.tree_util.tree_flatten_with_path``."""
+    pairs: List[Tuple[tuple, Any]] = []
+    _walk_paths(tree, (), pairs)
+    return pairs, flatten(tree)[1]
+
+
+def map_with_path(fn: Callable, tree, *rest):
+    """``fn(path, leaf, *others)`` over the leaves of ``tree``, as
+    ``jax.tree_util.tree_map_with_path``."""
+    pairs, treedef = flatten_with_path(tree)
+    others = [_flatten_up_to(treedef, r) for r in rest]
+    return unflatten(treedef, [fn(path, x, *xs) for (path, x), *xs
+                               in zip(pairs, *others)])
 
 
 def stack(trees) -> Any:

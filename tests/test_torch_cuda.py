@@ -12,7 +12,9 @@ DQN learner step that syncs once and matches the CPU's, and the
 distributed slice: the inference servers on the card, replica averaging
 on the card, and a server-mode actor process that never touches it; and
 training: one train step of every family's reduced config on the card
-against the CPU, and full remat with microbatches equal to none.
+against the CPU, and full remat with microbatches equal to none; and the
+host mesh on the card, with ``train.main`` under it equal to the run
+without its rules.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1910,3 +1912,39 @@ def test_full_remat_on_the_card_equals_none_with_microbatches(cuda_device):
     for a, c in zip(out["full"][2], out["none"][2]):
         assert (a - c).abs().max().item() <= 1e-6 * max(
             c.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_host_mesh_on_the_card_and_main_under_it_matches_the_run_without(
+        cuda_device, capsys):
+    """``make_host_mesh()`` is a (1, 1) mesh on the card; ``train.main``
+    on a reduced qwen3-1.7b under it (its rules on) prints the same CE at
+    every report as the same run without rules, and leaves no group up."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    assert not dist.is_initialized()
+    mesh = mesh_lib.make_host_mesh()
+    assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+    assert mesh.mesh_dim_names == ("data", "model")
+    dist.destroy_process_group()
+    argv = ["--arch", "qwen3-1.7b", "--steps", "20", "--batch", "4",
+            "--seq", "32"]
+    assert train.main(argv) == 0
+    under_mesh = capsys.readouterr().out
+    assert not dist.is_initialized() and sharding.current_rules() is None
+    args = argparse.Namespace(arch="qwen3-1.7b", steps=20, batch=4, seq=32,
+                              lr=3e-4, objective="bc", checkpoint_dir=None,
+                              full_size=False, device="cuda")
+    assert train._train(reduced(get_arch("qwen3-1.7b")), args) == 0
+    plain = capsys.readouterr().out
+
+    def metrics(text):
+        return [line.split("(")[0] for line in text.splitlines()
+                if line.startswith(("step", "done"))]
+    assert metrics(under_mesh) == metrics(plain) != []

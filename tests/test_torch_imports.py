@@ -213,6 +213,36 @@ def test_training_slice_imports_neither_jax_nor_repro(module):
     assert result.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.sharding", "repro_torch.launch.mesh",
+    "repro_torch.launch.param_sharding", "repro_torch.launch.specs",
+    "repro_torch.launch.hlo_analysis", "repro_torch.launch.dryrun",
+    "repro_torch.launch.perf"])
+def test_launch_layer_imports_neither_jax_nor_repro(module):
+    """The launch layer's modules, each on its own in a fresh
+    interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys\nimport {module}\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    result = subprocess.run([sys.executable, "-c", code], env=env,
+                            capture_output=True, text=True, timeout=120,
+                            check=True)
+    assert result.stdout.strip() == "[]"
+
+
+def test_every_reference_module_has_its_port():
+    """Each module of the JAX package has a file of the same path in the
+    port (the port's V-trace wrapper is ``kernels/vtrace.py``)."""
+    ref = ROOT / "src" / "repro"
+    renamed = {"kernels/vtrace_kernel.py": "kernels/vtrace.py"}
+    missing = [str(p.relative_to(ref)) for p in sorted(ref.rglob("*.py"))
+               if not (PORT / renamed.get(str(p.relative_to(ref)),
+                                          str(p.relative_to(ref)))).exists()
+               and p.name != "__init__.py"]
+    assert missing == []
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -228,7 +258,8 @@ def _imported_roots(path: pathlib.Path):
                             ROOT / "scripts" / "tensor_core_probe.py",
                             ROOT / "scripts" / "latency_probe.py",
                             ROOT / "scripts" / "planted_faults.py",
-                            ROOT / "scripts" / "acceptance_repeats.py"],
+                            ROOT / "scripts" / "acceptance_repeats.py",
+                            ROOT / "scripts" / "main_path_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     roots = set(_imported_roots(path))
@@ -240,7 +271,8 @@ def test_no_file_imports_jax_or_repro(path):
     "from repro_torch.models import moe, InputShape, MoEConfig, SSMConfig",
     "from repro_torch.distributed.program import LocalLauncher, "
     "MultiprocessLauncher, Launcher, WorkerErrors, JoinTimeout, "
-    "get_launcher, register_launcher"])
+    "get_launcher, register_launcher",
+    "from repro_torch import sharding; sharding.shard, sharding.use_rules"])
 def test_package_exports_match_the_reference(statement):
     """Names the JAX package exports at these import sites
     (``agents/__init__.py:7``, ``models/__init__.py:1-2`` and
