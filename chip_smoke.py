@@ -5,7 +5,10 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   with nvcc, one process per source, all started together;
+   with nvcc, one process per source, all started together; the flash
+   library's entries with ptxas's registers, spills and shared memory, and
+   the HGMMA instructions in each entry's SASS (cuobjdump; "not measured"
+   where the toolkit has none);
 2. hold each kernel against its plain PyTorch version on the card: decode
    attention at the serve shapes, the sweep shapes, a ragged cache, fully
    masked rows, caches of 1 key, of one tile and of one split and one key
@@ -29,10 +32,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    shared-attention site of the Zamba2 path (b 4, h 32, s 2048, d 64,
    causal, float32), at the transformer policy preset's head dim 16 (sq =
    sk in {1, 7, 16, 33}, causal windows 4 and 8, both dtypes), and at the
-   tensor-core design's edges: sq, sk around the warp
-   and block tiles, windows that end inside a key tile, the model's strided
-   views (equal to contiguous copies) and one key per query with distinct
-   V rows, which a wrong key order between P and V would show, and at the
+   designs' edges in both dtypes: sq, sk around each route's warp, block
+   and key tiles and one past its ring (the bf16 route at every head dim,
+   the f32 route at d 64 and d 128), windows that end inside a key tile,
+   the model's strided views (equal to contiguous copies) and one key per
+   query with distinct V rows, which a wrong key order between P and V
+   would show, and at the
    model zoo's shapes (phase 23): Whisper's encoder (b 4, h 8, s 1500, d
    64, non-causal, its last key tile ragged) and cross-attention (sq 448
    over sk 1500), qwen3-1.7b's GQA 16/8 at d 128 (s 2048, causal), in
@@ -77,8 +82,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    with the same band as a mask, and at phase 2's four model-zoo shapes
    in their path's dtype beside ``scaled_dot_product_attention`` (K/V
    repeated to the query heads before timing) and, in bfloat16, the
-   native bf16 tensor-core bound (989 TFLOP/s); there a kernel slower
-   than the library call is reported, not failed;
+   native bf16 tensor-core bound (989 TFLOP/s), each row with the kernel's
+   route, its entry's registers, spills, shared memory and HGMMA
+   instructions; there a kernel slower than the library call is reported,
+   not failed;
 6. the IMPALA path: ``make_agent(IMPALABuilder(spec, IMPALAConfig()))`` at
    the reference's full width (T 20, B 16, 50-64-64 torso) with a batched
    actor over a ``VectorEnv`` of 16 Catch envs in a
@@ -361,6 +368,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -777,12 +785,25 @@ SSD_CASES = [("sweep", 1, 256, 2, 32, 16, 64),
              ("ragged_chunk", 1, 300, 3, 16, 24, 100)]
 SSD_TOL = 1e-5            # of the output's largest magnitude
 SSD_PATH_TOL = 1e-4       # at the path's shape (see phase 2 above)
-# phase 2, the redesign's edges: flash at sq, sk around the 16-row warp
-# tiles and the 64-row / 64-key block tiles, windows that end inside a key
-# tile; the SSD scan with one chunk, 16 chunks, the ragged chunk 100 and
-# d_state 128 over two state tiles: (label, b, s, h, p, n, chunk)
-FLASH_EDGES = [1, 15, 16, 17, 63, 65, 127, 129]
+# phase 2, the designs' edges: flash at sq, sk around the f32 route's
+# 16-row warp tiles and 64-row / 64-key block tiles and the bf16 route's
+# 64-row warpgroups, 128-row / 128-key tiles and one past its ring (2
+# stages at d 128, 3 below: 257 and 385 keys), in both dtypes at d 64, at
+# the bf16 route's other head dims (FLASH_BF16_EDGES) and around the f32
+# d-128 route's 32-key tiles and ring of 2 (FLASH_TF32_WGMMA_EDGES);
+# windows that end inside a key tile; the SSD scan with one chunk, 16
+# chunks, the ragged chunk 100 and d_state 128 over two state tiles:
+# (label, b, s, h, p, n, chunk)
+FLASH_EDGES = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 257, 385]
+FLASH_BF16_EDGES = [1, 65, 129, 257, 385]
+FLASH_TF32_WGMMA_EDGES = [1, 31, 32, 33, 63, 64, 65, 129]
 FLASH_WINDOWS = [65, 100, 130]
+# the flash kernel's routes (flash_attention.route) and the kernel entry
+# each launches, as ptxas and cuobjdump name it
+FLASH_ROUTE_KERNELS = {
+    "wgmma_tma_bf16": "flash_attention_kernel_bf16_wgmmaILi{d}E",
+    "tf32x3_split_once": "flash_attention_kernel_tf32_wgmma",
+    "tf32x3": "flash_attention_kernelILi{d}E"}
 SSD_CHUNKINGS = [("one_chunk", 2, 256, 4, 64, 64, 256),
                  ("16_chunks", 1, 1024, 3, 32, 16, 64),
                  ("chunk_100", 2, 400, 4, 64, 32, 100),
@@ -1225,18 +1246,16 @@ def flash_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
     """Least time (ms): q, K, V and out once; two multiply-adds (q.k and
     p.v) per kept (query, key) pair and channel, per head.  In float32
     (itemsize 4) ``bounds``; in bfloat16 the work over the native bf16
-    tensor-core rate, and the kernel's own 3 TF32 passes as bound_tc_ms
-    (it widens bf16 tiles to f32)."""
+    tensor-core rate, which the kernel's bf16 route runs at, so there
+    bound_tc_ms is bound_ms."""
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kv * sk)
     flops = 4 * d * b * h * flash_pairs(sq, sk, causal, window)
     if itemsize == 4:
         return bounds(nbytes, flops)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / BF16_FLOPS_PER_S * 1e3
-    by_tc = TF32_PASSES * flops / TF32_FLOPS_PER_S * 1e3
-    return (max(by_bytes, by_ops),
-            "bytes" if by_bytes >= by_ops else "operations",
-            max(by_bytes, by_tc))
+    bound = max(by_bytes, by_ops)
+    return (bound, "bytes" if by_bytes >= by_ops else "operations", bound)
 
 
 def check_flash(kernel, ref, torch, cfg):
@@ -1269,8 +1288,8 @@ def check_flash(kernel, ref, torch, cfg):
                     f"window={window} {name:8s} max_abs_err={err:.3e}")
                 check(err <= TOL[name], f"flash_attention {label} {name}: "
                       f"max_abs_err {err} > {TOL[name]}")
-    worst["float32"] = max(worst["float32"],
-                           check_flash_edges(kernel, ref, torch, rng))
+    edges = check_flash_edges(kernel, ref, torch, rng)
+    worst = {name: max(worst[name], edges[name]) for name in worst}
     for name, dtype in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         err = check_flash_d16(kernel, ref, torch, rng, dtype)
@@ -1307,65 +1326,144 @@ def flash_error(kernel, ref, torch, q, k, v, causal, window, label):
     out = kernel(q, k, v, causal, window)
     torch.cuda.synchronize()
     expected = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    check(out.shape == expected.shape and bool(torch.isfinite(out).all()),
+    check(out.shape == expected.shape and out.dtype == q.dtype
+          and bool(torch.isfinite(out).all()),
           f"flash_attention {label}: bad output")
     err = (out.float() - expected.float()).abs().max().item()
-    check(err <= TOL["float32"], f"flash_attention {label}: max_abs_err "
-          f"{err} > {TOL['float32']}")
+    tol = TOL[str(q.dtype).split(".")[-1]]
+    check(err <= tol, f"flash_attention {label}: max_abs_err {err} > {tol}")
     return err, out
 
 
 def check_flash_edges(kernel, ref, torch, rng):
-    """The tensor-core design's edges, in float32: sq, sk around the warp
-    and block tiles; windows that end inside a key tile (causal tiles
-    launch heaviest first); the model's strided views against contiguous
-    copies (equal); one key per query with distinct V rows, which a wrong
-    key order between P and V would show."""
-    worst = 0.0
-    for sq in FLASH_EDGES:
-        for sk in FLASH_EDGES:
-            for causal in (True, False):
-                q, k, v = flash_inputs(1, 4, 2, sq, sk, 64, torch.float32,
-                                       rng)
-                err, _ = flash_error(kernel, ref, torch, q, k, v, causal,
-                                     None, f"edge sq={sq} sk={sk}")
-                worst = max(worst, err)
-    log(f"  flash_attention edges sq, sk in {FLASH_EDGES}, causal and not: "
-        f"max_abs_err={worst:.3e}")
+    """The tile designs' edges, in both dtypes: sq, sk around every route's
+    tiles and rings (FLASH_EDGES at d 64, FLASH_BF16_EDGES at the bf16
+    route's other head dims, FLASH_TF32_WGMMA_EDGES at the f32 route's d
+    128); windows that end inside a key tile (causal tiles launch heaviest
+    first); the model's strided views against contiguous copies (equal);
+    one key per query with distinct V rows, which a wrong key order between
+    P and V would show.  Returns the worst error per dtype."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def run(q, k, v, causal, window, label):
+        err, out = flash_error(kernel, ref, torch, q, k, v, causal, window,
+                               label)
+        name = str(q.dtype).split(".")[-1]
+        worst[name] = max(worst[name], err)
+        return err, out
+
+    grids = [(name, 64, FLASH_EDGES) for name in ("float32", "bfloat16")]
+    grids += [("bfloat16", d, FLASH_BF16_EDGES) for d in (16, 32, 128)]
+    grids += [("float32", 128, FLASH_TF32_WGMMA_EDGES)]
+    for name, d, edges in grids:
+        before = worst[name]
+        worst[name] = 0.0
+        for sq in edges:
+            for sk in edges:
+                for causal in (True, False):
+                    q, k, v = flash_inputs(1, 4, 2, sq, sk, d,
+                                           getattr(torch, name), rng)
+                    run(q, k, v, causal, None,
+                        f"edge sq={sq} sk={sk} d={d} {name}")
+        log(f"  flash_attention edges sq, sk in {edges}, d={d}, {name}, "
+            f"causal and not: max_abs_err={worst[name]:.3e}")
+        worst[name] = max(worst[name], before)
     for window in FLASH_WINDOWS:
-        q, k, v = flash_inputs(2, 4, 4, 300, 300, 64, torch.float32, rng)
-        err, _ = flash_error(kernel, ref, torch, q, k, v, True, window,
-                             f"window {window}")
-        worst = max(worst, err)
-        log(f"  flash_attention window={window} across key tiles s=300 "
-            f"max_abs_err={err:.3e}")
-    model = [torch.as_tensor(rng.randn(2, 200, heads, 64).astype(np.float32),
-                             device="cuda") for heads in (8, 2, 2)]
-    views = [t.transpose(1, 2) for t in model]
-    err, out = flash_error(kernel, ref, torch, *views, True, 80,
-                           "model-layout views")
-    same = torch.equal(out, kernel(*(t.contiguous() for t in views), True,
-                                   80))
-    check(same and out.transpose(1, 2).is_contiguous(),
-          "flash_attention: strided views differ from contiguous copies, "
-          "or the output is not in the model's order")
-    log(f"  flash_attention model-layout views: equal to contiguous copies, "
-        f"max_abs_err={err:.3e}")
-    for d in (32, 64, 128):
-        target = rng.randint(0, d, 200)
-        arrays = (np.eye(d)[target], np.eye(d) * 40.0 * d ** 0.5,
-                  np.arange(d)[:, None] + 0.01 * rng.randn(d, d))
-        q, k, v = (torch.as_tensor(a, dtype=torch.float32,
-                                   device="cuda")[None, None]
-                   for a in arrays)
-        err, out = flash_error(kernel, ref, torch, q, k, v, False, None,
-                               f"one key per query d={d}")
-        picked = (out[0, 0] - v[0, 0, target]).abs().max().item()
-        check(picked <= 1e-3, f"flash_attention: one key per query, d={d}: "
-              f"output {picked} from that key's V row")
-        log(f"  flash_attention one key per query d={d}: max_abs_err="
-            f"{err:.3e}, {picked:.3e} from the chosen keys' V rows")
+        for name, d in (("float32", 64), ("float32", 128),
+                        ("bfloat16", 64), ("bfloat16", 128)):
+            q, k, v = flash_inputs(2, 4, 4, 300, 300, d,
+                                   getattr(torch, name), rng)
+            err, _ = run(q, k, v, True, window,
+                         f"window {window} d={d} {name}")
+            log(f"  flash_attention window={window} across key tiles s=300 "
+                f"d={d} {name} max_abs_err={err:.3e}")
+    for name in ("float32", "bfloat16"):
+        model = [torch.as_tensor(rng.randn(2, 200, heads, 64).astype(
+            np.float32)).to("cuda", getattr(torch, name))
+            for heads in (8, 2, 2)]
+        views = [t.transpose(1, 2) for t in model]
+        err, out = run(*views, True, 80, f"model-layout views {name}")
+        same = torch.equal(out, kernel(*(t.contiguous() for t in views),
+                                       True, 80))
+        check(same and out.transpose(1, 2).is_contiguous(),
+              f"flash_attention {name}: strided views differ from "
+              f"contiguous copies, or the output is not in the model's "
+              f"order")
+        log(f"  flash_attention model-layout views {name}: equal to "
+            f"contiguous copies, max_abs_err={err:.3e}")
+    for name in ("float32", "bfloat16"):
+        for d in (32, 64, 128):
+            target = rng.randint(0, d, 200)
+            arrays = (np.eye(d)[target], np.eye(d) * 40.0 * d ** 0.5,
+                      np.arange(d)[:, None] + 0.01 * rng.randn(d, d))
+            q, k, v = (torch.as_tensor(a, dtype=torch.float32).to(
+                "cuda", getattr(torch, name))[None, None] for a in arrays)
+            err, out = run(q, k, v, False, None,
+                           f"one key per query d={d} {name}")
+            picked = (out[0, 0].float()
+                      - v[0, 0, target].float()).abs().max().item()
+            check(picked <= 1e-3, f"flash_attention: one key per query, "
+                  f"d={d} {name}: output {picked} from that key's V row")
+            log(f"  flash_attention one key per query d={d} {name}: "
+                f"max_abs_err={err:.3e}, {picked:.3e} from the chosen keys' "
+                f"V rows")
     return worst
+
+
+def ptxas_usage(build_log):
+    """Per kernel entry of ptxas's -v report in ``build_log``: registers,
+    spill stores and loads (bytes) and static shared memory (bytes)."""
+    usage, entry = {}, None
+    for line in build_log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+            usage[entry] = {}
+            continue
+        if entry is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found:
+            usage[entry]["spill_store_bytes"] = int(found.group(1))
+            usage[entry]["spill_load_bytes"] = int(found.group(2))
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[entry]["registers"] = int(found.group(1))
+            usage[entry]["static_smem_bytes"] = int(smem.group(1)) \
+                if smem else 0
+    return usage
+
+
+def sass_counts(library, opcode):
+    """{kernel entry: lines of its SASS that hold ``opcode``}, from the
+    toolkit's cuobjdump; None where the toolkit has none."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, entry = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            entry = found.group(1)
+            counts[entry] = 0
+        elif entry is not None and opcode in line:
+            counts[entry] += 1
+    return counts
+
+
+def flash_route_entry(table, route, d):
+    """The one entry of ``table`` (keyed by mangled kernel name) that the
+    route launches at head dim d, or None."""
+    pattern = FLASH_ROUTE_KERNELS[route].format(d=d)
+    found = [value for name, value in (table or {}).items()
+             if pattern in name]
+    return found[0] if len(found) == 1 else None
 
 
 def time_flash(kernel, ref, torch, cfg):
@@ -1482,14 +1580,18 @@ def check_flash_zoo(kernel, ref, torch, rng):
     return worst
 
 
-def time_flash_zoo(kernel, ref, torch):
+def time_flash_zoo(kernel, ref, torch, usage=None, hgmma=None):
     """FLASH_ZOO's shapes in the path's dtype, on the model's strided
     views: the kernel, its plain version, and scaled_dot_product_attention
     on contiguous (b, heads, s, d) tensors with K/V repeated to the query
     heads (the repeat made before timing; the library yardstick, never
     called by the port).  A kernel slower than the library call is
-    reported, not failed: it orders the next kernel work."""
+    reported, not failed: it orders the next kernel work.  Each row names
+    the kernel's route and, from ``usage`` (``ptxas_usage``) and ``hgmma``
+    (``sass_counts``), the entry's registers, spills, shared memory and
+    HGMMA instructions ("not measured" without them)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import route
     rng = np.random.RandomState(SEED + 23)
     rows = []
     for label, b, h, kv, sq, sk, d, causal, dtypes in FLASH_ZOO:
@@ -1515,7 +1617,14 @@ def time_flash_zoo(kernel, ref, torch):
                            "dtype": dtypes[0],
                            "layout": "model (b, s, heads, d) views"},
                  "max_abs_err_timed": err, "bound_ms": bound,
-                 "bound_by": bound_by, "bound_tc_ms": bound_tc}
+                 "bound_by": bound_by, "bound_tc_ms": bound_tc,
+                 "route": route(dtype, d),
+                 "ptxas": flash_route_entry(usage, route(dtype, d), d)
+                 or "not measured",
+                 "dynamic_smem_bytes": kernel.smem_bytes(dtype, d),
+                 "hgmma_sass_lines": (
+                     "not measured" if hgmma is None else
+                     flash_route_entry(hgmma, route(dtype, d), d))}
         calls = {
             "": (lambda: kernel(*views, causal, None), True),
             "plain_": (lambda: ref.flash_attention_ref(q, k, v,
@@ -5714,6 +5823,12 @@ def main() -> int:
                  if "registers" in line or "spill" in line]
         log(f"  {name}: nvcc {entry['seconds']:.2f} s; ptxas: "
             f"{'; '.join(sorted(set(usage)))}")
+    flash_usage = ptxas_usage(report["flash_attention"]["log"])
+    flash_hgmma = sass_counts(build.library_path("flash_attention"), "HGMMA")
+    hgmma_text = ("not measured" if flash_hgmma is None
+                  else json.dumps(flash_hgmma))
+    log(f"  flash_attention entries (ptxas): {json.dumps(flash_usage)}; "
+        f"HGMMA lines in SASS: {hgmma_text}")
 
     phase("phase 2: kernels against their plain versions")
     decode = decode_module.decode_attention
@@ -5775,7 +5890,7 @@ def main() -> int:
         f"{json.dumps(flash_policy)}; "
         f"{flash_policy['ms'] / floor['launch_floor_ms']:.2f}x the launch "
         f"floor")
-    flash_zoo = time_flash_zoo(flash, ref, torch)
+    flash_zoo = time_flash_zoo(flash, ref, torch, flash_usage, flash_hgmma)
     ssd_timed = time_ssd(ssd, ref, torch, zamba)
     log(f"  ssd_scan {json.dumps(ssd_timed)}")
 
@@ -5993,6 +6108,12 @@ def main() -> int:
         "bound_by": flash_timed["bound_by"],
         "bound_tc_ms": flash_timed["bound_tc_ms"],
         "library_ms": flash_timed["library_ms"],
+        "route": flash_module.route(torch.float32, zamba.head_dim),
+        "routes": {row["path"]: row["route"] for row in flash_zoo},
+        "build_seconds": report["flash_attention"]["seconds"],
+        "ptxas": flash_usage,
+        "hgmma_sass_lines": (flash_hgmma if flash_hgmma is not None
+                             else "not measured"),
         "eager_ms": flash_timed["eager_ms"],
         "eager_plain_ms": flash_timed["eager_plain_ms"],
         "eager_library_ms": flash_timed["eager_library_ms"],

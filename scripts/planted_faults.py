@@ -5,7 +5,7 @@ each read against the plain route by the rules phase 23 applies.
 A rule that a wrong kernel also passes checks nothing.  The faults:
 
 - ``wrong_kv_head``: query head i reads KV head (i // group + 1) mod kv;
-- ``last_key_tile_dropped``: a query tile that walks two or more 64-key
+- ``last_key_tile_dropped``: a query tile that walks two or more key
   tiles skips its last one (under the causal mask, the diagonal tile);
 - ``own_key_masked``: the causal mask hides key i from query i too.
 
@@ -43,12 +43,11 @@ from repro_torch.kernels import build  # noqa: E402
 
 # fault: (text of the committed kernel, its replacement)
 FAULTS = {
-    "wrong_kv_head": ("const int kv_head = head / (h / kv);",
-                      "const int kv_head = (head / (h / kv) + 1) % kv;"),
+    "wrong_kv_head": ("kv_head = head / (h / kv);",
+                      "kv_head = (head / (h / kv) + 1) % kv;"),
     "last_key_tile_dropped": (
-        "const int n_tiles = (k_end - k_begin + kTile - 1) / kTile;",
-        "const int n_tiles = max(1, (k_end - k_begin + kTile - 1) / kTile"
-        " - 1);"),
+        "n_tiles = (k_end - k_begin + BN - 1) / BN;",
+        "n_tiles = max(1, (k_end - k_begin + BN - 1) / BN - 1);"),
     "own_key_masked": ("causal && (j > i ||", "causal && (j >= i ||"),
 }
 

@@ -128,8 +128,9 @@ VARIANTS = {"flash_attention": {
     "no_kv_loads": ("the cp.async K/V tile loads", NO_LOADS),
     "no_barrier": ("the wait and the barrier per key tile", [NO_BARRIER]),
     "no_qk": ("S = Q.K^T: its mma, K loads from shared memory and K "
-              "splits", [(_SRC, "        tc::mma3(s[nt], ah, al, bh, bl);\n",
-                          "")]),
+              "splits",
+              [(_SRC, "        tc::mma3(s[nt], qh[kk], ql[kk], bh, bl);\n",
+                "")]),
     "no_pv": ("P.V: its mma, V loads from shared memory, V and P splits",
               [(_SRC, "        tc::mma3(pv[dn], ph, pl, bh, bl);\n", "")]),
     "mma_and_smem_only": ("the split, exp2f, the K/V loads and the barrier",
@@ -214,7 +215,7 @@ def mma_rates(torch, library):
     return rows
 
 
-def sass_mix(library, pattern="flash_attention_kernelIfLi64E"):
+def sass_mix(library, pattern="flash_attention_kernelILi64E"):
     """Opcode counts of one kernel's SASS (static, the whole function)."""
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(library)],
@@ -321,7 +322,7 @@ def main() -> int:
 
     chip_smoke.log("1. TF32 mma.sync m16n8k8 alone")
     rates = mma_rates(torch, mma_library)
-    chip_smoke.log("2. SASS of flash_attention_kernel<float, 64> (static "
+    chip_smoke.log("2. SASS of flash_attention_kernel<64> (static "
                    "counts, whole function)")
     mix = sass_mix(build.library_path("flash_attention"))
     chip_smoke.log(f"  {json.dumps(mix)}")

@@ -23,35 +23,47 @@
 // masked here.
 //
 // What bounds it: operations.  A causal call does about 2 b h sq sk d
-// multiply-adds over (2 b h sq + 2 b kv sk) d elements.  Both products run
-// on tensor cores, f32-accurate in three TF32 passes (tf32_mma.cuh), whose
-// least time is 3x the f32 work over the card's TF32 rate.
+// multiply-adds over (2 b h sq + 2 b kv sk) d elements.  Three routes, by
+// dtype and head dim alone (there is no fallback between them):
 //
-// The design, FlashAttention-2 style:
-// - one block of 4 warps per (query tile of 64, head, batch row), 16 query
-//   rows per warp; with `causal`, the heaviest query tiles launch first;
-// - Q's fragments, pre-scaled by d^-1/2 log2(e) and split into hi and lo
-//   once, stay in registers for the whole key loop (at d = 128, in shared
-//   memory, split as they are read);
-// - K and V tiles of 64 keys are double-buffered in shared memory by
-//   16-byte cp.async, tile t + 1 loading while tile t is multiplied, with
-//   one barrier per tile; bf16 tiles are copied as they are and widened to
-//   f32 as fragments are loaded;
-// - S = Q.K^T and P.V by mma.sync m16n8k8; each tile's P.V is summed apart
-//   and added to O in f32;
-// - the online softmax stays in registers: row max and sum over the four
-//   lanes that share a row;
-// - the score fragment becomes P.V's A fragment without shuffles: A's
-//   column t stands for key 2t and column t + 4 for key 2t + 1, and V's
-//   rows are read in the same order;
-// - masks are applied only on tiles that need them, and key tiles that the
-//   causal mask or the window empties for the whole query tile are skipped;
-// - head dims 16, 32, 64 and 128: at d = 16 a row is 64 bytes in f32 and
-//   32 in bf16, whole 16-byte cp.async chunks either way, and S = Q.K^T
-//   takes two k-steps of 8 (the transformer policy's preset runs there).
-// wgmma (which needs V transposed in shared memory for TF32), TMA and warp
-// specialisation are later work.
+// - bfloat16, d in {16, 32, 64, 128}: `wgmma` at the native bf16 rate.  A
+//   block of 384 threads takes 128 query rows of one head: a producer
+//   warpgroup, of which one thread issues TMA loads (Q once, then K/V tiles
+//   of 128 keys into a ring of 2 or 3 stages, completion on mbarriers) and
+//   hands its registers to the consumers with `setmaxnreg`; two consumer
+//   warpgroups of 64 rows each run S = Q.K^T with Q and K from shared
+//   memory, the online softmax in f32 registers (the scale d^-1/2 log2(e)
+//   applied to S in f32), round P to bf16 in registers and run O += P.V
+//   with P as the register A operand and V read as staged (keys x d) under
+//   the transpose bit.  Tiles carry the swizzle that TMA writes and the
+//   wgmma descriptors name (hopper.cuh).
+// - float32, d <= 64: three TF32 passes of mma.sync (tf32_mma.cuh), f32-
+//   accurate; least time 3x the work over the TF32 rate.  Blocks of 4 warps
+//   take 64 query rows; Q's fragments, pre-scaled by d^-1/2 log2(e) and
+//   split into hi and lo once, stay in registers; K and V tiles of 64 keys
+//   are double-buffered by 16-byte cp.async and split by each warp as its
+//   fragments are read.
+// - float32, d = 128: the same three passes, on TF32 `wgmma`, each operand
+//   split once.  A block of 256 threads takes 64 query rows: a splitter
+//   warpgroup loads each K/V tile of 32 keys and splits it, once, into TF32
+//   hi and lo planes in shared memory (V transposed: TF32 wgmma reads B
+//   K-major), into a ring of 2 stages on mbarriers; the consumer warpgroup
+//   splits Q once into planes that stay in shared memory (in registers they
+//   would crowd out O) and runs S = Q.K^T from shared memory and P.V with
+//   P's halves as register A operands, three passes each.
+//
+// Common to all three: with `causal` the heaviest query tiles launch
+// first; key tiles that the causal mask or the window empties for the
+// whole query tile are skipped, and masks are applied only on tiles that
+// need them.  In both f32 routes the score fragment becomes P.V's A
+// fragment without shuffles: A's column t stands for key 2t and column
+// t + 4 for key 2t + 1, and V's rows are read in the same order; each
+// tile's P.V is summed apart and added to O in f32 (tensor cores do not
+// round their sums to nearest, and a running O fed through every tile's
+// mma would gather that error beyond the f32 tolerance; bf16's tolerance
+// leaves room, so that route accumulates O in the wgmma).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,15 +71,13 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 64;  // queries per block (16 per warp), keys per tile
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -75,118 +85,137 @@ struct Strides {
   long long b, h, s;
 };
 
-// Shared-memory row length in elements: d plus a pad that keeps the rows
+// What one block walks: query rows [q0, q0 + BM) of one head and batch
+// row, and n_tiles key tiles of BN from k_begin.  A masked key inside
+// them scores -1e30, which weighs 0 once a row has seen a valid key and
+// weighs all keys equally in a row that sees none; a key past sk weighs 0.
+// Rows whose band lies wholly past the last key (i - (sk - 1) >= window)
+// see none; the last row of the tile is the first to do so, and then the
+// tile walks every key, as the oracle's mean of V needs.
+template <int BM, int BN>
+struct Walk {
+  int q0, head, row, kv_head, k_begin, n_tiles;
+
+  __device__ Walk(int h, int kv, int sq, int sk, int causal, int window) {
+    const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    q0 = tile * BM;
+    head = blockIdx.y;
+    row = blockIdx.z;
+    kv_head = head / (h / kv);
+    const int q_last = min(q0 + BM, sq) - 1;
+    k_begin = 0;
+    int k_end = sk;
+    if (causal) {
+      k_end = min(sk, q_last + 1);
+      if (window > 0) {
+        if (q_last - (sk - 1) >= window)
+          k_end = sk;
+        else
+          k_begin = max(0, q0 - window + 1);
+      }
+    }
+    n_tiles = (k_end - k_begin + BN - 1) / BN;
+  }
+};
+
+// Score s of key j for query i after the masks: -inf past the last key,
+// -1e30 where the causal mask or the window hides it.
+__device__ __forceinline__ float masked(float s, int i, int j, int sk,
+                                        int causal, int window) {
+  if (j >= sk) return -INFINITY;
+  if (causal && (j > i || (window > 0 && i - j >= window))) return kNegInf;
+  return s;
+}
+
+// Whether no (query, key) pair of rows [r, r + rows) and keys
+// [kt, kt + keys) is masked.
+__device__ __forceinline__ bool unmasked(int r, int rows, int kt, int keys,
+                                         int sk, int causal, int window) {
+  return kt + keys <= sk &&
+         (!causal || (kt + keys - 1 <= r &&
+                      (window <= 0 || r + rows - 1 - kt < window)));
+}
+
+// Row max of the online softmax over the four lanes that share a row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ===================================================== float32, d <= 64
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;  // queries per block (16 per warp), keys per tile
+
+// Shared-memory row length in floats: d plus a pad that keeps the rows
 // 16-byte aligned and the fragment loads free of bank conflicts.
-template <typename T, int D>
-__host__ __device__ constexpr int row_len() {
-  return D + (sizeof(T) == 4 ? 4 : 8);
-}
-
-// Q's fragments stay in registers, split into hi and lo once, up to
-// d = 64; at d = 128 the registers go to O and the tile's P.V, and Q waits
-// in shared memory, split as it is read.
 template <int D>
-__host__ __device__ constexpr bool q_in_registers() {
-  return D <= 64;
+__host__ __device__ constexpr int row_len() {
+  return D + 4;
 }
 
-// Two stages of K and V tiles, then the Q tile when it is not in registers.
-template <typename T, int D>
+// Two stages of K and V tiles.
+template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return (2 * 2 + (q_in_registers<D>() ? 0 : 1)) * (size_t)kTile *
-         row_len<T, D>() * sizeof(T);
+  return 2 * 2 * (size_t)kTile * row_len<D>() * sizeof(float);
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           Strides qs, Strides ks, Strides vs, Strides os,
-                           int h, int kv, int sq, int sk, int causal,
-                           int window, float q_scale) {
-  constexpr int LD = row_len<T, D>();
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, Strides qs, Strides ks,
+                           Strides vs, Strides os, int h, int kv, int sq,
+                           int sk, int causal, int window, float q_scale) {
+  constexpr int LD = row_len<D>();
   constexpr int KT = D / 8;      // k-steps of S = Q.K^T
   constexpr int NT = kTile / 8;  // key groups of 8
   constexpr int DT = D / 8;      // output column groups of 8
-  constexpr bool kQRegs = q_in_registers<D>();
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * kTile;
-  const int head = blockIdx.y;
-  const int row = blockIdx.z;
+  const Walk<kTile, kTile> w(h, kv, sq, sk, causal, window);
+  const int q0 = w.q0, k_begin = w.k_begin, n_tiles = w.n_tiles;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* smem = reinterpret_cast<float*>(smem_raw);
 
-  const int kv_head = head / (h / kv);
-  const T* q_bh = q + row * qs.b + head * qs.h;
-  const T* k_bh = k + row * ks.b + kv_head * ks.h;
-  const T* v_bh = v + row * vs.b + kv_head * vs.h;
-  T* out_bh = out + row * os.b + head * os.h;
+  const float* q_bh = q + w.row * qs.b + w.head * qs.h;
+  const float* k_bh = k + w.row * ks.b + w.kv_head * ks.h;
+  const float* v_bh = v + w.row * vs.b + w.kv_head * vs.h;
+  float* out_bh = out + w.row * os.b + w.head * os.h;
 
   // this thread's rows of the tile: r0 (c0, c1, a0, a2) and r1 = r0 + 8
   const int r0 = q0 + 16 * warp + g;
   const int r1 = r0 + 8;
 
-  uint32_t qh[kQRegs ? KT : 1][4], ql[kQRegs ? KT : 1][4];
-  T* q_s = smem + 2 * 2 * kTile * LD;  // when Q is not in registers
-  if constexpr (kQRegs) {
+  uint32_t qh[KT][4], ql[KT][4];
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      const int e = 8 * kk + t;
-      tc::split(r0 < sq ? tc::to_float(q_bh[r0 * qs.s + e]) * q_scale : 0.f,
-                qh[kk][0], ql[kk][0]);
-      tc::split(r1 < sq ? tc::to_float(q_bh[r1 * qs.s + e]) * q_scale : 0.f,
-                qh[kk][1], ql[kk][1]);
-      tc::split(
-          r0 < sq ? tc::to_float(q_bh[r0 * qs.s + e + 4]) * q_scale : 0.f,
-          qh[kk][2], ql[kk][2]);
-      tc::split(
-          r1 < sq ? tc::to_float(q_bh[r1 * qs.s + e + 4]) * q_scale : 0.f,
-          qh[kk][3], ql[kk][3]);
-    }
-  } else {  // rows past sq are zeros; committed with the first K/V tile
-    tc::stage(q_s, LD, q_bh + q0 * qs.s, qs.s, min(kTile, sq - q0), kTile,
-              D, D, tc::aligned16(q_bh, qs.s));
+  for (int kk = 0; kk < KT; ++kk) {
+    const int e = 8 * kk + t;
+    tc::split(r0 < sq ? q_bh[r0 * qs.s + e] * q_scale : 0.f, qh[kk][0],
+              ql[kk][0]);
+    tc::split(r1 < sq ? q_bh[r1 * qs.s + e] * q_scale : 0.f, qh[kk][1],
+              ql[kk][1]);
+    tc::split(r0 < sq ? q_bh[r0 * qs.s + e + 4] * q_scale : 0.f, qh[kk][2],
+              ql[kk][2]);
+    tc::split(r1 < sq ? q_bh[r1 * qs.s + e + 4] * q_scale : 0.f, qh[kk][3],
+              ql[kk][3]);
   }
 
-  // The keys this query tile walks: [k_begin, k_end).  A masked key inside
-  // it scores -1e30, which weighs 0 once a row has seen a valid key and
-  // weighs all keys equally in a row that sees none; a key past sk weighs
-  // 0.  Rows whose band lies wholly past the last key
-  // (i - (sk - 1) >= window) see none; the last row of the tile is the
-  // first to do so, and then the tile walks every key, as the oracle's mean
-  // of V needs.
-  const int q_last = min(q0 + kTile, sq) - 1;
-  int k_begin = 0;
-  int k_end = sk;
-  if (causal) {
-    k_end = min(sk, q_last + 1);
-    if (window > 0) {
-      if (q_last - (sk - 1) >= window)
-        k_end = sk;
-      else
-        k_begin = max(0, q0 - window + 1);
-    }
-  }
-  const int n_tiles = (k_end - k_begin + kTile - 1) / kTile;
   const bool k_vec = tc::aligned16(k_bh, ks.s);
   const bool v_vec = tc::aligned16(v_bh, vs.s);
 
   auto stage_kv = [&](int it) {
     const int kt = k_begin + it * kTile;
     const int rows = min(kTile, sk - kt);
-    T* k_s = smem + (it & 1) * 2 * kTile * LD;
+    float* k_s = smem + (it & 1) * 2 * kTile * LD;
     tc::stage(k_s, LD, k_bh + kt * ks.s, ks.s, rows, kTile, D, D, k_vec);
     tc::stage(k_s + kTile * LD, LD, v_bh + kt * vs.s, vs.s, rows, kTile, D,
               D, v_vec);
@@ -207,8 +236,8 @@ __global__ void __launch_bounds__(kThreads)
     // tile `it` is in; every warp is done with the buffer tile it + 1 fills
     __syncthreads();
     if (it + 1 < n_tiles) stage_kv(it + 1);
-    const T* k_s = smem + (it & 1) * 2 * kTile * LD;
-    const T* v_s = k_s + kTile * LD;
+    const float* k_s = smem + (it & 1) * 2 * kTile * LD;
+    const float* v_s = k_s + kTile * LD;
     const int kt = k_begin + it * kTile;
 
     // S = Q.K^T (log2 units): B(e, key) = K[key][e]
@@ -219,48 +248,26 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
-      uint32_t ah[4], al[4];
-      if constexpr (kQRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[e] = qh[kk][e];
-          al[e] = ql[kk][e];
-        }
-      } else {
-        const T* q_row = q_s + (16 * warp + g) * LD + 8 * kk + t;
-        tc::split(tc::to_float(q_row[0]) * q_scale, ah[0], al[0]);
-        tc::split(tc::to_float(q_row[8 * LD]) * q_scale, ah[1], al[1]);
-        tc::split(tc::to_float(q_row[4]) * q_scale, ah[2], al[2]);
-        tc::split(tc::to_float(q_row[8 * LD + 4]) * q_scale, ah[3], al[3]);
-      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const T* k_row = k_s + (8 * nt + g) * LD + 8 * kk + t;
+        const float* k_row = k_s + (8 * nt + g) * LD + 8 * kk + t;
         uint32_t bh[2], bl[2];
-        tc::split(tc::to_float(k_row[0]), bh[0], bl[0]);
-        tc::split(tc::to_float(k_row[4]), bh[1], bl[1]);
-        tc::mma3(s[nt], ah, al, bh, bl);
+        tc::split(k_row[0], bh[0], bl[0]);
+        tc::split(k_row[4], bh[1], bl[1]);
+        tc::mma3(s[nt], qh[kk], ql[kk], bh, bl);
       }
     }
 
     // masks, on tiles that need them: the ragged last tile, and tiles
     // that the causal mask or the window cut for some (row, key) pair
-    const bool whole =
-        kt + kTile <= sk &&
-        (!causal || (kt + kTile - 1 <= q0 &&
-                     (window <= 0 || q0 + kTile - 1 - kt < window)));
-    if (!whole) {
+    if (!unmasked(q0, kTile, kt, kTile, sk, causal, window)) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e < 2 ? r0 : r1;
-          const int j = kt + 8 * nt + 2 * t + (e & 1);
-          if (j >= sk)
-            s[nt][e] = -INFINITY;
-          else if (causal && (j > i || (window > 0 && i - j >= window)))
-            s[nt][e] = kNegInf;
-        }
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = masked(s[nt][e], e < 2 ? r0 : r1,
+                            kt + 8 * nt + 2 * t + (e & 1), sk, causal,
+                            window);
     }
 
     // online softmax in registers; the four lanes of a row share its max
@@ -270,10 +277,8 @@ __global__ void __launch_bounds__(kThreads)
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
     const float alpha0 = exp2f(m0 - mx0);
     const float alpha1 = exp2f(m1 - mx1);
     m0 = mx0;
@@ -294,9 +299,7 @@ __global__ void __launch_bounds__(kThreads)
     // pv = P.V over the key groups.  P's C fragment holds keys 2t, 2t + 1
     // of rows r0, r1; as the A fragment, column t is key 2t and column
     // t + 4 key 2t + 1, so B's row t is V's row 2t and row t + 4 V's row
-    // 2t + 1.  The tile's sum starts from zero and is added to O in f32:
-    // tensor cores do not round their sums to nearest, and a running O fed
-    // through every tile's mma would gather that error.
+    // 2t + 1.
     float pv[DT][4] = {};
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
@@ -305,13 +308,13 @@ __global__ void __launch_bounds__(kThreads)
       tc::split(s[kk][2], ph[1], pl[1]);  // (r1, key 2t)
       tc::split(s[kk][1], ph[2], pl[2]);  // (r0, key 2t + 1)
       tc::split(s[kk][3], ph[3], pl[3]);  // (r1, key 2t + 1)
-      const T* v_even = v_s + (8 * kk + 2 * t) * LD + g;
-      const T* v_odd = v_even + LD;
+      const float* v_even = v_s + (8 * kk + 2 * t) * LD + g;
+      const float* v_odd = v_even + LD;
 #pragma unroll
       for (int dn = 0; dn < DT; ++dn) {
         uint32_t bh[2], bl[2];
-        tc::split(tc::to_float(v_even[8 * dn]), bh[0], bl[0]);
-        tc::split(tc::to_float(v_odd[8 * dn]), bh[1], bl[1]);
+        tc::split(v_even[8 * dn], bh[0], bl[0]);
+        tc::split(v_odd[8 * dn], bh[1], bl[1]);
         tc::mma3(pv[dn], ph, pl, bh, bl);
       }
     }
@@ -324,72 +327,683 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) {
     const int col = 8 * dn + 2 * t;
     if (r0 < sq)
-      store2(out_bh + r0 * os.s + col, o[dn][0] * inv0, o[dn][1] * inv0);
+      *reinterpret_cast<float2*>(out_bh + r0 * os.s + col) =
+          make_float2(o[dn][0] * inv0, o[dn][1] * inv0);
     if (r1 < sq)
-      store2(out_bh + r1 * os.s + col, o[dn][2] * inv1, o[dn][3] * inv1);
+      *reinterpret_cast<float2*>(out_bh + r1 * os.s + col) =
+          make_float2(o[dn][2] * inv1, o[dn][3] * inv1);
   }
 }
 
-template <typename T, int D>
+// ====================================================== float32, d = 128
+namespace split_once {
+
+constexpr int D = 128;
+constexpr int kRows = 64;       // query rows a block: one consumer warpgroup
+constexpr int kKeys = 32;       // keys a tile
+constexpr int kStages = 2;
+constexpr int kThreads = 256;   // splitter warpgroup, then the consumer
+
+// TF32 planes in shared memory, K-major with the 128-byte swizzle, as
+// wgmma reads TF32: a tile of R rows x D floats is D / 32 column blocks of
+// R rows x 128 bytes.  Q's hi and lo planes (kRows rows), then per stage
+// K's hi and lo planes (kKeys rows) and V's, transposed (D rows of kKeys
+// keys), then the barriers full[kStages] and empty[kStages].
+constexpr uint32_t kQPlane = kRows * D * 4;
+constexpr uint32_t kKVPlane = kKeys * D * 4;
+constexpr uint32_t kStage = 4 * kKVPlane;
+constexpr uint32_t kBarriers = 2 * kQPlane + kStages * kStage;
+constexpr size_t kSmem = kBarriers + 8 * 2 * kStages + 1024;
+
+// Byte offset of element (r, c) in a K-major tile of `rows` rows.
+__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
+  return (c >> 5) * rows * 128 + r * 128 +
+         ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// Descriptor of the k-step of 8 TF32 columns from column `col`.
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows,
+                                            int col) {
+  return hop::descriptor(tile + (col >> 5) * rows * 128 + (col & 31) * 4, 16,
+                         1024, 1);
+}
+
+// P's A fragment holds keys 2t and 2t + 1 of a key group of 8 as its
+// columns t and t + 4, so V's transposed plane keeps key j of each group
+// at column (j odd: 4 + j / 2; j even: j / 2).
+__device__ __forceinline__ int key_column(int j) {
+  return (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);
+}
+
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// The TF32 halves of x: hi + lo = x to ~2^-22.
+__device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
+  tc::split(x.x, hi.x, lo.x);
+  tc::split(x.y, hi.y, lo.y);
+  tc::split(x.z, hi.z, lo.z);
+  tc::split(x.w, hi.w, lo.w);
+}
+
+__device__ __forceinline__ void store(uint32_t addr, uint4 x) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+__device__ __forceinline__ void store(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel_tf32_wgmma(const float* __restrict__ q,
+                                      const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      float* __restrict__ out, Strides qs,
+                                      Strides ks, Strides vs, Strides os,
+                                      int h, int kv, int sq, int sk,
+                                      int causal, int window, float q_scale) {
+  const Walk<kRows, kKeys> w(h, kv, sq, sk, causal, window);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (hop::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_hi = base, q_lo = base + kQPlane;
+  auto k_hi = [&](int stage) { return base + 2 * kQPlane + stage * kStage; };
+  auto full = [&](int stage) { return base + kBarriers + 8 * stage; };
+  auto empty = [&](int stage) {
+    return base + kBarriers + 8 * (kStages + stage);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hop::mbar_init(full(i), 128);
+      hop::mbar_init(empty(i), 128);
+    }
+  }
+  __syncthreads();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  if (threadIdx.x < 128) {
+    // ---- splitter: each K/V tile into its TF32 planes, once
+    const float* k_bh = k + w.row * ks.b + w.kv_head * ks.h;
+    const float* v_bh = v + w.row * vs.b + w.kv_head * vs.h;
+    const bool k_vec = tc::aligned16(k_bh, ks.s);
+    const bool v_vec = tc::aligned16(v_bh, vs.s);
+    for (int it = 0; it < w.n_tiles; ++it) {
+      const int stage = it % kStages;
+      const int kt = w.k_begin + it * kKeys;
+      // K rows warp + 4i, 16-byte column chunk `lane`; V key `lane`,
+      // columns 4 (warp + 4i) onwards (kept in registers while the stage
+      // drains)
+      float4 kx[kKeys / 4], vx[kKeys / 4];
+#pragma unroll
+      for (int i = 0; i < kKeys / 4; ++i) {
+        const int r = warp + 4 * i;
+        kx[i] = kt + r < sk ? load4(k_bh + (kt + r) * ks.s + 4 * lane, k_vec)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        vx[i] = kt + lane < sk
+                    ? load4(v_bh + (kt + lane) * vs.s + 4 * (warp + 4 * i),
+                            v_vec)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (it >= kStages)
+        hop::mbar_wait(empty(stage), ((it / kStages) - 1) & 1);
+      const uint32_t kh = k_hi(stage), kl = kh + kKVPlane;
+      const uint32_t vh = kl + kKVPlane, vl = vh + kKVPlane;
+      const int col = key_column(lane);
+#pragma unroll
+      for (int i = 0; i < kKeys / 4; ++i) {
+        uint4 hi, lo;
+        const int r = warp + 4 * i;
+        split4(kx[i], hi, lo);
+        store(kh + swizzled(kKeys, r, 4 * lane), hi);
+        store(kl + swizzled(kKeys, r, 4 * lane), lo);
+        split4(vx[i], hi, lo);
+        const int d0 = 4 * (warp + 4 * i);
+        store(vh + swizzled(D, d0, col), hi.x);
+        store(vh + swizzled(D, d0 + 1, col), hi.y);
+        store(vh + swizzled(D, d0 + 2, col), hi.z);
+        store(vh + swizzled(D, d0 + 3, col), hi.w);
+        store(vl + swizzled(D, d0, col), lo.x);
+        store(vl + swizzled(D, d0 + 1, col), lo.y);
+        store(vl + swizzled(D, d0 + 2, col), lo.z);
+        store(vl + swizzled(D, d0 + 3, col), lo.w);
+      }
+      hop::fence_proxy_async();
+      hop::mbar_arrive(full(stage));
+    }
+  } else {
+    // ---- consumer: 64 query rows, three TF32 passes on wgmma
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int q0 = w.q0;
+    const int r0 = q0 + 16 * warp + g;
+    const int r1 = r0 + 8;
+    {  // Q, pre-scaled by d^-1/2 log2(e), split once; rows past sq zeros
+      const float* q_bh = q + w.row * qs.b + w.head * qs.h;
+      const bool q_vec = tc::aligned16(q_bh, qs.s);
+#pragma unroll 4
+      for (int i = 0; i < kRows / 4; ++i) {
+        const int r = warp + 4 * i;
+        float4 x = q0 + r < sq ? load4(q_bh + (q0 + r) * qs.s + 4 * lane,
+                                       q_vec)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        x.x *= q_scale;
+        x.y *= q_scale;
+        x.z *= q_scale;
+        x.w *= q_scale;
+        uint4 hi, lo;
+        split4(x, hi, lo);
+        store(q_hi + swizzled(kRows, r, 4 * lane), hi);
+        store(q_lo + swizzled(kRows, r, 4 * lane), lo);
+      }
+      hop::fence_proxy_async();
+      hop::bar_sync(1, 128);
+    }
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;
+    float l0 = 0.f, l1 = 0.f;
+    for (int it = 0; it < w.n_tiles; ++it) {
+      const int stage = it % kStages;
+      hop::mbar_wait(full(stage), (it / kStages) & 1);
+      const int kt = w.k_begin + it * kKeys;
+      const uint32_t kh = k_hi(stage), kl = kh + kKVPlane;
+      const uint32_t vh = kl + kKVPlane, vl = vh + kKVPlane;
+
+      // S = Q.K^T (log2 units): lo.hi + hi.lo + hi.hi each k-step
+      float s[kKeys / 2];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t ah = k_major(q_hi, kRows, 8 * kk);
+        const uint64_t al = k_major(q_lo, kRows, 8 * kk);
+        const uint64_t bh = k_major(kh, kKeys, 8 * kk);
+        const uint64_t bl = k_major(kl, kKeys, 8 * kk);
+        hop::wgmma_ss_m64n32k8_tf32(s, al, bh, kk > 0);
+        hop::wgmma_ss_m64n32k8_tf32(s, ah, bl, 1);
+        hop::wgmma_ss_m64n32k8_tf32(s, ah, bh, 1);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_registers(s);
+
+      if (!unmasked(q0, kRows, kt, kKeys, sk, causal, window)) {
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i)
+          s[i] = masked(s[i], (i & 2) ? r1 : r0,
+                        kt + 8 * (i >> 2) + 2 * t + (i & 1), sk, causal,
+                        window);
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float alpha0 = exp2f(m0 - mx0);
+      const float alpha1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        s[4 * j] = exp2f(s[4 * j] - m0);
+        s[4 * j + 1] = exp2f(s[4 * j + 1] - m0);
+        s[4 * j + 2] = exp2f(s[4 * j + 2] - m1);
+        s[4 * j + 3] = exp2f(s[4 * j + 3] - m1);
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+
+      // pv = P.V, summed apart from O: P's halves as register A fragments
+      // (column t is key 2t, column t + 4 key 2t + 1), V^T's as B
+      uint32_t ph[kKeys / 8][4], pl[kKeys / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 8; ++kk) {
+        tc::split(s[4 * kk], ph[kk][0], pl[kk][0]);      // (r0, key 2t)
+        tc::split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);  // (r1, key 2t)
+        tc::split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);  // (r0, key 2t + 1)
+        tc::split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);  // (r1, key 2t + 1)
+      }
+      float pv[D / 2];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 8; ++kk) {
+        const uint64_t bh = k_major(vh, D, 8 * kk);
+        const uint64_t bl = k_major(vl, D, 8 * kk);
+        hop::wgmma_rs_m64n128k8_tf32(pv, pl[kk], bh, kk > 0);
+        hop::wgmma_rs_m64n128k8_tf32(pv, ph[kk], bl, 1);
+        hop::wgmma_rs_m64n128k8_tf32(pv, ph[kk], bh, 1);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_registers(pv);
+      hop::mbar_arrive(empty(stage));
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        o[i] = o[i] * alpha0 + pv[i];
+        o[i + 1] = o[i + 1] * alpha0 + pv[i + 1];
+        o[i + 2] = o[i + 2] * alpha1 + pv[i + 2];
+        o[i + 3] = o[i + 3] * alpha1 + pv[i + 3];
+      }
+    }
+
+    const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+    const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+    float* out_bh = out + w.row * os.b + w.head * os.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (r0 < sq)
+        *reinterpret_cast<float2*>(out_bh + r0 * os.s + col) =
+            make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < sq)
+        *reinterpret_cast<float2*>(out_bh + r1 * os.s + col) =
+            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  }
+}
+
+static_assert(kSmem <= kMaxSmem, "flash_attention (d 128): shared memory");
+
+}  // namespace split_once
+
+// ============================================ bfloat16: wgmma and TMA
+namespace wg {
+
+constexpr int kM = 128;         // query rows a block: two consumers of 64
+constexpr int kN = 128;         // keys a tile
+constexpr int kThreads = 384;   // producer warpgroup, then two consumers
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Bytes of one swizzle atom's row (32, 64 or 128) and the bf16 columns it
+// holds; a tile is D / atom_cols column blocks of R rows x atom_bytes.
+template <int D>
+__host__ __device__ constexpr int atom_bytes() {
+  return D >= 64 ? 128 : 2 * D;
+}
+template <int D>
+__host__ __device__ constexpr int atom_cols() {
+  return atom_bytes<D>() / 2;
+}
+// the descriptors' swizzle code: 1 = 128 B, 2 = 64 B, 3 = 32 B
+template <int D>
+__host__ __device__ constexpr int layout() {
+  return atom_bytes<D>() == 128 ? 1 : atom_bytes<D>() == 64 ? 2 : 3;
+}
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D == 128 ? 2 : 3;
+}
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
+  return (uint32_t)rows * D * 2;
+}
+// Q, then K and V for each stage (all 1024-byte aligned: the 128-byte
+// swizzle repeats every 8 rows of 128 bytes), then the barriers: q_full,
+// full[stages], empty[stages].
+template <int D>
+__host__ __device__ constexpr uint32_t k_offset(int stage) {
+  return tile_bytes<D>(kM) + 2 * stage * tile_bytes<D>(kN);
+}
+template <int D>
+__host__ __device__ constexpr uint32_t barrier_offset() {
+  return k_offset<D>(stages<D>());
+}
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // + the barriers, + 1024 to align the base
+  return barrier_offset<D>() + 8 * (1 + 2 * stages<D>()) + 1024;
+}
+
+// K-major descriptor (Q or K: d contiguous) of the k-step of 16 columns
+// from column `col`, rows from `row0` of a tile of `rows` rows.
+template <int D>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows,
+                                            int row0, int col) {
+  constexpr int AB = atom_bytes<D>();
+  const uint32_t addr = tile + (col / atom_cols<D>()) * rows * AB +
+                        row0 * AB + (col % atom_cols<D>()) * 2;
+  return hop::descriptor(addr, 16, 8 * AB, layout<D>());
+}
+
+// MN-major descriptor (V as staged: keys x d, d contiguous) of the k-step
+// of 16 keys from key `key`: column blocks kN rows apart, 8-key groups 8
+// rows apart.
+template <int D>
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int key) {
+  constexpr int AB = atom_bytes<D>();
+  return hop::descriptor(tile + key * AB, kN * AB, 8 * AB, layout<D>());
+}
+
+// A tile of `rows` rows from (position, head, batch row) into `dst`, one
+// box per column block.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const void* map,
+                                          uint32_t bar, int rows, int pos,
+                                          int head, int row) {
+#pragma unroll
+  for (int a = 0; a < D / atom_cols<D>(); ++a)
+    hop::tma_load_4d(dst + a * rows * atom_bytes<D>(), map, bar,
+                     a * atom_cols<D>(), pos, head, row);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel_bf16_wgmma(
+        const __grid_constant__ CUtensorMap q_map,
+        const __grid_constant__ CUtensorMap k_map,
+        const __grid_constant__ CUtensorMap v_map,
+        __nv_bfloat16* __restrict__ out, Strides os, int h, int kv, int sq,
+        int sk, int causal, int window, float scale_log2) {
+  constexpr int S = stages<D>();
+  const Walk<kM, kN> w(h, kv, sq, sk, causal, window);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (hop::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t bars = base + barrier_offset<D>();
+  const uint32_t q_full = bars;
+  auto full = [&](int stage) { return bars + 8 * (1 + stage); };
+  auto empty = [&](int stage) { return bars + 8 * (1 + S + stage); };
+  auto k_s = [&](int stage) { return base + k_offset<D>(stage); };
+  auto v_s = [&](int stage) { return k_s(stage) + tile_bytes<D>(kN); };
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int i = 0; i < S; ++i) {
+      hop::mbar_init(full(i), 1);
+      hop::mbar_init(empty(i), 2 * 128);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full
+    hop::release_registers<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::mbar_arrive_expect_tx(q_full, tile_bytes<D>(kM));
+      load_tile<D>(q_s, &q_map, q_full, kM, w.q0, w.head, w.row);
+      for (int it = 0; it < w.n_tiles; ++it) {
+        const int stage = it % S;
+        if (it >= S) hop::mbar_wait(empty(stage), ((it / S) - 1) & 1);
+        hop::mbar_arrive_expect_tx(full(stage), 2 * tile_bytes<D>(kN));
+        const int kt = w.k_begin + it * kN;
+        load_tile<D>(k_s(stage), &k_map, full(stage), kN, kt, w.kv_head,
+                     w.row);
+        load_tile<D>(v_s(stage), &v_map, full(stage), kN, kt, w.kv_head,
+                     w.row);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each.  Each runs a tile's two products
+    // back to back; the two warpgroups overlap one's softmax with the
+    // other's products.  (Issuing tile it + 1's S before tile it's P.V, with
+    // the softmax beside P.V, measured slower on an H100: PERF.md.)
+    hop::claim_registers<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int g = (tid & 31) >> 2;
+    const int t = tid & 3;
+    const int rows0 = w.q0 + 64 * c;  // this warpgroup's first row
+    const int r0 = rows0 + 16 * (tid >> 5) + g;
+    const int r1 = r0 + 8;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units)
+    float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
+
+    hop::mbar_wait(q_full, 0);
+    for (int it = 0; it < w.n_tiles; ++it) {
+      const int stage = it % S;
+      hop::mbar_wait(full(stage), (it / S) & 1);
+      const int kt = w.k_begin + it * kN;
+
+      // S = Q.K^T: 64 rows x 128 keys in f32
+      float s[kN / 2];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::wgmma_ss_m64n128k16(s, k_major<D>(q_s, kM, 64 * c, 16 * kk),
+                                 k_major<D>(k_s(stage), kN, 0, 16 * kk),
+                                 kk > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_registers(s);
+
+      // scale in f32, then the masks where the tile needs them
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) s[i] *= scale_log2;
+      if (!unmasked(rows0, 64, kt, kN, sk, causal, window)) {
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i)
+          s[i] = masked(s[i], (i & 2) ? r1 : r0,
+                        kt + 8 * (i >> 2) + 2 * t + (i & 1), sk, causal,
+                        window);
+      }
+
+      // online softmax in f32 registers
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float alpha0 = exp2f(m0 - mx0);
+      const float alpha1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        s[4 * j] = exp2f(s[4 * j] - m0);
+        s[4 * j + 1] = exp2f(s[4 * j + 1] - m0);
+        s[4 * j + 2] = exp2f(s[4 * j + 2] - m1);
+        s[4 * j + 3] = exp2f(s[4 * j + 3] - m1);
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+
+      // P in bf16 as the A fragments of 16 keys each: the accumulator's
+      // key groups 2kk and 2kk + 1 are the fragment's columns 0-7 and 8-15
+      uint32_t p[kN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        o[i] *= alpha0;
+        o[i + 1] *= alpha0;
+        o[i + 2] *= alpha1;
+        o[i + 3] *= alpha1;
+      }
+
+      // O += P.V, V read as staged under the transpose bit
+      hop::fence_registers(o);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+        hop::wgmma_rs<D>(o, p[kk], mn_major<D>(v_s(stage), 16 * kk), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_registers(o);
+      hop::mbar_arrive(empty(stage));
+    }
+
+    const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+    const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+    __nv_bfloat16* out_bh = out + w.row * os.b + w.head * os.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (r0 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(out_bh + r0 * os.s + col) =
+            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(out_bh + r1 * os.s + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver-API call, through the runtime's entry
+// point lookup (the library links no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (d, position, head, batch row) of a bf16 tensor given by
+// its element strides, boxes of one column block x `rows` rows.  A
+// dimension of extent 1 is never stepped; its stride is set to a
+// contiguous one, which TMA takes whatever the view's was.
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* base, Strides st, int s,
+                int heads, int b, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s,
+                              (cuuint64_t)heads, (cuuint64_t)b};
+  long long el[3] = {st.s, st.h, st.b};
+  long long contiguous = D;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) el[i] = contiguous;
+    contiguous = el[i] * (long long)dims[i + 1];
+  }
+  const cuuint64_t strides[3] = {(cuuint64_t)el[0] * 2, (cuuint64_t)el[1] * 2,
+                                 (cuuint64_t)el[2] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)atom_cols<D>(), (cuuint32_t)rows, 1,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      atom_bytes<D>() == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : atom_bytes<D>() == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const Strides* strides, int b, int h, int kv, int sq,
                    int sk, int causal, int window, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D>();
-  static_assert(smem <= kMaxSmem, "flash_attention: shared memory");
-  auto kernel = flash_attention_kernel<T, D>;
+  constexpr size_t smem = smem_bytes<D>();
+  static_assert(smem <= kMaxSmem, "flash_attention (bf16): shared memory");
+  CUtensorMap q_map, k_map, v_map;
+  if (!tensor_map<D>(&q_map, q, strides[0], sq, h, b, kM) ||
+      !tensor_map<D>(&k_map, k, strides[1], sk, kv, b, kN) ||
+      !tensor_map<D>(&v_map, v, strides[2], sk, kv, b, kN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_kernel_bf16_wgmma<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + kM - 1) / kM, h, b);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), strides[3], h,
+      kv, sq, sk, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------- launches
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, size_t smem, int rows, int threads,
+                       const void* q,
+                       const void* k, const void* v, void* out,
+                       const Strides* strides, int b, int h, int kv, int sq,
+                       int sk, int causal, int window, float scale,
+                       cudaStream_t stream) {
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((sq + kTile - 1) / kTile, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), strides[0], strides[1],
-      strides[2], strides[3], h, kv, sq, sk, causal, window, scale * kLog2e);
+  const dim3 grid((sq + rows - 1) / rows, h, b);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), strides[0],
+      strides[1], strides[2], strides[3], h, kv, sq, sk, causal, window,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
-                              void* out, const Strides* strides, int b, int h,
-                              int kv, int sq, int sk, int d, int causal,
-                              int window, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, strides, b, h, kv, sq, sk, causal,
-                           window, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, strides, b, h, kv, sq, sk, causal,
-                           window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, strides, b, h, kv, sq, sk, causal,
-                           window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, strides, b, h, kv, sq, sk, causal,
-                            window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* out, const Strides* strides, int b, int h,
+                        int kv, int sq, int sk, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  static_assert(smem_bytes<D>() <= kMaxSmem, "flash_attention: smem");
+  return launch_f32(flash_attention_kernel<D>, smem_bytes<D>(), kTile,
+                    kThreads, q, k, v, out, strides, b, h, kv, sq, sk, causal,
+                    window, scale, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) for q, k, v and
 // out in turn; the last dimension of each is contiguous.  dtype: 0 =
-// float32, 1 = bfloat16; window <= 0 means none.  Returns the launch's
-// cudaError_t.
+// float32, 1 = bfloat16; window <= 0 means none.  Routes by dtype and head
+// dim alone: bfloat16 to wgmma and TMA (whose bases and strides the caller
+// has checked to be 16-byte aligned), float32 to three TF32 passes (d 128
+// split once).  Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out,
                                      const long long* strides, int b, int h,
@@ -403,13 +1017,61 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   for (int i = 0; i < 4; ++i)
     s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(q, k, v, out, s, b, h, kv, sq, sk, d,
-                                    causal, window, scale, st);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(q, k, v, out, s, b, h, kv, sq, sk,
-                                            d, causal, window, scale, st);
+  if (dtype == 0) {
+    switch (d) {
+      case 16:
+        return launch_tf32<16>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                               window, scale, st);
+      case 32:
+        return launch_tf32<32>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                               window, scale, st);
+      case 64:
+        return launch_tf32<64>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                               window, scale, st);
+      case 128:
+        return launch_f32(split_once::flash_attention_kernel_tf32_wgmma,
+                          split_once::kSmem, split_once::kRows,
+                          split_once::kThreads, q, k, v, out, s, b, h, kv,
+                          sq, sk, causal, window, scale, st);
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      case 16:
+        return wg::launch<16>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                              window, scale, st);
+      case 32:
+        return wg::launch<32>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                              window, scale, st);
+      case 64:
+        return wg::launch<64>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                              window, scale, st);
+      case 128:
+        return wg::launch<128>(q, k, v, out, s, b, h, kv, sq, sk, causal,
+                               window, scale, st);
+    }
+  }
   return cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a launch of this dtype and head dim takes, in
+// bytes (ptxas reports static shared memory only); -1 if none is built.
+extern "C" int repro_flash_smem_bytes(int dtype, int d) {
+  if (dtype == 0) {
+    switch (d) {
+      case 16: return (int)smem_bytes<16>();
+      case 32: return (int)smem_bytes<32>();
+      case 64: return (int)smem_bytes<64>();
+      case 128: return (int)split_once::kSmem;
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      case 16: return (int)wg::smem_bytes<16>();
+      case 32: return (int)wg::smem_bytes<32>();
+      case 64: return (int)wg::smem_bytes<64>();
+      case 128: return (int)wg::smem_bytes<128>();
+    }
+  }
+  return -1;
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

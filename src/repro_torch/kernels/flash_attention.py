@@ -7,6 +7,14 @@ tensors to the plain version in ``ref.py``.  ``flash_attention.launches``
 counts the kernel's launches, so a run can show that its attention went
 through the kernel.
 
+The kernel has two routes, chosen by dtype and head dim alone (``route``),
+with no fallback between them: bfloat16 runs on ``wgmma`` with TMA loads
+(one bf16 tensor-core pass, f32 softmax); float32 on three TF32
+tensor-core passes (f32-accurate), by ``mma.sync`` below head dim 128 and
+at 128 by ``wgmma`` with each operand split into its TF32 halves once.
+TMA reads the bf16 inputs through tensor maps, which need 16-byte aligned
+bases and strides: an unaligned bf16 view raises, it is not copied.
+
 The kernel computes the forward pass only.  ``FlashAttentionFunction``
 makes it differentiable: its forward launches the kernel, and its backward
 recomputes the attention through the plain version and differentiates
@@ -29,6 +37,23 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535          # the grid's y (heads) and z (batch) extents
 _INT_MAX = 2 ** 31 - 1
+_TMA_ALIGN = 16            # bytes, of a tensor map's base and strides
+
+
+def route(dtype, head_dim: int) -> str:
+    """The kernel route a call with this dtype and head dim takes."""
+    if dtype == torch.bfloat16:
+        return "wgmma_tma_bf16"
+    return "tf32x3_split_once" if head_dim == 128 else "tf32x3"
+
+
+def _tma_aligned(t) -> bool:
+    """Whether TMA can read ``t`` (b, heads, s, d): a 16-byte aligned base,
+    and 16-byte strides wherever a dimension is stepped."""
+    size = t.element_size()
+    return t.data_ptr() % _TMA_ALIGN == 0 and all(
+        t.stride(i) * size % _TMA_ALIGN == 0
+        for i in range(3) if t.shape[i] > 1)
 
 
 class FlashAttention:
@@ -50,8 +75,16 @@ class FlashAttention:
                            + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            lib.repro_flash_smem_bytes.argtypes = [ctypes.c_int] * 2
+            lib.repro_flash_smem_bytes.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def smem_bytes(self, dtype, head_dim: int) -> int:
+        """The dynamic shared memory one launch of this dtype and head dim
+        takes (builds the library if needed)."""
+        self._kernel()
+        return self._lib.repro_flash_smem_bytes(_DTYPES[dtype], head_dim)
 
     def __call__(self, q, k, v, causal: bool = True, window=None):
         """q: (b, h, sq, d); k, v: (b, kv, sk, d), kv dividing h; one dtype
@@ -87,6 +120,10 @@ class FlashAttention:
         if any(t.stride(3) != 1 for t in (q, k, v)):
             raise ValueError("flash_attention: the last dimension of q, k "
                              "and v must be contiguous")
+        if q.dtype == torch.bfloat16 and not all(
+                map(_tma_aligned, (q, k, v))):
+            raise ValueError("flash_attention: bfloat16 q, k and v need "
+                             "16-byte aligned bases and strides (TMA)")
 
         fn = self._kernel()
         out = torch.empty((b, sq, h, d), dtype=q.dtype,

@@ -1,6 +1,9 @@
 """repro_torch on a card: the CUDA decode-attention, V-trace,
 flash-attention and SSD-scan kernels against their plain versions, their
-argument checks and launch counts, the kernel-backed engine against the
+argument checks and launch counts (flash attention's bf16 wgmma route and
+f32 routes around their tiles and rings, with windows, GQA, strided
+views, rows past the last key, TMA's alignment check and a call replayed
+from a CUDA graph), the kernel-backed engine against the
 plain one, an IMPALA learner step that launches V-trace once and syncs
 once, the reduced Zamba2 and Mamba2 scoring steps and those of every
 dense, MoE, VLM and Whisper arch on the kernels against the same steps on
@@ -690,6 +693,163 @@ def test_flash_kernel_pv_reads_the_key_of_each_weight(cuda_device, d):
                                rtol=TOL[torch.float32])
     torch.testing.assert_close(out[0, 0], v[0, 0, target], atol=1e-3,
                                rtol=0)
+
+
+# the bf16 route's tiles: 128 query rows a block (two warpgroups of 64),
+# key tiles of 128 in a ring of 2 stages at head dim 128 and 3 below it, so
+# 257 and 385 keys are one past the ring's depth; the f32 route at head dim
+# 128: 64 query rows, key tiles of 32 in a ring of 2
+BF16_EDGES = [1, 63, 64, 65, 127, 128, 129, 257, 385]
+TF32_WGMMA_EDGES = [1, 31, 32, 33, 63, 64, 65, 129]
+
+
+def _check_flash(q, k, v, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    expected = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), expected.float(),
+                               atol=TOL[q.dtype], rtol=TOL[q.dtype])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_route_at_tile_edges(cuda_device, d, causal):
+    """Every head dim, sq and sk around the 64-row warpgroup, the 128-row
+    and 128-key tiles and one past the ring's depth (TMA fills rows past
+    the tensor with zeros; the masks weigh keys past sk 0)."""
+    for sq in BF16_EDGES:
+        for sk in BF16_EDGES:
+            q, k, v = _flash_inputs(1, 4, 2, sq, sk, d, torch.bfloat16,
+                                    cuda_device, seed=sq * 131 + sk + d)
+            _check_flash(q, k, v, causal, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("window", [65, 100, 130, 200])
+def test_flash_bf16_route_windows_inside_key_tiles(cuda_device, d, window):
+    """Windows that end inside a 128-key tile, so a tile is cut by the
+    window and by the diagonal; heavy causal tiles launch first."""
+    q, k, v = _flash_inputs(2, 6, 2, 300, 300, d, torch.bfloat16,
+                            cuda_device, seed=window + d)
+    _check_flash(q, k, v, True, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv", [(4, 2), (6, 2), (6, 1), (48, 8)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_route_gqa_reads_kv_heads_unrepeated(cuda_device, h, kv,
+                                                        d):
+    """GQA 2:1, 3:1 and 6:1 (internvl2-26b's 48/8): query head i reads KV
+    head i // (h // kv) through the tensor map's head coordinate."""
+    q, k, v = _flash_inputs(2, h, kv, 200, 200, d, torch.bfloat16,
+                            cuda_device, seed=h * 10 + kv)
+    for causal in (True, False):
+        _check_flash(q, k, v, causal, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_routes_take_model_layout_views(cuda_device, d, dtype):
+    """Transposed views of (b, s, heads, d) tensors through both routes at
+    the head dims test_flash_kernel_takes_model_layout_views leaves out:
+    TMA's tensor maps and the f32 loads read them by their strides."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.RandomState(d)
+    q, k, v = (torch.as_tensor(rng.randn(2, 150, heads, d),
+                               dtype=torch.float32).to(cuda_device, dtype)
+               for heads in (6, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    out = _check_flash(*views, True, 70)
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, flash_attention(
+        *(t.contiguous() for t in views), True, 70))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_flash_routes_rows_past_the_last_key_get_the_mean_of_v(cuda_device,
+                                                               d, dtype):
+    """sq > sk with a window: rows i with i - (sk - 1) >= window see no key
+    and get the mean of V, in both wgmma routes."""
+    q, k, v = _flash_inputs(1, 2, 2, 300, 100, d, dtype, cuda_device)
+    out = _check_flash(q, k, v, True, 64)
+    mean = v.float().mean(dim=2, keepdim=True).expand(-1, -1, 100, -1)
+    torch.testing.assert_close(out[:, :, 200:].float(), mean,
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_route_at_head_dim_128_tile_edges(cuda_device, causal):
+    """The split-once TF32 route: sq and sk around its 64-row blocks, its
+    32-key tiles and one past its ring of two, GQA 2:1, at 1e-4."""
+    for sq in TF32_WGMMA_EDGES:
+        for sk in TF32_WGMMA_EDGES:
+            q, k, v = _flash_inputs(1, 4, 2, sq, sk, 128, torch.float32,
+                                    cuda_device, seed=sq * 131 + sk)
+            _check_flash(q, k, v, causal, None)
+    for window in (33, 100):
+        q, k, v = _flash_inputs(2, 6, 1, 300, 300, 128, torch.float32,
+                                cuda_device, seed=window)
+        _check_flash(q, k, v, True, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (16, torch.bfloat16),
+                                     (128, torch.float32),
+                                     (64, torch.float32)])
+def test_flash_call_replays_from_a_cuda_graph(cuda_device, d, dtype):
+    """One call captured in a CUDA graph (the bf16 route's tensor maps are
+    kernel parameters, captured with it) and replayed on new inputs copied
+    into the captured tensors."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(2, 6, 2, 200, 200, d, dtype, cuda_device, seed=1)
+    flash_attention(q, k, v, True, None)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, True, None)
+    for seed in (2, 3):
+        for dst, src in zip((q, k, v), _flash_inputs(
+                2, 6, 2, 200, 200, d, dtype, cuda_device, seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        expected = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.testing.assert_close(out.float(), expected.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_bf16_route_rejects_unaligned_views(cuda_device):
+    """TMA needs 16-byte aligned bases and strides: an unaligned bf16 view
+    raises and launches nothing (it is not copied)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    before = flash_attention.launches
+    q, k, v = _flash_inputs(1, 2, 2, 64, 64, 64, torch.bfloat16, cuda_device)
+    shifted = torch.zeros(1 + q.numel(), dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(shifted, k, v)
+    wide = torch.zeros(1, 2, 64, 72, dtype=torch.bfloat16,
+                       device=cuda_device)[..., :64]   # 144-byte rows
+    assert flash_attention(wide, k, v).shape == q.shape
+    narrow = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16,
+                         device=cuda_device)[..., :64]  # 136-byte rows
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(narrow, k, v)
+    assert flash_attention.launches == before + 1
 
 
 @pytest.mark.cuda
