@@ -5,10 +5,13 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   with nvcc, one process per source, all started together; the flash
-   library's entries with ptxas's registers, spills and shared memory, and
-   the HGMMA instructions in each entry's SASS (cuobjdump; "not measured"
-   where the toolkit has none);
+   with nvcc, one process per source, all started together (the two
+   backward kernels' libraries finish in a thread beside phases 2-12,
+   which launch neither, and phase 13 waits for them and reports their
+   entries' registers and spills); the flash library's entries with
+   ptxas's registers, spills and shared memory, and the HGMMA
+   instructions in each entry's SASS (cuobjdump; "not measured" where the
+   toolkit has none);
 2. hold each kernel against its plain PyTorch version on the card: decode
    attention at the serve shapes, the sweep shapes, a ragged cache, fully
    masked rows, caches of 1 key, of one tile and of one split and one key
@@ -139,12 +142,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the phase-3 policy's params, and of a reduced Zamba2's logits (7 Mamba2
    layers, 3 shared-attention sites, d_model 256, 2 x 512 tokens, f32),
    with flash attention and the SSD scan on their autograd Functions
-   (kernel forward, plain-recompute backward) against the same calls on
-   the plain route; every leaf gets a grad within 1e-4 of the plain
-   grad's largest magnitude; counts zeroed before and read after each, one
-   flash launch per site and one SSD launch per layer; then the
-   backward's time beside the forward kernel's at the scoring path's
-   shapes;
+   (forward and backward kernels) against the same calls on the plain
+   route; every leaf gets a grad within 1e-4 of the plain grad's largest
+   magnitude; counts zeroed before and read after each, one flash launch
+   and one flash backward launch per site and one SSD and one SSD backward
+   launch per layer; then the backward kernels alone against their plain
+   versions and against autograd of the plain forwards, every gradient
+   within 1e-4 (f32) or 2e-2 (bf16) of its largest magnitude and a repeat
+   call bit-equal: flash at FLASH_CASES x FLASH_MASKS in both dtypes (with
+   past_keys' rows that see no key), the zoo's FLASH_ZOO shapes and the
+   policy learner's s 16, with the forward's log-sum-exp held to its plain
+   version; the SSD scan at SSD_CASES and SSD_CHUNKINGS with and without
+   h0 in f32 and bf16; then, at the training path's shapes (Zamba2-1.2B
+   at 4 x 1024 tokens) and at qwen3-1.7b's d 128 (4 x 2048, f32 and bf16),
+   each backward kernel (CUDA graph and eager), its forward, its plain
+   version and the plain recompute it replaced, and for flash
+   ``scaled_dot_product_attention``'s backward in the path's dtype and in
+   bf16 (K/V repeated), beside the bound; one call must launch the
+   designs' CUDA kernels in order (3 for flash, 6 for the SSD scan);
 14. the transformer policy learns Catch on the card: ``run_experiment``
    with ``TransformerPolicyBuilder`` at the reference acceptance's preset
    and schedule (``tests/conftest.py:67-70``, seed 0, 250 episodes, 20
@@ -316,14 +331,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    launch the SSD scan 38 times and flash attention 6 times; prints the
    CE first and last, steps/s, tokens/s, step p50/p95, the peak memory,
    then one more step under torch.profiler (device ms in GEMMs, in the
-   flash and SSD kernels, and in their autograd Functions'
-   plain-recompute backwards; the idle share) with the optimizer update's
-   own peak in param-sized copies, and the two backwards timed at the
-   step's shapes; (b) qwen3-1.7b at its published width and 4 of its 28
+   flash and SSD kernels, and in their autograd Functions' backwards,
+   the backward kernels; the idle share) with the optimizer update's own
+   peak in param-sized copies, and the two backwards timed at the step's
+   shapes; each step must also launch the SSD backward 38 times and flash
+   attention's backward 6 times; (b) qwen3-1.7b at its published width and 4 of its 28
    layers (Adam's update holds ~11 param-sized float32 copies: the full
    depth would need ~89 GB) through ``make_train_step(remat="full",
    microbatches=2)``, 3 steps of 4 x 2048 tokens: flash launched 16 times
-   a step (twice a layer a microbatch), the first step's loss and grads
+   a step (twice a layer a microbatch) and its backward 8, the first
+   step's loss and grads
    (Adam's first moments) equal to remat "none"'s within 1e-6 of each
    leaf's largest, step ms and peak memory; (c) one ``remat="full"`` step
    of a reduced config of each family (and the DQN objective for dense
@@ -453,9 +470,11 @@ DQN_PROFILED_STEPS = 50
 DQN_TOL = 1e-5
 # Gradients through the kernels against the plain route's: max |d| over the
 # plain gradient's largest magnitude per leaf, at the kernels' f32
-# tolerance (the forward outputs differ by up to 1e-4; the backward is the
-# plain version's).
+# tolerance (the forward outputs differ by up to 1e-4); the backward
+# kernels against their plain versions and autograd of the plain forwards
+# by the same rule, GRAD_BF16_TOL in bf16 (P and dS rounded to bf16).
 GRAD_TOL = 1e-4
+GRAD_BF16_TOL = 2e-2
 GRAD_POLICY_BATCH = 64
 GRAD_ZAMBA = dict(num_layers=7, hybrid_attn_every=2)
 GRAD_ZAMBA_TOKENS = (2, 512)
@@ -1089,21 +1108,10 @@ def time_decode_shape(kernel, ref, torch, plan_splits, b, h, kv, s, d,
                        "kv_dtype": kv_dtype, "splits": splits},
              "max_abs_err_timed": err, "bound_ms": bound,
              "bound_by": bound_by}
-    launched = device_kernels(torch, calls[""])
-    if launched is None:
-        log("  decode_attention: the profiler recorded no device activity; "
-            "CUDA launches per call not measured")
-        timed["cuda_launches_per_call"] = None
-    else:
-        names = [name for name, _ in launched]
-        stages = ["decode_split_kernel"] + (
-            ["decode_combine_kernel"] if splits > 1 else [])
-        check(len(names) == len(stages)
-              and all(stage in name for name, stage in zip(names, stages)),
-              f"decode_attention: one call launched {names}, not {stages}")
-        timed["cuda_launches_per_call"] = len(launched)
-        timed["device_ms_by_kernel"] = {
-            stage: ms for stage, (_, ms) in zip(stages, launched)}
+    stages = ["decode_split_kernel"] + (
+        ["decode_combine_kernel"] if splits > 1 else [])
+    timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
+        launched_kernels(torch, calls[""], stages, "decode_attention"))
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, graph=False)
@@ -1193,14 +1201,8 @@ def time_vtrace(kernel, ref, torch, T, B, batch_major):
              "bound_by": bound_by, "library_ms": None}
     calls = {"": lambda: kernel(*inputs),
              "plain_": lambda: ref.vtrace_ref(*inputs)}
-    launched = device_kernels(torch, calls[""])
-    if launched is None:
-        timed["cuda_launches_per_call"] = None
-    else:
-        names = [name for name, _ in launched]
-        check(len(names) == 1 and "vtrace_kernel" in names[0],
-              f"vtrace: one call launched {names}, not vtrace_kernel alone")
-        timed["cuda_launches_per_call"] = 1
+    timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
+        launched_kernels(torch, calls[""], ("vtrace_kernel",), "vtrace"))
     # the plain version loops over T in Python: 20 calls a sample, not 200
     for prefix, fn in calls.items():
         launches = 20 if prefix else 200
@@ -1242,6 +1244,18 @@ def bounds(nbytes, flops):
             max(by_bytes, by_tc))
 
 
+def dtype_bounds(nbytes, flops, itemsize):
+    """(bound_ms, bound_by, bound_tc_ms): float32 (itemsize 4) by
+    ``bounds``; bfloat16 at the native bf16 tensor-core rate, which the
+    bf16 routes run at, so there bound_tc_ms is bound_ms."""
+    if itemsize == 4:
+        return bounds(nbytes, flops)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    bound = max(by_bytes, by_ops)
+    return (bound, "bytes" if by_bytes >= by_ops else "operations", bound)
+
+
 def flash_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
     """Least time (ms): q, K, V and out once; two multiply-adds (q.k and
     p.v) per kept (query, key) pair and channel, per head.  In float32
@@ -1250,12 +1264,7 @@ def flash_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
     bound_tc_ms is bound_ms."""
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kv * sk)
     flops = 4 * d * b * h * flash_pairs(sq, sk, causal, window)
-    if itemsize == 4:
-        return bounds(nbytes, flops)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOPS_PER_S * 1e3
-    bound = max(by_bytes, by_ops)
-    return (bound, "bytes" if by_bytes >= by_ops else "operations", bound)
+    return dtype_bounds(nbytes, flops, itemsize)
 
 
 def check_flash(kernel, ref, torch, cfg):
@@ -1754,7 +1763,28 @@ def check_ssd(kernel, ref, torch, cfg):
     return max(worst, err_y, err_state)
 
 
-def device_kernels(torch, fn):
+def graph_kernels(torch, fn):
+    """The names of the device kernels that one call of ``fn`` launches, in
+    order: the kernel nodes (not copies or fills) of a CUDA graph that
+    captures the call, read from the graph's DOT dump in capture order."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "call.dot"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the dump warns that it runs
+            graph.debug_dump(str(path))
+        text = path.read_text()
+    del graph
+    nodes = re.findall(r'label="\{\s*KERNEL\s*\|\s*\{ID \| (\d+) '
+                       r'\(topoId: \d+\) \| (.+?)\\<\\<\\<', text)
+    return [name for _, name in sorted(nodes, key=lambda n: int(n[0]))]
+
+
+def profiled_kernels(torch, fn):
     """The device kernels that one call of ``fn`` launches, in order, with
     their device times in ms, from torch.profiler's trace of the call
     (copies and fills are not kernels); None if the profiler recorded no
@@ -1765,7 +1795,8 @@ def device_kernels(torch, fn):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
@@ -1780,6 +1811,28 @@ def device_kernels(torch, fn):
     return [(e.name, e.device_time_total / 1e3)
             for e in events[marks[-1] + 1:]
             if not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def launched_kernels(torch, fn, stages, what, tries=3):
+    """The CUDA kernels one call of ``fn`` launches (``graph_kernels``),
+    held to the design's ``stages`` in order (each a part of its kernel's
+    name): (their count, {stage: device ms}).  The times come from
+    ``profiled_kernels``; in a long run the profiler at times records no
+    device activity for several sessions in a row (cause not found), so it
+    is tried ``tries`` times, and then each time is None (not measured)."""
+    names = graph_kernels(torch, fn)
+    check(len(names) == len(stages)
+          and all(stage in name for name, stage in zip(names, stages)),
+          f"{what}: one call launched {names}, not {list(stages)} in order")
+    for _ in range(tries):
+        traced = profiled_kernels(torch, fn)
+        if traced is not None:
+            break
+    if traced is None or len(traced) != len(names):
+        log(f"  {what}: the profiler recorded {traced!r} for a call of "
+            f"{len(names)} kernels; their device times not measured")
+        return len(names), {stage: None for stage in stages}
+    return len(names), {stage: ms for stage, (_, ms) in zip(stages, traced)}
 
 
 def time_ssd(kernel, ref, torch, cfg):
@@ -1803,23 +1856,11 @@ def time_ssd(kernel, ref, torch, cfg):
              "bound_tc_ms": bound_tc, "library_ms": None}
     calls = {"": lambda: kernel(*inputs, chunk),
              "plain_": lambda: ref.ssd_scan_ref(*inputs, chunk)}
-    launched = device_kernels(torch, calls[""])
-    if launched is None:
-        log("  ssd_scan: the profiler recorded no device activity; CUDA "
-            "launches per call not measured")
-        timed["cuda_launches_per_call"] = None
-    else:
-        names = [name for name, _ in launched]
-        stages = ("scores", "states", "pass", "output")
-        check(len(names) == len(stages)
-              and all(f"ssd_{stage}_kernel" in name
-                      for name, stage in zip(names, stages)),
-              f"ssd_scan: one call launched {names}, not the design's four "
-              f"kernels in order")
-        timed["cuda_launches_per_call"] = len(launched)
-        timed["device_ms_by_kernel"] = {
-            f"ssd_{stage}_kernel": ms
-            for stage, (_, ms) in zip(stages, launched)}
+    timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
+        launched_kernels(torch, calls[""],
+                         [f"ssd_{stage}_kernel" for stage in
+                          ("scores", "states", "pass", "output")],
+                         "ssd_scan"))
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20, graph=True)
         timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3, launches=20,
@@ -2745,17 +2786,368 @@ def time_backward(torch, fn, inputs, repeats=3):
             statistics.median(t[1] for t in times))
 
 
+def grad_scaled_err(a, e):
+    """max |a - e| over max |e| (the largest |grad|), in f32."""
+    e = e.float()
+    return ((a.float() - e).abs().max() / (e.abs().max() + 1e-30)).item()
+
+
+def check_flash_bwd(torch, ref, flash, flash_bwd, rng):
+    """Phase 13: the flash backward kernel at FLASH_CASES x FLASH_MASKS in
+    both dtypes (past_keys with its window included: rows that see no
+    key), at the zoo's FLASH_ZOO shapes in their dtypes and at the policy
+    learner's s 16, against its plain version (on the forward's own output
+    and log-sum-exp) and against autograd of the plain forward (on the
+    same values in f32), each within GRAD_TOL (f32) or GRAD_BF16_TOL
+    (bf16) of the largest |grad|; the forward's log-sum-exp against its
+    plain version by the same rule (of max(|lse|, 1)); a second backward
+    call on the same inputs gives the same bits.  Returns the worst error
+    per dtype."""
+    cases = [(label, b, h, kv, sq, sk, d, causal, window, name)
+             for label, b, h, kv, sq, sk, d in FLASH_CASES
+             for causal, window in FLASH_MASKS
+             for name in ("float32", "bfloat16")]
+    cases += [(label, b, h, kv, sq, sk, d, causal, None, name)
+              for label, b, h, kv, sq, sk, d, causal, dtypes in FLASH_ZOO
+              for name in dtypes]
+    b, h, kv, s, d = POLICY_FLASH_SHAPE
+    cases += [("policy", b, h, kv, s, s, d, True, POLICY["window"], name)
+              for name in ("float32", "bfloat16")]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for label, b, h, kv, sq, sk, d, causal, window, name in cases:
+        dtype = getattr(torch, name)
+        tol = GRAD_TOL if name == "float32" else GRAD_BF16_TOL
+        q, k, v = flash_inputs(b, h, kv, sq, sk, d, dtype, rng)
+        g = torch.as_tensor(rng.randn(b, h, sq, d).astype(np.float32)
+                            ).to("cuda", dtype)
+        out, lse = flash(q, k, v, causal, window, with_lse=True)
+        grads = flash_bwd(q, k, v, out, lse, g, causal, window)
+        again = flash_bwd(q, k, v, out, lse, g, causal, window)
+        torch.cuda.synchronize()
+        repeats = all(torch.equal(a, r) for a, r in zip(grads, again))
+        del again
+        lse_ref = ref.flash_attention_lse_ref(q, k, causal=causal,
+                                              window=window)
+        lse_err = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)
+                   ).max().item()
+        plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g,
+                                            causal=causal, window=window)
+        err = max(grad_scaled_err(a, e) for a, e in zip(grads, plain))
+        del plain
+        inputs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            ref.flash_attention_ref(*inputs, causal=causal, window=window),
+            inputs, g.float())
+        err_auto = max(grad_scaled_err(a, e) for a, e in zip(grads, auto))
+        del inputs, auto
+        log(f"  flash_attention_bwd {label:15s} b={b} h={h} kv={kv} "
+            f"sq={sq:<4d} sk={sk:<4d} d={d:<3d} causal={causal:d} "
+            f"window={window} {name:8s} scaled err: plain {err:.3e}, "
+            f"autograd {err_auto:.3e}, lse {lse_err:.3e}; repeat equal "
+            f"{repeats}")
+        check(all(g_.dtype == dtype and g_.shape == t.shape
+                  and bool(torch.isfinite(g_).all())
+                  for g_, t in zip(grads, (q, k, v))),
+              f"flash_attention_bwd {label} {name}: bad grads")
+        check(repeats, f"flash_attention_bwd {label} {name}: a second call "
+              f"gave other bits")
+        check(max(err, err_auto, lse_err) <= tol, f"flash_attention_bwd "
+              f"{label} causal={causal} window={window} {name}: scaled "
+              f"errors {err} (plain), {err_auto} (autograd), {lse_err} "
+              f"(lse) > {tol}")
+        worst[name] = max(worst[name], err, err_auto)
+    return worst
+
+
+def check_ssd_bwd(torch, ref, ssd, ssd_bwd, rng):
+    """Phase 13: the SSD backward kernel at SSD_CASES and SSD_CHUNKINGS,
+    with and without h0, in f32 and bf16 (x, B and C), against its plain
+    version and against autograd of the plain forward (on the same values
+    in f32), each gradient within GRAD_TOL (f32) or GRAD_BF16_TOL (bf16)
+    of its largest magnitude; a second backward call on the same inputs
+    gives the same bits.  Returns the worst error per dtype."""
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for label, b, s, h, p, n, chunk in SSD_CASES + SSD_CHUNKINGS:
+        for with_h0 in (False, True):
+            for name in ("float32", "bfloat16"):
+                dtype = getattr(torch, name)
+                tol = GRAD_TOL if name == "float32" else GRAD_BF16_TOL
+                x, dt, A, B, C = ssd_inputs(b, s, h, p, n, rng)
+                x, B, C = (t.to(dtype) for t in (x, B, C))
+                h0, gy, gf = (torch.as_tensor(rng.randn(*shape),
+                                              dtype=torch.float32,
+                                              device="cuda")
+                              for shape in ((b, h, n, p), (b, s, h, p),
+                                            (b, h, n, p)))
+                h0 = h0 if with_h0 else None
+                _, _, scratch = ssd(x, dt, A, B, C, chunk, h0, keep=True)
+                grads = ssd_bwd(x, dt, A, B, C, h0, scratch, gy, gf, chunk)
+                again = ssd_bwd(x, dt, A, B, C, h0, scratch, gy, gf, chunk)
+                torch.cuda.synchronize()
+                repeats = all(torch.equal(a, r) for a, r in
+                              zip(grads, again) if a is not None)
+                del again, scratch
+                plain = ref.ssd_scan_bwd_ref(x, dt, A, B, C, h0, gy, gf,
+                                             chunk)
+                inputs = [t.detach().float().requires_grad_() for t in
+                          (x, dt, A, B, C) + ((h0,) if with_h0 else ())]
+                y, final = ref.ssd_scan_ref(*inputs[:5], chunk,
+                                            h0=inputs[5] if with_h0 else None)
+                auto = torch.autograd.grad((y, final), inputs, (gy, gf))
+                errs = {nm: max(grad_scaled_err(a, e), grad_scaled_err(a, u))
+                        for nm, a, e, u in zip(names, grads, plain, auto)}
+                del plain, inputs, auto
+                log(f"  ssd_scan_bwd {label:12s} b={b} s={s:<4d} h={h} "
+                    f"p={p:<3d} n={n:<3d} chunk={chunk:<3d} h0={with_h0:d} "
+                    f"{name:8s} scaled err (plain, autograd) "
+                    + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f"; repeat equal {repeats}")
+                check((grads[5] is None) == (not with_h0)
+                      and all(g_.dtype == t.dtype and g_.shape == t.shape
+                              and bool(torch.isfinite(g_).all())
+                              for g_, t in zip(grads, (x, dt, A, B, C, h0))
+                              if g_ is not None),
+                      f"ssd_scan_bwd {label} {name}: bad grads")
+                check(repeats, f"ssd_scan_bwd {label} {name}: a second "
+                      f"call gave other bits")
+                check(max(errs.values()) <= tol, f"ssd_scan_bwd {label} "
+                      f"h0={with_h0} {name}: scaled errors {errs} > {tol}")
+                worst[name] = max(worst[name], *errs.values())
+    return worst
+
+
+def flash_bwd_bound(b, h, kv, sq, sk, d, causal, window, itemsize):
+    """Least time (ms) of the flash backward: q, out, dO, k, v and the
+    log-sum-exp read once, dq, dk and dv written once; the five products
+    of FlashAttention-2's backward (S, dP, dV, dQ, dK: two flops a kept
+    (query, key) pair and channel each, per head)."""
+    nbytes = (itemsize * d * (4 * b * h * sq + 4 * b * kv * sk)
+              + 4 * b * h * sq)
+    flops = 10 * d * b * h * flash_pairs(sq, sk, causal, window)
+    return dtype_bounds(nbytes, flops, itemsize)
+
+
+def ssd_bwd_bound(b, s, h, p, n, chunk):
+    """Least time (ms) of the SSD backward in f32: x, dy, dt, B, C, A, the
+    final state's gradient and the forward's scratch (the f64 sums, the
+    scores, the entering states) read once, dx, ddt, dB, dC and dA written
+    once.  Multiply-adds as the function needs them, per batch row and
+    chunk: per head, the kept pairs times 2p (dW = dy x^T, W^T dy) and
+    4 Q n p (C dy^T into dS, S dy, B dS', dS' x); once for all heads, as
+    B and C are one group, the kept pairs times 2n ((sum_h dG_h) B and its
+    transpose times C), as ``ssd_bound`` counts G."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    nbytes = (4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + 2 * h
+                   + b * nc * chunk * chunk + b * nc * h * n * p
+                   + b * h * n * p)
+              + 8 * b * s * h)
+    flops = 2 * b * nc * (h * (2 * pairs * p + 4 * chunk * n * p)
+                          + 2 * pairs * n)
+    return bounds(nbytes, flops)
+
+
+def time_flash_bwd(torch, ref, flash, flash_bwd, label, b, h, kv, s, d,
+                   name, window):
+    """At a training shape (causal, sq = sk = s): the backward kernel (a
+    CUDA graph's replay: device ms; and eager), the forward kernel with
+    its log-sum-exp, the plain backward version, the plain recompute (the
+    backward route before the kernel: autograd of the plain forward, run
+    again) and scaled_dot_product_attention's backward alone (the library
+    yardstick, never called by the port; K/V repeated to the query heads,
+    a mask only where a window needs one), each beside the bound.  The
+    kernel's grads must be within GRAD_TOL (f32) or GRAD_BF16_TOL (bf16)
+    of the plain backward's largest |grad|, and a repeat bit-equal."""
+    import torch.nn.functional as F
+    dtype = getattr(torch, name)
+    rng = np.random.RandomState(SEED + 32)
+    q, k, v = flash_inputs(b, h, kv, s, s, d, dtype, rng)
+    g = torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32)
+                        ).to("cuda", dtype)
+    out, lse = flash(q, k, v, True, window, with_lse=True)
+    grads = flash_bwd(q, k, v, out, lse, g, True, window)
+    again = flash_bwd(q, k, v, out, lse, g, True, window)
+    repeats = all(torch.equal(a, r) for a, r in zip(grads, again))
+    del again
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=True,
+                                        window=window)
+    err = max((a.float() - e.float()).abs().max().item()
+              for a, e in zip(grads, plain))
+    scaled = max(grad_scaled_err(a, e) for a, e in zip(grads, plain))
+    tol = GRAD_TOL if name == "float32" else GRAD_BF16_TOL
+    check(all(g_.dtype == dtype and g_.shape == t.shape
+              and bool(torch.isfinite(g_).all())
+              for g_, t in zip(grads, (q, k, v))),
+          f"flash_attention_bwd at {label} {name}: bad grads")
+    check(repeats, f"flash_attention_bwd at {label} {name}: a second call "
+          f"gave other bits")
+    check(scaled <= tol, f"flash_attention_bwd at {label} {name}: scaled "
+          f"error {scaled} against the plain backward > {tol}")
+    del grads, plain
+    bound, bound_by, bound_tc = flash_bwd_bound(b, h, kv, s, s, d, True,
+                                                window, q.element_size())
+    timed = {"shape": {"label": label, "b": b, "h": h, "kv": kv, "sq": s,
+                       "sk": s, "d": d, "causal": True, "window": window,
+                       "dtype": name},
+             "max_abs_err_timed": err, "max_scaled_err_timed": scaled,
+             "bound_ms": bound, "bound_by": bound_by,
+             "bound_tc_ms": bound_tc}
+
+    def bwd():
+        return flash_bwd(q, k, v, out, lse, g, True, window)
+
+    def recompute():
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            plain_out = ref.flash_attention_ref(*inputs, causal=True,
+                                                window=window)
+            return torch.autograd.grad(plain_out, inputs, g)
+    timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
+        launched_kernels(torch, bwd, ("flash_bwd_rows", "flash_bwd_dkdv",
+                                      "flash_bwd_dq"),
+                         f"flash_attention_bwd {label} {name}"))
+    timed["ms"] = time_ms(bwd, warmup=3, launches=20, graph=True)
+    timed["eager_ms"] = time_ms(bwd, warmup=3, launches=20, graph=False)
+    timed["fwd_ms"] = time_ms(lambda: flash(q, k, v, True, window,
+                                            with_lse=True),
+                              warmup=3, launches=20, graph=True)
+    timed["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, g, causal=True, window=window), warmup=1,
+        launches=3, repeats=3, graph=False)
+    timed["recompute_ms"] = time_ms(recompute, warmup=1, launches=3,
+                                    repeats=3, graph=False)
+    group = h // kv
+    mask = None
+    if window is not None:
+        qi = torch.arange(s, device="cuda")[:, None]
+        ki = torch.arange(s, device="cuda")[None, :]
+        mask = (qi >= ki) & (qi - ki < window)
+    for lib_name, lib_dtype in (("library", dtype), ("library_bf16",
+                                                     torch.bfloat16)):
+        lq, lk, lv = (t.detach().to(lib_dtype) for t in (q, k, v))
+        lk, lv = (torch.repeat_interleave(t, group, dim=1)
+                  for t in (lk, lv))
+        lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                              is_causal=mask is None)
+        lg = g.to(lib_dtype)
+        timed[f"{lib_name}_ms"] = time_ms(
+            lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
+                                        retain_graph=True),
+            warmup=3, launches=20, graph=False)
+        del lq, lk, lv, lout
+    log(f"  flash_attention_bwd at {label} (b {b}, h {h}, kv {kv}, s {s}, d "
+        f"{d}, causal, window {window}, {name}): backward kernel "
+        f"{timed['ms']:.4f} ms (eager {timed['eager_ms']:.4f}), forward "
+        f"kernel {timed['fwd_ms']:.4f}, plain backward "
+        f"{timed['plain_ms']:.3f}, plain recompute "
+        f"{timed['recompute_ms']:.3f}, SDPA backward {name} "
+        f"{timed['library_ms']:.4f} and bf16 {timed['library_bf16_ms']:.4f} "
+        f"(K/V repeated); bound {bound:.4f} ms ({bound_by}), three TF32 "
+        f"passes {bound_tc:.4f}; {timed['cuda_launches_per_call']} CUDA "
+        f"launches a call {json.dumps(timed['device_ms_by_kernel'])}; max "
+        f"abs err {err:.3e} (scaled {scaled:.3e})")
+    return timed
+
+
+def time_ssd_bwd(torch, ref, ssd, ssd_bwd, cfg):
+    """At the training path's shape (phase 25 (a): one Mamba2 layer of
+    Zamba2-1.2B at 4 x 1024 tokens, the model's dt and A): the backward
+    kernel (device and eager ms), the forward kernel keeping its scratch,
+    the plain backward version and the plain recompute; no single PyTorch
+    call computes the SSD scan's backward.  The kernel's grads must be
+    within GRAD_TOL of the plain backward's largest magnitude, and a repeat
+    bit-equal.  One call must launch the design's six CUDA kernels once
+    each, in order."""
+    ssm = cfg.ssm
+    b, s = TRAIN_ZAMBA_SHAPE
+    h, p, n, chunk = (ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
+                      ssm.chunk_size)
+    rng = np.random.RandomState(SEED + 33)
+    x, dt, A, B, C = ssd_inputs(b, s, h, p, n, rng, model_like=True)
+    gy, gf = (torch.as_tensor(rng.randn(*shape), dtype=torch.float32,
+                              device="cuda")
+              for shape in ((b, s, h, p), (b, h, n, p)))
+    _, _, scratch = ssd(x, dt, A, B, C, chunk, None, keep=True)
+    grads = ssd_bwd(x, dt, A, B, C, None, scratch, gy, gf, chunk)
+    again = ssd_bwd(x, dt, A, B, C, None, scratch, gy, gf, chunk)
+    repeats = all(torch.equal(a, r) for a, r in zip(grads, again)
+                  if a is not None)
+    del again
+    plain = ref.ssd_scan_bwd_ref(x, dt, A, B, C, None, gy, gf, chunk)
+    err = max((a - e).abs().max().item() for a, e in zip(grads, plain)
+              if a is not None)
+    scaled = {nm: grad_scaled_err(a, e) for nm, a, e in
+              zip(("dx", "ddt", "dA", "dB", "dC"), grads, plain)}
+    check(grads[5] is None
+          and all(g_.dtype == t.dtype and g_.shape == t.shape
+                  and bool(torch.isfinite(g_).all())
+                  for g_, t in zip(grads, (x, dt, A, B, C))),
+          "ssd_scan_bwd at the training shape: bad grads")
+    check(repeats, "ssd_scan_bwd at the training shape: a second call gave "
+          "other bits")
+    check(max(scaled.values()) <= GRAD_TOL, f"ssd_scan_bwd at the training "
+          f"shape: scaled errors {scaled} against the plain backward > "
+          f"{GRAD_TOL}")
+    del grads, plain
+    bound, bound_by, bound_tc = ssd_bwd_bound(b, s, h, p, n, chunk)
+    timed = {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
+                       "chunk": chunk, "dtype": "float32"},
+             "max_abs_err_timed": err, "scaled_err_timed": scaled,
+             "max_scaled_err_timed": max(scaled.values()),
+             "bound_ms": bound, "bound_by": bound_by,
+             "bound_tc_ms": bound_tc, "library_ms": None}
+
+    def bwd():
+        return ssd_bwd(x, dt, A, B, C, None, scratch, gy, gf, chunk)
+
+    def recompute():
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+            y, final = ref.ssd_scan_ref(*inputs, chunk)
+            return torch.autograd.grad((y, final), inputs, (gy, gf))
+    timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
+        launched_kernels(torch, bwd, ("ssd_bwd_local", "ssd_bwd_pass",
+                                      "ssd_bwd_rows", "ssd_bwd_cols",
+                                      "ssd_bwd_dt", "ssd_bwd_sum"),
+                         "ssd_scan_bwd"))
+    timed["ms"] = time_ms(bwd, warmup=3, launches=20, graph=True)
+    timed["eager_ms"] = time_ms(bwd, warmup=3, launches=20, graph=False)
+    timed["fwd_ms"] = time_ms(lambda: ssd(x, dt, A, B, C, chunk, None,
+                                          keep=True),
+                              warmup=3, launches=20, graph=True)
+    timed["plain_ms"] = time_ms(lambda: ref.ssd_scan_bwd_ref(
+        x, dt, A, B, C, None, gy, gf, chunk), warmup=1, launches=3,
+        repeats=3, graph=False)
+    timed["recompute_ms"] = time_ms(recompute, warmup=1, launches=3,
+                                    repeats=3, graph=False)
+    log(f"  ssd_scan_bwd at the training shape (b {b}, s {s}, h {h}, p {p}, "
+        f"n {n}, chunk {chunk}, f32): backward kernel {timed['ms']:.4f} ms "
+        f"(eager {timed['eager_ms']:.4f}), forward kernel "
+        f"{timed['fwd_ms']:.4f}, plain backward {timed['plain_ms']:.3f}, "
+        f"plain recompute {timed['recompute_ms']:.3f}; bound {bound:.4f} ms "
+        f"({bound_by}), three TF32 passes {bound_tc:.4f}; "
+        f"{timed['cuda_launches_per_call']} CUDA launches a call "
+        f"{json.dumps(timed['device_ms_by_kernel'])}; max abs err "
+        f"{err:.3e}, scaled {json.dumps(scaled)}")
+    return timed
+
+
 def kernel_grads(torch, kernels, zamba):
     """Phase 13: the grads of a q_sequence loss over the fig17 serving
-    policy's params, and of a reduced Zamba2's logits loss, with flash
-    attention and the SSD scan on their kernels (the autograd Functions:
-    kernel forward, plain-recompute backward) against the same calls on
-    the plain route; then the backward's time beside the forward kernel's
-    at the scoring path's shapes."""
+    policy's params, and of a reduced Zamba2's logits loss, through the
+    kernels' autograd Functions (forward and backward kernels) against
+    the same calls on the plain route; the backward kernels against their
+    plain versions and autograd of the plain forwards at the sweep's,
+    the zoo's and the policy's shapes, bit-equal on a repeat; then their
+    times at the training path's shapes and at qwen3-1.7b's d 128."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as flash_module
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_module
     from repro_torch.models import layers, transformer
     from repro_torch.policies import TransformerPolicyConfig, network
 
@@ -2776,11 +3168,10 @@ def kernel_grads(torch, kernels, zamba):
     def policy_loss(p):
         return (network.q_sequence(p, arch, obs) * weights).sum()
 
-    for kernel in kernels:
-        kernel["wrapper"].launches = 0
+    zero_launches(kernels)
     grads = param_grads(torch, params, policy_loss)
     torch.cuda.synchronize()
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    launches = kernel_launches(kernels)
     flash_route, ssd_route = plain_route()
     with flash_route:
         plain = param_grads(torch, params, policy_loss)
@@ -2788,10 +3179,12 @@ def kernel_grads(torch, kernels, zamba):
     log(f"  q_sequence (fig17 policy, {GRAD_POLICY_BATCH} windows of "
         f"{POLICY['window']}): {len(grads)} leaves, launches {launches}; "
         f"max |d grad| / max |plain grad| = {err:.3e} (tol {GRAD_TOL})")
-    check(launches["flash_attention"] == arch.num_layers
-          and launches["ssd_scan"] == 0,
-          f"q_sequence grads: launches {launches}, expected flash "
-          f"attention once per layer ({arch.num_layers})")
+    layers_ = arch.num_layers
+    check(launches["flash_attention"] == launches["flash_attention_bwd"]
+          == layers_ and launches["ssd_scan"] == launches["ssd_scan_bwd"]
+          == 0,
+          f"q_sequence grads: launches {launches}, expected flash attention "
+          f"and its backward once per layer ({layers_})")
     out["q_sequence"] = {"leaves": len(grads), "launches": launches,
                          "max_rel_err": err}
 
@@ -2809,11 +3202,10 @@ def kernel_grads(torch, kernels, zamba):
         logits = layers.unembed(transformer.unembed_table(p, small), feats)
         return (logits * weights).sum()
 
-    for kernel in kernels:
-        kernel["wrapper"].launches = 0
+    zero_launches(kernels)
     grads = param_grads(torch, params, zamba_loss)
     torch.cuda.synchronize()
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    launches = kernel_launches(kernels)
     with flash_route, ssd_route:
         plain = param_grads(torch, params, zamba_loss)
     err = grad_errors(torch, grads, plain, "reduced Zamba2 grads")
@@ -2823,47 +3215,39 @@ def kernel_grads(torch, kernels, zamba):
         f"{GRAD_ZAMBA_TOKENS[0]} x {GRAD_ZAMBA_TOKENS[1]} tokens, f32): "
         f"{len(grads)} leaves, launches {launches}; max |d grad| / max "
         f"|plain grad| = {err:.3e} (tol {GRAD_TOL})")
-    check(launches["flash_attention"] == sites
-          and launches["ssd_scan"] == small.num_layers,
+    check(launches["flash_attention"] == launches["flash_attention_bwd"]
+          == sites and launches["ssd_scan"] == launches["ssd_scan_bwd"]
+          == small.num_layers,
           f"reduced Zamba2 grads: launches {launches}, expected flash "
-          f"attention {sites} and the SSD scan {small.num_layers}")
+          f"attention and its backward {sites} each and the SSD scan and "
+          f"its backward {small.num_layers} each")
     out["zamba2_reduced"] = {"leaves": len(grads), "launches": launches,
                              "max_rel_err": err}
+    del params, grads, plain
 
-    # the backward's cost at the scoring path's shapes
-    b, h, kv, s, d = (ZAMBA_BATCH, zamba.num_heads, zamba.num_kv_heads,
-                      ZAMBA_SEQ, zamba.head_dim)
-    window = zamba.sliding_window
-    qkv = [t.requires_grad_() for t in flash_inputs(
-        b, h, kv, s, s, d, torch.float32, np.random.RandomState(SEED + 6))]
-    fwd, bwd = time_backward(torch, lambda *t: ops.flash_attention(
-        *t, causal=True, window=window), qkv)
-    plain_fwd, plain_bwd = time_backward(torch, lambda *t:
-                                         ref.flash_attention_ref(
-                                             *t, causal=True, window=window),
-                                         qkv)
-    out["flash_attention"] = {"fwd_ms": fwd, "bwd_ms": bwd,
-                              "plain_fwd_ms": plain_fwd,
-                              "plain_bwd_ms": plain_bwd}
-    log(f"  flash_attention at the scoring shape, eager ms: forward kernel "
-        f"{fwd:.3f}, backward (plain recompute) {bwd:.3f}; plain route "
-        f"forward {plain_fwd:.3f}, backward {plain_bwd:.3f}")
-    del qkv
-    s_cfg = zamba.ssm
-    chunk = s_cfg.chunk_size
-    inputs = [t.requires_grad_() for t in ssd_inputs(
-        ZAMBA_BATCH, ZAMBA_SEQ, s_cfg.num_heads(zamba.d_model),
-        s_cfg.head_dim, s_cfg.d_state, np.random.RandomState(SEED + 8),
-        model_like=True)]
-    fwd, bwd = time_backward(torch, lambda *t: ops.ssd_scan(
-        *t, chunk=chunk), inputs)
-    plain_fwd, plain_bwd = time_backward(torch, lambda *t: ref.ssd_scan_ref(
-        *t, chunk), inputs)
-    out["ssd_scan"] = {"fwd_ms": fwd, "bwd_ms": bwd,
-                       "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd}
-    log(f"  ssd_scan at the scoring shape, eager ms: forward kernel "
-        f"{fwd:.3f}, backward (plain recompute) {bwd:.3f}; plain route "
-        f"forward {plain_fwd:.3f}, backward {plain_bwd:.3f}")
+    flash, flash_bwd = (flash_module.flash_attention,
+                        flash_module.flash_attention_bwd)
+    ssd, ssd_bwd = ssd_module.ssd_scan, ssd_module.ssd_scan_bwd
+    rng = np.random.RandomState(SEED + 31)
+    out["flash_attention_bwd_worst"] = check_flash_bwd(torch, ref, flash,
+                                                       flash_bwd, rng)
+    out["ssd_scan_bwd_worst"] = check_ssd_bwd(torch, ref, ssd, ssd_bwd, rng)
+    torch.cuda.empty_cache()
+
+    b, s = TRAIN_ZAMBA_SHAPE
+    dense = configs.get_arch(TRAIN_DENSE)
+    db, ds = TRAIN_DENSE_SHAPE
+    out["flash_attention_bwd_timed"] = [
+        time_flash_bwd(torch, ref, flash, flash_bwd, "zamba2_train", b,
+                       zamba.num_heads, zamba.num_kv_heads, s,
+                       zamba.head_dim, "float32", zamba.sliding_window)] + [
+        time_flash_bwd(torch, ref, flash, flash_bwd, "qwen3_1_7b", db,
+                       dense.num_heads, dense.num_kv_heads, ds,
+                       dense.head_dim, name, dense.sliding_window)
+        for name in ("float32", "bfloat16")]
+    torch.cuda.empty_cache()
+    out["ssd_scan_bwd_timed"] = time_ssd_bwd(torch, ref, ssd, ssd_bwd, zamba)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2932,7 +3316,12 @@ def policy_path(torch, kernels):
           f"{result.learner_steps} learner steps and {prefills} acting "
           f"prefill passes of {layers} layer(s), expected two a layer a "
           f"step and one a layer a prefill")
-    check(launches["vtrace"] == launches["ssd_scan"] == 0,
+    check(launches["flash_attention_bwd"] == layers * result.learner_steps,
+          f"policy path: {launches['flash_attention_bwd']} flash backward "
+          f"launches for {result.learner_steps} learner steps of {layers} "
+          f"layer(s), expected one a layer a step (the online pass)")
+    check(launches["vtrace"] == launches["ssd_scan"]
+          == launches["ssd_scan_bwd"] == 0,
           f"policy path launched a kernel of another slice: {launches}")
     check(all(t.device.type == "cuda" for t in tree.leaves(learner.state)),
           "policy path: the learner's state is not on the card")
@@ -3863,6 +4252,11 @@ def fig17_placement(torch, kernels, policy):
               f"fig17 {mode}: {launches['flash_attention']} flash launches "
               f"for {entry['learner_steps']} learner steps and {prefills} "
               f"prefill batches of {layers} layers")
+        check(launches["flash_attention_bwd"]
+              == layers * entry["learner_steps"],
+              f"fig17 {mode}: {launches['flash_attention_bwd']} flash "
+              f"backward launches for {entry['learner_steps']} learner steps "
+              f"of {layers} layers")
         check(launches["vtrace"] == launches["ssd_scan"] == 0,
               f"fig17 {mode} launched a kernel of another slice: {launches}")
         if mode == "server":
@@ -4789,7 +5183,8 @@ def serve_config(torch, kernels, name, dtype_name, cache_dtype, how,
     expected = {"decode_attention": per_step * (
                     decode_steps + (0 if batched else prompt_len)),
                 "flash_attention": cfg.num_layers if batched else 0,
-                "ssd_scan": 0, "vtrace": 0}
+                "ssd_scan": 0, "vtrace": 0, "flash_attention_bwd": 0,
+                "ssd_scan_bwd": 0}
     check(launches == expected, f"{name}: launches {launches}, expected "
           f"{expected} ({per_step} decode launches a step)")
 
@@ -5077,11 +5472,14 @@ def train_launches(cfg, objective, remat, microbatches=1):
     """Kernel launches of one train step: the forward with grad once a
     site or layer, twice under remat (a checkpointed block runs again in
     the backward, its kernels included), DQN's target forward (no grad)
-    once more, for each microbatch; a backward (plain recompute) none."""
+    once more, for each microbatch; the backward kernels once a site or
+    layer a microbatch, whatever the remat."""
     attention, mamba = kernel_sites(cfg)
     passes = (1 if remat == "none" else 2) + (objective == "dqn")
     return {"flash_attention": attention * passes * microbatches,
             "ssd_scan": mamba * passes * microbatches,
+            "flash_attention_bwd": attention * microbatches,
+            "ssd_scan_bwd": mamba * microbatches,
             "decode_attention": 0, "vtrace": 0}
 
 
@@ -5094,7 +5492,7 @@ def device_time(events, DeviceType):
 
 def backward_device_ms(prof, name):
     """Device ms of the kernels launched inside the backward of autograd
-    Function ``name`` (its plain recompute), over the outermost profiler
+    Function ``name`` (its backward kernel), over the outermost profiler
     events that carry its name, and their count."""
     outer = []
     for e in prof.events():
@@ -5111,8 +5509,8 @@ def backward_device_ms(prof, name):
 def profile_train_step(torch, run):
     """``run()`` (one train step) under torch.profiler: the wall ms, the
     device's busy ms and idle share, and device ms by kind: the flash and
-    SSD kernels' forwards, their autograd Functions' plain-recompute
-    backwards, and GEMMs (any kernel named ``*gemm*``)."""
+    SSD kernels' forwards, their autograd Functions' backwards (the
+    backward kernels), and GEMMs (any kernel named ``*gemm*``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -5134,7 +5532,8 @@ def profile_train_step(torch, run):
            "idle_share": 1 - device_ms / wall_ms,
            "gemm_ms": kind(lambda k: "gemm" in k),
            "flash_forward_ms": kind(lambda k: "flash_attention_kernel" in k),
-           "ssd_forward_ms": kind(lambda k: "ssd_" in k and "kernel" in k)}
+           "ssd_forward_ms": kind(lambda k: "ssd_" in k and "kernel" in k
+                                  and "ssd_bwd" not in k)}
     for key, fn in (("flash_backward", "FlashAttentionFunctionBackward"),
                     ("ssd_backward", "SSDScanFunctionBackward")):
         out[f"{key}_ms"], out[f"{key}_calls"] = backward_device_ms(prof, fn)
@@ -5146,8 +5545,8 @@ def profile_train_step(torch, run):
                   for e in top]
     log(f"  profile of one train step: wall {wall_ms:.1f} ms, device busy "
         f"{device_ms:.1f} ms, idle share {out['idle_share']:.3f}; GEMMs "
-        f"{out['gemm_ms']:.1f} ms ({out['gemm_share']:.3f}), plain-recompute "
-        f"backwards: flash {out['flash_backward_ms']:.1f} ms "
+        f"{out['gemm_ms']:.1f} ms ({out['gemm_share']:.3f}), the backward "
+        f"kernels: flash {out['flash_backward_ms']:.1f} ms "
         f"({out['flash_backward_share']:.3f}, {out['flash_backward_calls']} "
         f"calls), SSD {out['ssd_backward_ms']:.1f} ms "
         f"({out['ssd_backward_share']:.3f}, {out['ssd_backward_calls']} "
@@ -5183,8 +5582,8 @@ def train_zamba2(torch, kernels):
     and depth, each step timed by CUDA events (``make_train_step``
     wrapped; the step itself is train.py's); exact launch counts; the CE
     must fall.  Then one more step under torch.profiler with its optimizer
-    update's memory measured, and the plain-recompute backwards timed at
-    the step's attention and SSD shapes."""
+    update's memory measured, and the Functions' backwards timed at the
+    step's attention and SSD shapes."""
     from unittest import mock
 
     from repro_torch import tree
@@ -5271,7 +5670,7 @@ def train_zamba2(torch, kernels):
         f"{out['update']['peak_param_copies']:.2f} param-sized copies "
         f"({out['update']['rise_param_copies']:.2f} above what was live)")
 
-    # the plain-recompute backwards at this step's shapes
+    # the Functions' forwards and backwards at this step's shapes
     torch.cuda.empty_cache()
     qkv = [t.requires_grad_() for t in flash_inputs(
         b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.head_dim,
@@ -5295,8 +5694,8 @@ def train_zamba2(torch, kernels):
         entry = out[name]
         entry["bwd_ms_per_step"] = entry["bwd_ms"] * per_step[name]
         log(f"  {name} at the training shape {entry['shape']}, eager ms: "
-            f"forward kernel {entry['fwd_ms']:.3f}, backward (plain "
-            f"recompute) {entry['bwd_ms']:.3f}; x{per_step[name]} a step = "
+            f"forward kernel {entry['fwd_ms']:.3f}, backward kernel "
+            f"{entry['bwd_ms']:.3f}; x{per_step[name]} a step = "
             f"{entry['bwd_ms_per_step']:.1f} ms, "
             f"{entry['bwd_ms_per_step'] / p50:.3f} of the step's p50")
     torch.cuda.empty_cache()
@@ -5811,13 +6210,35 @@ def main() -> int:
                    (vtrace_module, vtrace_module.vtrace),
                    (flash_module, flash_module.flash_attention),
                    (ssd_module, ssd_module.ssd_scan))]
+    # the backward kernels, of the forwards the TPU kernels became
+    kernels += [{"name": wrapper.name, "wrapper": wrapper,
+                 "source": module.BWD_SOURCE, "replaces": module.REPLACES}
+                for module, wrapper in (
+                    (flash_module, flash_module.flash_attention_bwd),
+                    (ssd_module, ssd_module.ssd_scan_bwd))]
     zamba = configs.get_arch(ZAMBA)
 
     phase("phase 1: build")
     t0 = time.monotonic()
-    report = build.build([k["name"] for k in kernels])
+    # Every nvcc starts here, together.  The backward kernels' libraries
+    # (the SSD's has 32 heavy entries and takes ~90 s) finish in a thread
+    # while phases 2-12, which launch none of them, run; phase 13 waits
+    # for them.  The thread is not a daemon, so a run that fails earlier
+    # still waits for its compilers before it exits.
+    backward = {}
+
+    def build_backward():
+        try:
+            backward["report"] = build.build([k["name"]
+                                              for k in kernels[4:]])
+        except BaseException as err:  # raised again before phase 13
+            backward["error"] = err
+    builder = threading.Thread(target=build_backward, name="nvcc-backward")
+    builder.start()
+    report = build.build([k["name"] for k in kernels[:4]])
     log(f"  built {len(report)} kernel libraries in "
-        f"{time.monotonic() - t0:.2f} s")
+        f"{time.monotonic() - t0:.2f} s (the 2 backward libraries build "
+        f"beside phases 2-12)")
     for name, entry in report.items():
         usage = [line.strip() for line in entry["log"].splitlines()
                  if "registers" in line or "spill" in line]
@@ -5927,7 +6348,23 @@ def main() -> int:
     dqn["steps"] = dqn_step_profile(torch)
     log(f"  dqn_steps {json.dumps(dqn['steps'])}")
 
-    phase("phase 13: gradients through flash attention and the SSD scan")
+    phase("phase 13: gradients through flash attention and the SSD scan; "
+          "the backward kernels")
+    builder.join()
+    if "error" in backward:
+        raise backward["error"]
+    report.update(backward["report"])
+    bwd_usage = {}
+    for name in ("flash_attention_bwd", "ssd_scan_bwd"):
+        bwd_usage[name] = {
+            re.search(r"(?:flash|ssd)_bwd_[a-z]+_kernel(?:I\w+?EE)?",
+                      entry).group(0): usage
+            for entry, usage in ptxas_usage(report[name]["log"]).items()}
+        log(f"  {name}: nvcc {report[name]['seconds']:.2f} s (beside phases "
+            f"2-12); entries (ptxas): " + "; ".join(
+                f"{entry} {usage.get('registers')} registers, "
+                f"{usage.get('spill_store_bytes', 0)} B spilled"
+                for entry, usage in sorted(bwd_usage[name].items())))
     grads = kernel_grads(torch, kernels, zamba)
 
     phase(f"phase 14: the transformer policy learns Catch on the card — "
@@ -6037,7 +6474,8 @@ def main() -> int:
                    "launches_first_step"][name],
                "train_reduced_card_vs_cpu": sum(
                    row["launches"][name] for row in trained["reduced"])}
-        for name in ("flash_attention", "ssd_scan")}
+        for name in ("flash_attention", "ssd_scan", "flash_attention_bwd",
+                     "ssd_scan_bwd")}
 
     vtrace_main = vtrace_timed[VTRACE_TIMED[0]]
     kernel_lines = [{
@@ -6121,7 +6559,6 @@ def main() -> int:
         "grad_path_launches": (
             grads["q_sequence"]["launches"]["flash_attention"]
             + grads["zamba2_reduced"]["launches"]["flash_attention"]),
-        "backward": grads["flash_attention"],
         "launches_by_path": {
             "scoring": scoring["launches"]["flash_attention"],
             "serving": path["launches"]["flash_attention"],
@@ -6164,7 +6601,6 @@ def main() -> int:
         "shape": ssd_timed["shape"],
         "grad_path_launches": grads["zamba2_reduced"]["launches"][
             "ssd_scan"],
-        "backward": grads["ssd_scan"],
         "launches_by_path": {
             "scoring": scoring["launches"]["ssd_scan"],
             **train_launch_counts["ssd_scan"],
@@ -6172,6 +6608,49 @@ def main() -> int:
                 "ssd_scan"]},
         "backward_train_shape": trained["zamba2"]["ssd_scan"],
     }]
+    flash_bwd_main = grads["flash_attention_bwd_timed"][0]
+    ssd_bwd_main = grads["ssd_scan_bwd_timed"]
+    for kernel, timed_shapes, worst_bwd, extra in (
+            (kernels[4], grads["flash_attention_bwd_timed"],
+             grads["flash_attention_bwd_worst"],
+             {"library_bf16_ms": flash_bwd_main["library_bf16_ms"],
+              "qwen3_1_7b_d128": grads["flash_attention_bwd_timed"][1:],
+              "differentiates": "src/repro/kernels/ref.py:10"}),
+            (kernels[5], [ssd_bwd_main], grads["ssd_scan_bwd_worst"],
+             {"differentiates": "src/repro/models/ssm.py:82"})):
+        name = kernel["name"]
+        main_shape = timed_shapes[0]
+        # the sweep's worst error per dtype, with the timed shapes' folded in
+        worst_bwd = {dtype: max([worst_bwd[dtype]] + [
+            t["max_scaled_err_timed"] for t in timed_shapes
+            if t["shape"]["dtype"] == dtype]) for dtype in worst_bwd}
+        kernel_lines.append({
+            "name": name, "route": "cuda", "source": kernel["source"],
+            "replaces": kernel["replaces"],
+            "launches": trained["zamba2"]["launches"][name],
+            "max_abs_err": main_shape["max_abs_err_timed"],
+            "max_scaled_err": worst_bwd["float32"],
+            "max_scaled_err_bf16": worst_bwd["bfloat16"],
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "bound_tc_ms": main_shape["bound_tc_ms"],
+            "library_ms": main_shape["library_ms"],
+            "eager_ms": main_shape["eager_ms"],
+            "fwd_ms": main_shape["fwd_ms"],
+            "recompute_ms": main_shape["recompute_ms"],
+            "cuda_launches_per_call": main_shape["cuda_launches_per_call"],
+            "device_ms_by_kernel": main_shape["device_ms_by_kernel"],
+            "build_seconds": report[name]["seconds"],
+            "ptxas": bwd_usage[name],
+            "shape": main_shape["shape"],
+            "grad_path_launches": grads["zamba2_reduced"]["launches"][name]
+            + grads["q_sequence"]["launches"][name],
+            "launches_by_path": {
+                **train_launch_counts[name],
+                "train_main_host_mesh": launched["train"]["launches"][name],
+                "transformer_policy_catch": policy["launches"][name]},
+            **extra})
     log(f"  phase 21 {json.dumps(dist_dqn)}")
     log(f"  phase 22 {json.dumps(failover)}")
     log(f"  phase 23 {json.dumps(zoo)}")

@@ -1,16 +1,25 @@
-"""Phases 24 and 25 of ``chip_smoke.py`` (the model zoo's serving path and
-training) on two checkouts of the repository, on one card, in the order
-A, B, B, A, each run in a process of its own; then their tokens/s and
-step times side by side.
+"""Parts of ``chip_smoke.py`` on two checkouts of the repository, on one
+card, in the order A, B, B, A, each run in a process of its own; then
+their numbers side by side.
 
-  python scripts/main_path_ab.py --a DIR --b DIR [--out FILE]
+  python scripts/main_path_ab.py --a DIR --b DIR [--what main|flash_forward]
+                                 [--out FILE]
 
 ``--a`` and ``--b`` are the roots of two checkouts (for example the parent
 commit and the change, each unpacked with ``git archive``).  Each run
-imports that checkout's ``chip_smoke.py``, builds its kernels and calls
-its ``zoo_serving`` and ``training``: their own checks hold, so a run
-fails as the phase would.  The records go to ``--out`` (JSON) and the
-table to standard output, with the card's name and power limit.
+imports that checkout's ``chip_smoke.py`` and builds its kernels; the
+functions' own checks hold, so a run fails as the phase would.  What runs:
+
+- ``main`` (the default): phases 24 and 25, ``zoo_serving`` and
+  ``training`` (the model zoo's serving path and training): tokens/s and
+  step times;
+- ``flash_forward``: phase 5's flash attention forward rows,
+  ``time_flash``, ``time_flash_policy`` and ``time_flash_zoo`` (each call
+  against the plain version): device ms (a CUDA graph's replay) and eager
+  ms at the main paths' shapes.
+
+The records go to ``--out`` (JSON) and the table to standard output, with
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -21,22 +30,32 @@ import subprocess
 import sys
 from pathlib import Path
 
-RUN = r"""
+PRELUDE = r"""
 import json, sys, time
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
 import torch
 import chip_smoke
+from repro_torch import configs
 from repro_torch.kernels import build
-from repro_torch.kernels import decode_attention, flash_attention, ssd_scan, vtrace
+from repro_torch.kernels import decode_attention, flash_attention, ref, ssd_scan, vtrace
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+"""
+
+RUNS = {"main": PRELUDE + r"""
 kernels = [{"name": w.name, "wrapper": w, "source": m.SOURCE,
             "replaces": m.REPLACES}
            for m, w in ((decode_attention, decode_attention.decode_attention),
                         (vtrace, vtrace.vtrace),
                         (flash_attention, flash_attention.flash_attention),
                         (ssd_scan, ssd_scan.ssd_scan))]
+# the backward kernels, in a checkout that has them
+kernels += [{"name": w.name, "wrapper": w, "source": m.BWD_SOURCE,
+             "replaces": m.REPLACES}
+            for m, attr in ((flash_attention, "flash_attention_bwd"),
+                            (ssd_scan, "ssd_scan_bwd"))
+            for w in [getattr(m, attr, None)] if w is not None]
 build.build([k["name"] for k in kernels])
 t0 = time.monotonic()
 serving = chip_smoke.zoo_serving(torch, kernels)
@@ -45,23 +64,41 @@ t0 = time.monotonic()
 trained = chip_smoke.training(torch, kernels)
 t25 = time.monotonic() - t0
 z = trained["zamba2"]
-out = {"phase24_s": t24, "phase25_s": t25, "serving": [
-    {k: row[k] for k in ("config", "dtype", "cache_dtype",
-                         "prefill_tokens_per_s", "decode_tokens_per_s",
-                         "step_ms_p50", "step_ms_p95")}
-    for row in serving["configs"]],
-    "zamba2": {"tokens_per_s": z["tokens_per_s"],
-               "step_ms_p50": z["step_ms_p50"],
-               "step_ms_p95": z["step_ms_p95"],
-               "first_step_ms": z["step_ms"][0],
-               "device_ms": z["profile"]["device_ms"],
-               "peak_gib": z["peak_gib"]}}
-print("AB_RESULT " + json.dumps(out))
-"""
+rows = {"zamba2 train tokens/s": z["tokens_per_s"],
+        "zamba2 train step p50 ms": z["step_ms_p50"],
+        "zamba2 train step p95 ms": z["step_ms_p95"],
+        "zamba2 train first step ms": z["step_ms"][0],
+        "zamba2 train device ms a step": z["profile"]["device_ms"],
+        "zamba2 train peak GiB": z["peak_gib"]}
+for row in serving["configs"]:
+    name = f"{row['config']} {row['dtype']}/{row['cache_dtype']}"
+    for key in ("prefill_tokens_per_s", "decode_tokens_per_s",
+                "step_ms_p50", "step_ms_p95"):
+        rows[f"{name} {key}"] = row[key]
+print("AB_RESULT " + json.dumps({"seconds": {"phase 24": t24,
+                                             "phase 25": t25},
+                                 "rows": rows}))
+""", "flash_forward": PRELUDE + r"""
+build.build(["flash_attention"])
+flash = flash_attention.flash_attention
+t0 = time.monotonic()
+timed = {"zamba2_scoring": chip_smoke.time_flash(
+             flash, ref, torch, configs.get_arch(chip_smoke.ZAMBA)),
+         "policy_learner": chip_smoke.time_flash_policy(flash, ref, torch)}
+for row in chip_smoke.time_flash_zoo(flash, ref, torch):
+    timed[row["path"]] = row
+rows = {}
+for name, row in timed.items():
+    rows[f"{name} ms"] = row["ms"]
+    rows[f"{name} eager ms"] = row["eager_ms"]
+print("AB_RESULT " + json.dumps({"seconds": {"flash rows":
+                                             time.monotonic() - t0},
+                                 "rows": rows}))
+"""}
 
 
-def run(root: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", RUN, str(root)],
+def run(root: Path, what: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUNS[what], str(root)],
                           cwd=root, capture_output=True, text=True)
     if proc.returncode != 0:
         sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
@@ -75,6 +112,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--a", required=True, type=Path)
     p.add_argument("--b", required=True, type=Path)
+    p.add_argument("--what", choices=sorted(RUNS), default="main")
     p.add_argument("--out", type=Path, default=None)
     args = p.parse_args(argv)
     card = subprocess.run(
@@ -84,36 +122,24 @@ def main(argv=None) -> int:
     order = [("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)]
     runs = []
     for label, root in order:
-        runs.append({"label": label, "root": str(root), **run(root.resolve())})
-        print(f"{label} done: phase 24 {runs[-1]['phase24_s']:.1f} s, "
-              f"phase 25 {runs[-1]['phase25_s']:.1f} s", flush=True)
+        runs.append({"label": label, "root": str(root),
+                     **run(root.resolve(), args.what)})
+        print(f"{label} done: " + ", ".join(
+            f"{part} {seconds:.1f} s"
+            for part, seconds in runs[-1]["seconds"].items()), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "runs": runs},
-                                       indent=1))
-
-    def both(label, get):
-        return [get(r) for r in runs if r["label"] == label]
-
-    print(f"card: {card}; order A, B, B, A; each cell 'first, second' run")
-    rows = [("zamba2 train tokens/s", lambda r: r["zamba2"]["tokens_per_s"]),
-            ("zamba2 train step p50 ms", lambda r: r["zamba2"]["step_ms_p50"]),
-            ("zamba2 train step p95 ms", lambda r: r["zamba2"]["step_ms_p95"]),
-            ("zamba2 train first step ms",
-             lambda r: r["zamba2"]["first_step_ms"]),
-            ("zamba2 train device ms a step",
-             lambda r: r["zamba2"]["device_ms"])]
-    for i, row in enumerate(runs[0]["serving"]):
-        name = f"{row['config']} {row['dtype']}/{row['cache_dtype']}"
-        for key in ("prefill_tokens_per_s", "decode_tokens_per_s",
-                    "step_ms_p50", "step_ms_p95"):
-            rows.append((f"{name} {key}",
-                         lambda r, i=i, key=key: r["serving"][i][key]))
-    for name, get in rows:
-        a, b = both("A", get), both("B", get)
-        print(f"{name}: A {a[0]:.3f}, {a[1]:.3f} (mean "
-              f"{statistics.mean(a):.3f}); B {b[0]:.3f}, {b[1]:.3f} (mean "
-              f"{statistics.mean(b):.3f}); B/A {statistics.mean(b) / statistics.mean(a):.4f}")
+        args.out.write_text(json.dumps({"card": card, "what": args.what,
+                                        "runs": runs}, indent=1))
+    print(f"card: {card}; {args.what}; order A, B, B, A; each cell 'first, "
+          f"second' run")
+    for name in runs[0]["rows"]:
+        a = [r["rows"][name] for r in runs if r["label"] == "A"]
+        b = [r["rows"][name] for r in runs if r["label"] == "B"]
+        print(f"{name}: A {a[0]:.6g}, {a[1]:.6g} (mean "
+              f"{statistics.mean(a):.6g}); B {b[0]:.6g}, {b[1]:.6g} (mean "
+              f"{statistics.mean(b):.6g}); B/A "
+              f"{statistics.mean(b) / statistics.mean(a):.4f}")
     return 0
 
 

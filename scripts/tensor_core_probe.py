@@ -279,8 +279,8 @@ def ssd_variants(torch, built):
     def timed(kernel):
         ms = chip_smoke.time_ms(lambda: kernel(*inputs, chunk), warmup=3,
                                 launches=20, graph=True)
-        launched = chip_smoke.device_kernels(torch,
-                                             lambda: kernel(*inputs, chunk))
+        launched = chip_smoke.profiled_kernels(torch,
+                                               lambda: kernel(*inputs, chunk))
         by_kernel = {re.search(r"ssd_\w+_kernel", name).group(0): k_ms
                      for name, k_ms in launched or []}
         return {"ms": ms, "device_ms_by_kernel": by_kernel}

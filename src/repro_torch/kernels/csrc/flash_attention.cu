@@ -62,6 +62,12 @@
 // round their sums to nearest, and a running O fed through every tile's
 // mma would gather that error beyond the f32 tolerance; bf16's tolerance
 // leaves room, so that route accumulates O in the wgmma).
+//
+// For the backward (flash_attention_bwd.cu), each entry also writes the
+// rows' log-sum-exp, f32 (b, h, sq) in natural units, when handed a
+// non-null `lse`: (m + log2 l) ln 2 from the online softmax's max m and
+// sum l in log2 units, and -1e30 for a row that saw no key.  Inference
+// passes null, and the output is the same either way.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -78,6 +84,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -146,6 +153,23 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// A row's log-sum-exp in natural units from the online softmax's running
+// max m and sum l (log2 units); -1e30 for a row that saw no key.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == kNegInf ? kNegInf : (m + log2f(l)) * kLn2;
+}
+
+// Thread t == 0 of each quad writes the log-sum-exp of its rows r0 and
+// r1 (quad sums l0, l1) when `lse` is not null.
+__device__ __forceinline__ void store_lse(float* lse, long long bh, int sq,
+                                          int r0, int r1, float m0, float m1,
+                                          float l0, float l1) {
+  if (lse == nullptr || (threadIdx.x & 3) != 0) return;
+  float* row = lse + bh * sq;
+  if (r0 < sq) row[r0] = row_lse(m0, l0);
+  if (r1 < sq) row[r1] = row_lse(m1, l1);
+}
+
 // ===================================================== float32, d <= 64
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -169,7 +193,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, Strides qs, Strides ks,
+                           float* __restrict__ out,
+                           float* __restrict__ lse, Strides qs, Strides ks,
                            Strides vs, Strides os, int h, int kv, int sq,
                            int sk, int causal, int window, float q_scale) {
   constexpr int LD = row_len<D>();
@@ -327,8 +352,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float inv0 = 1.f / fmaxf(sum0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(sum1, 1e-30f);
+  store_lse(lse, (long long)w.row * h + w.head, sq, r0, r1, m0, m1, sum0,
+            sum1);
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) {
     const int col = 8 * dn + 2 * t;
@@ -407,7 +435,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel_tf32_wgmma(const float* __restrict__ q,
                                       const float* __restrict__ k,
                                       const float* __restrict__ v,
-                                      float* __restrict__ out, Strides qs,
+                                      float* __restrict__ out,
+                                      float* __restrict__ lse, Strides qs,
                                       Strides ks, Strides vs, Strides os,
                                       int h, int kv, int sq, int sk,
                                       int causal, int window, float q_scale) {
@@ -603,8 +632,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-    const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+    const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+    const float inv0 = 1.f / fmaxf(sum0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(sum1, 1e-30f);
+    store_lse(lse, (long long)w.row * h + w.head, sq, r0, r1, m0, m1, sum0,
+              sum1);
     float* out_bh = out + w.row * os.b + w.head * os.h;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -715,8 +747,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const __grid_constant__ CUtensorMap q_map,
         const __grid_constant__ CUtensorMap k_map,
         const __grid_constant__ CUtensorMap v_map,
-        __nv_bfloat16* __restrict__ out, Strides os, int h, int kv, int sq,
-        int sk, int causal, int window, float scale_log2) {
+        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Strides os,
+        int h, int kv, int sq, int sk, int causal, int window,
+        float scale_log2) {
   constexpr int S = stages<D>();
   const Walk<kM, kN> w(h, kv, sq, sk, causal, window);
 
@@ -862,8 +895,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       hop::mbar_arrive(empty(stage));
     }
 
-    const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-    const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+    const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+    const float inv0 = 1.f / fmaxf(sum0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(sum1, 1e-30f);
+    store_lse(lse, (long long)w.row * h + w.head, sq, r0, r1, m0, m1, sum0,
+              sum1);
     __nv_bfloat16* out_bh = out + w.row * os.b + w.head * os.h;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -940,8 +976,8 @@ bool tensor_map(CUtensorMap* map, const void* base, Strides st, int s,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const Strides* strides, int b, int h, int kv, int sq,
-                   int sk, int causal, int window, float scale,
+                   float* lse, const Strides* strides, int b, int h, int kv,
+                   int sq, int sk, int causal, int window, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static_assert(smem <= kMaxSmem, "flash_attention (bf16): shared memory");
@@ -956,8 +992,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kM - 1) / kM, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), strides[3], h,
-      kv, sq, sk, causal, window, scale * kLog2e);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, strides[3],
+      h, kv, sq, sk, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -967,7 +1003,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 template <typename Kernel>
 cudaError_t launch_f32(Kernel kernel, size_t smem, int rows, int threads,
                        const void* q,
-                       const void* k, const void* v, void* out,
+                       const void* k, const void* v, void* out, float* lse,
                        const Strides* strides, int b, int h, int kv, int sq,
                        int sk, int causal, int window, float scale,
                        cudaStream_t stream) {
@@ -979,33 +1015,34 @@ cudaError_t launch_f32(Kernel kernel, size_t smem, int rows, int threads,
   const dim3 grid((sq + rows - 1) / rows, h, b);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), strides[0],
-      strides[1], strides[2], strides[3], h, kv, sq, sk, causal, window,
-      scale * kLog2e);
+      static_cast<const float*>(v), static_cast<float*>(out), lse,
+      strides[0], strides[1], strides[2], strides[3], h, kv, sq, sk, causal,
+      window, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
-                        void* out, const Strides* strides, int b, int h,
-                        int kv, int sq, int sk, int causal, int window,
+                        void* out, float* lse, const Strides* strides, int b,
+                        int h, int kv, int sq, int sk, int causal, int window,
                         float scale, cudaStream_t stream) {
   static_assert(smem_bytes<D>() <= kMaxSmem, "flash_attention: smem");
   return launch_f32(flash_attention_kernel<D>, smem_bytes<D>(), kTile,
-                    kThreads, q, k, v, out, strides, b, h, kv, sq, sk, causal,
-                    window, scale, stream);
+                    kThreads, q, k, v, out, lse, strides, b, h, kv, sq, sk,
+                    causal, window, scale, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) for q, k, v and
-// out in turn; the last dimension of each is contiguous.  dtype: 0 =
+// out in turn; the last dimension of each is contiguous.  lse: null, or
+// (b, h, sq) f32 for the rows' log-sum-exp (the backward's).  dtype: 0 =
 // float32, 1 = bfloat16; window <= 0 means none.  Routes by dtype and head
 // dim alone: bfloat16 to wgmma and TMA (whose bases and strides the caller
 // has checked to be 16-byte aligned), float32 to three TF32 passes (d 128
 // split once).  Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out,
+                                     const void* v, void* out, void* lse_ptr,
                                      const long long* strides, int b, int h,
                                      int kv, int sq, int sk, int d,
                                      int causal, int window, int dtype,
@@ -1017,37 +1054,38 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   for (int i = 0; i < 4; ++i)
     s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   if (dtype == 0) {
     switch (d) {
       case 16:
-        return launch_tf32<16>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                               window, scale, st);
+        return launch_tf32<16>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                               causal, window, scale, st);
       case 32:
-        return launch_tf32<32>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                               window, scale, st);
+        return launch_tf32<32>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                               causal, window, scale, st);
       case 64:
-        return launch_tf32<64>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                               window, scale, st);
+        return launch_tf32<64>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                               causal, window, scale, st);
       case 128:
         return launch_f32(split_once::flash_attention_kernel_tf32_wgmma,
                           split_once::kSmem, split_once::kRows,
-                          split_once::kThreads, q, k, v, out, s, b, h, kv,
-                          sq, sk, causal, window, scale, st);
+                          split_once::kThreads, q, k, v, out, lse, s, b, h,
+                          kv, sq, sk, causal, window, scale, st);
     }
   } else if (dtype == 1) {
     switch (d) {
       case 16:
-        return wg::launch<16>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                              window, scale, st);
+        return wg::launch<16>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                              causal, window, scale, st);
       case 32:
-        return wg::launch<32>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                              window, scale, st);
+        return wg::launch<32>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                              causal, window, scale, st);
       case 64:
-        return wg::launch<64>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                              window, scale, st);
+        return wg::launch<64>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                              causal, window, scale, st);
       case 128:
-        return wg::launch<128>(q, k, v, out, s, b, h, kv, sq, sk, causal,
-                               window, scale, st);
+        return wg::launch<128>(q, k, v, out, lse, s, b, h, kv, sq, sk,
+                               causal, window, scale, st);
     }
   }
   return cudaErrorInvalidValue;

@@ -1,11 +1,13 @@
-"""Flash attention (forward): the wrapper of the CUDA kernel in
-``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py``.
+"""Flash attention: the wrappers of the CUDA kernels in
+``csrc/flash_attention.cu`` (the forward, which replaces the Pallas TPU
+kernel ``repro/kernels/flash_attention.py``) and
+``csrc/flash_attention_bwd.cu`` (its backward).
 
-The wrapper takes CUDA tensors only; ``ops.flash_attention`` sends CPU
+The wrappers take CUDA tensors only; ``ops.flash_attention`` sends CPU
 tensors to the plain version in ``ref.py``.  ``flash_attention.launches``
-counts the kernel's launches, so a run can show that its attention went
-through the kernel.
+and ``flash_attention_bwd.launches`` count each kernel's calls, so a run
+can show that its attention, and its training's gradients, went through
+the kernels.
 
 The kernel has two routes, chosen by dtype and head dim alone (``route``),
 with no fallback between them: bfloat16 runs on ``wgmma`` with TMA loads
@@ -15,12 +17,12 @@ at 128 by ``wgmma`` with each operand split into its TF32 halves once.
 TMA reads the bf16 inputs through tensor maps, which need 16-byte aligned
 bases and strides: an unaligned bf16 view raises, it is not copied.
 
-The kernel computes the forward pass only.  ``FlashAttentionFunction``
-makes it differentiable: its forward launches the kernel, and its backward
-recomputes the attention through the plain version and differentiates
-that.  The recompute is the correctness route, not a design (a backward
-kernel is still to be written); it launches no kernel, so ``launches``
-counts forward launches only.
+``FlashAttentionFunction`` makes the kernel differentiable: its forward
+launches the forward kernel, which also writes the rows' log-sum-exp, and
+saves q, k, v, the output and the log-sum-exp; its backward launches the
+backward kernel (FlashAttention-2's: dK/dV over key tiles, dQ over query
+tiles, deterministic, with no atomics) on them.  A failed build or launch
+raises in either; nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:28"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535          # the grid's y (heads) and z (batch) extents
@@ -70,7 +73,7 @@ class FlashAttention:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_flash_attention
-            fn.argtypes = ([ctypes.c_void_p] * 4
+            fn.argtypes = ([ctypes.c_void_p] * 5
                            + [ctypes.POINTER(ctypes.c_longlong)]
                            + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
@@ -86,86 +89,172 @@ class FlashAttention:
         self._kernel()
         return self._lib.repro_flash_smem_bytes(_DTYPES[dtype], head_dim)
 
-    def __call__(self, q, k, v, causal: bool = True, window=None):
+    def __call__(self, q, k, v, causal: bool = True, window=None,
+                 with_lse: bool = False):
         """q: (b, h, sq, d); k, v: (b, kv, sk, d), kv dividing h; one dtype
         (float32 or bfloat16), each with its last dimension contiguous (any
         strides elsewhere: the model passes transposed views of its
         (b, s, heads, d) tensors), on one CUDA device.  ``window`` (>= 1)
         applies only with ``causal``.  Returns (b, h, sq, d) in q's dtype,
-        a transposed view of a (b, sq, h, d) tensor, the model's order."""
-        if q.device.type != "cuda":
-            raise ValueError(
-                f"flash_attention kernel needs CUDA tensors, got {q.device}")
-        if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-            raise ValueError(f"flash_attention: dtypes {q.dtype} {k.dtype} "
-                             f"{v.dtype}; need one of "
-                             f"{sorted(map(str, _DTYPES))}")
-        if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-            raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}"
-                             f" k {tuple(k.shape)} v {tuple(v.shape)}")
-        b, h, sq, d = q.shape
-        _, kv, sk, _ = k.shape
-        if (k.shape[0] != b or k.shape[3] != d or kv < 1 or h % kv
-                or not 1 <= b <= _MAX_GRID or not 1 <= h <= _MAX_GRID
-                or not 1 <= sq <= _INT_MAX or not 1 <= sk <= _INT_MAX):
-            raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}"
-                             f" k {tuple(k.shape)}")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_attention: head_dim {d} not in "
-                             f"{HEAD_DIMS}")
-        if window is not None and not 1 <= window <= _INT_MAX:
-            raise ValueError(f"flash_attention: window {window} < 1")
-        if k.device != q.device or v.device != q.device:
-            raise ValueError("flash_attention: tensors on different devices")
-        if any(t.stride(3) != 1 for t in (q, k, v)):
-            raise ValueError("flash_attention: the last dimension of q, k "
-                             "and v must be contiguous")
+        a transposed view of a (b, sq, h, d) tensor, the model's order;
+        with ``with_lse``, (out, lse): the rows' log-sum-exp (b, h, sq)
+        float32, which the backward reads."""
+        _check(q, k, v, window, "flash_attention")
         if q.dtype == torch.bfloat16 and not all(
                 map(_tma_aligned, (q, k, v))):
             raise ValueError("flash_attention: bfloat16 q, k and v need "
                              "16-byte aligned bases and strides (TMA)")
+        b, h, sq, d = q.shape
+        _, kv, sk, _ = k.shape
 
         fn = self._kernel()
         out = torch.empty((b, sq, h, d), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
+        lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+               if with_lse else None)
         strides = (ctypes.c_longlong * 12)(
             *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), strides, b, h, kv, sq, sk, d,
-                      int(bool(causal)), int(window or 0), _DTYPES[q.dtype],
-                      d ** -0.5, stream)
+                      out.data_ptr(), None if lse is None else lse.data_ptr(),
+                      strides, b, h, kv, sq, sk, d, int(bool(causal)),
+                      int(window or 0), _DTYPES[q.dtype], d ** -0.5, stream)
         build.check(self._lib, code, "flash_attention launch")
         with self._lock:
             self.launches += 1
-        return out
+        return (out, lse) if with_lse else out
+
+
+def _check(q, k, v, window, what):
+    """The argument checks the forward and backward kernels share."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: dtypes {q.dtype} {k.dtype} {v.dtype}; "
+                         f"need one of {sorted(map(str, _DTYPES))}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    _, kv, sk, _ = k.shape
+    if (k.shape[0] != b or k.shape[3] != d or kv < 1 or h % kv
+            or not 1 <= b <= _MAX_GRID or not 1 <= h <= _MAX_GRID
+            or not 1 <= sq <= _INT_MAX or not 1 <= sk <= _INT_MAX):
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not in {HEAD_DIMS}")
+    if window is not None and not 1 <= window <= _INT_MAX:
+        raise ValueError(f"{what}: window {window} < 1")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what}: tensors on different devices")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what}: the last dimension of q, k and v must be "
+                         "contiguous")
 
 
 flash_attention = FlashAttention()
 
 
+class FlashAttentionBwd:
+    """``(q, k, v, out, lse, grad_out) -> (dq, dk, dv)`` on the card,
+    counting launches; each call launches three CUDA kernels in order on
+    the current stream (the rows' D and lse, dK/dV, dQ)."""
+
+    name = "flash_attention_bwd"
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._lib = self._fn = None
+
+    def _kernel(self):
+        if self._fn is None:
+            lib = build.load(self.name)
+            fn = lib.repro_flash_attention_bwd
+            fn.argtypes = ([ctypes.c_void_p] * 10
+                           + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(self, q, k, v, out, lse, grad_out, causal: bool = True,
+                 window=None):
+        """q, k, v as the forward takes them; out and grad_out (b, h, sq,
+        d) in q's dtype with their last dimension contiguous; lse (b, h,
+        sq) float32, contiguous, from the forward with ``with_lse``.
+        Returns (dq, dk, dv) in q's dtype, each a transposed view of a
+        (b, s, heads, d) tensor, the model's order."""
+        what = "flash_attention_bwd"
+        _check(q, k, v, window, what)
+        b, h, sq, d = q.shape
+        _, kv, sk, _ = k.shape
+        for name, t in (("out", out), ("grad_out", grad_out)):
+            if (t.shape != q.shape or t.dtype != q.dtype
+                    or t.device != q.device or t.stride(3) != 1):
+                raise ValueError(f"{what}: {name} {tuple(t.shape)} "
+                                 f"{t.dtype} on {t.device} must match q "
+                                 f"with its last dimension contiguous")
+        if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+                or lse.device != q.device or not lse.is_contiguous()):
+            raise ValueError(f"{what}: lse {tuple(lse.shape)} {lse.dtype} "
+                             f"must be contiguous float32 (b, h, sq) on "
+                             f"{q.device}")
+
+        fn = self._kernel()
+        dq = torch.empty((b, sq, h, d), dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+        dk, dv = (torch.empty((b, sk, kv, d), dtype=q.dtype,
+                              device=q.device).transpose(1, 2)
+                  for _ in range(2))
+        # scratch, written before it is read: each row's lse in log2 units
+        # and D = rowsum(grad_out * out)
+        rows = torch.empty((2, b, h, sq), dtype=torch.float32,
+                           device=q.device)
+        strides = (ctypes.c_longlong * 24)(
+            *(t.stride(i) for t in (q, k, v, out, grad_out, dq, dk, dv)
+              for i in range(3)))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                      rows.data_ptr(), strides, b, h, kv, sq, sk, d,
+                      int(bool(causal)), int(window or 0), _DTYPES[q.dtype],
+                      d ** -0.5, stream)
+        build.check(self._lib, code, "flash_attention_bwd launch")
+        with self._lock:
+            self.launches += 1
+        return dq, dk, dv
+
+
+flash_attention_bwd = FlashAttentionBwd()
+
+
 class FlashAttentionFunction(torch.autograd.Function):
-    """``apply(q, k, v, causal, window)``: the kernel's forward (counted),
-    and a backward that recomputes the plain version from the saved inputs
-    and returns its gradients.  A failed build or launch in the forward
-    raises, as without autograd."""
+    """``apply(q, k, v, causal, window)``: the forward kernel (counted),
+    which also writes the rows' log-sum-exp, and a backward that launches
+    the backward kernel (counted) on the saved q, k, v, output and
+    log-sum-exp.  Gradients come back only for the inputs that need them.
+    A failed build or launch raises in either."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return flash_attention(q, k, v, causal, window)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         needs = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, needs)]
-            out = ref.flash_attention_ref(*inputs, causal=ctx.causal,
-                                          window=ctx.window)
-            grads = iter(torch.autograd.grad(
-                out, [t for t in inputs if t.requires_grad], grad_out))
-        return tuple(next(grads) if need else None for need in needs) + (
+        q, k, v, out, lse = ctx.saved_tensors
+        if grad_out.stride(3) != 1:
+            grad_out = grad_out.contiguous()
+        grads = flash_attention_bwd(q, k, v, out, lse, grad_out, ctx.causal,
+                                    ctx.window)
+        return tuple(g if need else None for g, need in zip(grads, needs)) + (
             None, None)

@@ -6,9 +6,10 @@ fallback: a kernel that fails to build or launch raises.
 
 Flash attention and the SSD scan are differentiable on the card: when grad
 mode is on and an input requires grad, they go through their kernel's
-``torch.autograd.Function`` (the kernel forward, a plain recompute
-backward).  Otherwise they call the kernel directly, which saves no
-inputs for a backward.
+``torch.autograd.Function``, whose forward launches the forward kernel and
+whose backward launches the backward kernel (``csrc/*_bwd.cu``).
+Otherwise they call the forward kernel directly, which saves nothing for
+a backward.  On CPU tensors autograd differentiates the plain forward.
 """
 from __future__ import annotations
 

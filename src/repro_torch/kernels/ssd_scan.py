@@ -1,22 +1,26 @@
-"""Mamba2 SSD chunk scan: the wrapper of the CUDA kernel in
-``csrc/ssd_scan.cu``, which replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan.py``.
+"""Mamba2 SSD chunk scan: the wrappers of the CUDA kernels in
+``csrc/ssd_scan.cu`` (the forward, which replaces the Pallas TPU kernel
+``repro/kernels/ssd_scan.py``) and ``csrc/ssd_scan_bwd.cu`` (its
+backward).
 
-The wrapper takes CUDA tensors only; ``ops.ssd_scan`` sends CPU tensors to
-the plain version in ``ref.py``.  ``ssd_scan.launches`` counts the kernel's
-calls, so a run can show that its Mamba2 layers went through the kernel; each
-call launches four CUDA kernels in order on the current stream (cumulative
-sums and scores, chunk states, state passing, chunk scan).  Unlike the
-Pallas kernel it also takes an initial state and returns the final one, so
-the model's ``ssd_chunked`` maps onto it whole.
+The wrappers take CUDA tensors only; ``ops.ssd_scan`` sends CPU tensors to
+the plain version in ``ref.py``.  ``ssd_scan.launches`` and
+``ssd_scan_bwd.launches`` count each kernel's calls, so a run can show that
+its Mamba2 layers, and their gradients, went through the kernels.  A
+forward call launches four CUDA kernels in order on the current stream
+(cumulative sums and scores, chunk states, state passing, chunk scan), a
+backward call six (local states, state passing backwards, rows, columns,
+dt, the sums over heads).  Unlike the Pallas kernel the forward also takes
+an initial state and returns the final one, so the model's
+``ssd_chunked`` maps onto it whole.
 
-The kernel computes the forward pass only.  ``SSDScanFunction`` makes it
-differentiable: its forward launches the kernel, and its backward
-recomputes the scan through the plain version and differentiates that,
-for both outputs (y and the final state) and for h0 when it was given.
-The recompute is the correctness route, not a design (a backward kernel
-is still to be written); it launches no kernel, so ``launches`` counts
-forward launches only.
+``SSDScanFunction`` makes the kernel differentiable: its forward launches
+the forward kernel and keeps the scratch the backward reuses (the f64
+cumulative sums, the scores C.B^T and the states entering each chunk);
+its backward launches the backward kernel on them, for both outputs (y and
+the final state) and for h0 when it was given.  The gradients are
+deterministic (no atomics).  A failed build or launch raises in either;
+nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -25,10 +29,11 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 REPLACES = "src/repro/kernels/ssd_scan.py:26"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)     # p
 MAX_STATE = 128                   # n
 MAX_CHUNK = 256
@@ -58,49 +63,18 @@ class SSDScan:
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def __call__(self, x, dt, A, B, C, chunk: int = 256, h0=None):
+    def __call__(self, x, dt, A, B, C, chunk: int = 256, h0=None,
+                 keep: bool = False):
         """x: (b, s, h, p) float32 or bfloat16; dt: (b, s, h) and A: (h,)
         float32; B, C: (b, s, n) in x's dtype; ``chunk`` <= 256 divides s;
         h0: optional (b, h, n, p) float32 initial state.  Contiguous, on one
         CUDA device.  Returns (y (b, s, h, p), final_state (b, h, n, p)),
-        both float32."""
-        if x.device.type != "cuda":
-            raise ValueError(
-                f"ssd_scan kernel needs CUDA tensors, got {x.device}")
-        if (x.dtype not in _DTYPES or B.dtype != x.dtype
-                or C.dtype != x.dtype or dt.dtype != torch.float32
-                or A.dtype != torch.float32
-                or (h0 is not None and h0.dtype != torch.float32)):
-            raise ValueError(
-                f"ssd_scan: dtypes x {x.dtype} B {B.dtype} C {C.dtype} dt "
-                f"{dt.dtype} A {A.dtype}; x, B and C need one of "
-                f"{sorted(map(str, _DTYPES))}, dt, A and h0 float32")
-        if x.dim() != 4:
-            raise ValueError(f"ssd_scan: bad shape x {tuple(x.shape)}")
+        both float32; with ``keep``, (y, final_state, scratch): the f64
+        cumulative sums, the scores and the entering states, which the
+        backward reads."""
+        _check(x, dt, A, B, C, chunk, h0, "ssd_scan")
         b, s, h, p = x.shape
-        n = B.shape[-1] if B.dim() == 3 else -1
-        if (dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n)
-                or C.shape != B.shape
-                or (h0 is not None and h0.shape != (b, h, n, p))
-                or not 1 <= b <= _MAX_GRID or not 1 <= h <= _MAX_GRID
-                or not 1 <= s <= _INT_MAX):
-            raise ValueError(
-                f"ssd_scan: bad shapes x {tuple(x.shape)} dt "
-                f"{tuple(dt.shape)} A {tuple(A.shape)} B {tuple(B.shape)} C "
-                f"{tuple(C.shape)} h0 "
-                f"{None if h0 is None else tuple(h0.shape)}")
-        if p not in HEAD_DIMS:
-            raise ValueError(f"ssd_scan: head_dim {p} not in {HEAD_DIMS}")
-        if not 1 <= n <= MAX_STATE:
-            raise ValueError(f"ssd_scan: d_state {n} not in 1..{MAX_STATE}")
-        if not 1 <= chunk <= MAX_CHUNK or s % chunk:
-            raise ValueError(f"ssd_scan: chunk {chunk} must be in "
-                             f"1..{MAX_CHUNK} and divide s = {s}")
-        tensors = [x, dt, A, B, C] + ([] if h0 is None else [h0])
-        if any(t.device != x.device for t in tensors):
-            raise ValueError("ssd_scan: tensors on different devices")
-        if not all(t.is_contiguous() for t in tensors):
-            raise ValueError("ssd_scan: tensors must be contiguous")
+        n = B.shape[-1]
 
         fn = self._kernel()
         y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -125,35 +99,160 @@ class SSDScan:
         build.check(self._lib, code, "ssd_scan launch")
         with self._lock:
             self.launches += 1
+        if keep:
+            return y, final, (cum, scores, states)
         return y, final
+
+
+def _check(x, dt, A, B, C, chunk, h0, what):
+    """The argument checks the forward and backward kernels share."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {x.device}")
+    if (x.dtype not in _DTYPES or B.dtype != x.dtype
+            or C.dtype != x.dtype or dt.dtype != torch.float32
+            or A.dtype != torch.float32
+            or (h0 is not None and h0.dtype != torch.float32)):
+        raise ValueError(
+            f"{what}: dtypes x {x.dtype} B {B.dtype} C {C.dtype} dt "
+            f"{dt.dtype} A {A.dtype}; x, B and C need one of "
+            f"{sorted(map(str, _DTYPES))}, dt, A and h0 float32")
+    if x.dim() != 4:
+        raise ValueError(f"{what}: bad shape x {tuple(x.shape)}")
+    b, s, h, p = x.shape
+    n = B.shape[-1] if B.dim() == 3 else -1
+    if (dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n)
+            or C.shape != B.shape
+            or (h0 is not None and h0.shape != (b, h, n, p))
+            or not 1 <= b <= _MAX_GRID or not 1 <= h <= _MAX_GRID
+            or not 1 <= s <= _INT_MAX):
+        raise ValueError(
+            f"{what}: bad shapes x {tuple(x.shape)} dt "
+            f"{tuple(dt.shape)} A {tuple(A.shape)} B {tuple(B.shape)} C "
+            f"{tuple(C.shape)} h0 "
+            f"{None if h0 is None else tuple(h0.shape)}")
+    if p not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {p} not in {HEAD_DIMS}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"{what}: d_state {n} not in 1..{MAX_STATE}")
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"{what}: chunk {chunk} must be in "
+                         f"1..{MAX_CHUNK} and divide s = {s}")
+    tensors = [x, dt, A, B, C] + ([] if h0 is None else [h0])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{what}: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
 
 
 ssd_scan = SSDScan()
 
 
+class SSDScanBwd:
+    """``(x, dt, A, B, C, h0, scratch, grad_y, grad_final, chunk) -> (dx,
+    ddt, dA, dB, dC, dh0)`` on the card, counting launches; each call
+    launches six CUDA kernels in order on the current stream."""
+
+    name = "ssd_scan_bwd"
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._lib = self._fn = None
+
+    def _kernel(self):
+        if self._fn is None:
+            lib = build.load(self.name)
+            fn = lib.repro_ssd_scan_bwd
+            fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            lib.repro_ssd_bwd_pass_blocks.argtypes = [ctypes.c_int] * 2
+            lib.repro_ssd_bwd_pass_blocks.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(self, x, dt, A, B, C, h0, scratch, grad_y, grad_final,
+                 chunk: int = 256):
+        """x, dt, A, B, C, h0 and ``chunk`` as the forward took them;
+        ``scratch`` the forward's with ``keep``; grad_y (b, s, h, p) and
+        grad_final (b, h, n, p) float32, contiguous.  Returns dx, dB, dC
+        in x's dtype, ddt (b, s, h), dA (h,) and dh0 (None without h0)
+        float32."""
+        what = "ssd_scan_bwd"
+        _check(x, dt, A, B, C, chunk, h0, what)
+        b, s, h, p = x.shape
+        n = B.shape[-1]
+        nc = s // chunk
+        cum, scores, states = scratch
+        for name, t, shape, dtype in (
+                ("grad_y", grad_y, (b, s, h, p), torch.float32),
+                ("grad_final", grad_final, (b, h, n, p), torch.float32),
+                ("cum", cum, (b, s, h), torch.float64),
+                ("scores", scores, (b, nc, chunk, chunk), torch.float32),
+                ("states", states, (b, nc, h, n, p), torch.float32)):
+            if (t.shape != shape or t.dtype != dtype or t.device != x.device
+                    or not t.is_contiguous()):
+                raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype}"
+                                 f" must be contiguous {dtype} {shape} on "
+                                 f"{x.device}")
+
+        fn = self._kernel()
+        dev = x.device
+        dx = torch.empty_like(x)
+        dB, dC = torch.empty_like(B), torch.empty_like(C)
+        ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+        dA = torch.empty((h,), dtype=torch.float32, device=dev)
+        dh0 = None if h0 is None else torch.empty_like(h0)
+        # scratch, written before it is read: dS' of every chunk, <S, dS'>
+        # and dt . d.a per chunk, four per-step terms of d.cum, and the
+        # per-head parts of dB and dC
+        f32 = dict(dtype=torch.float32, device=dev)
+        d_states = torch.empty((b, nc, h, n, p), **f32)
+        inner = torch.empty(
+            (b, nc, h, self._lib.repro_ssd_bwd_pass_blocks(n, p)), **f32)
+        dA_part = torch.empty((b, nc, h), **f32)
+        terms = torch.empty((4, b, s, h), **f32)
+        dB_part = torch.empty((b, s, h, n), **f32)
+        dC_part = torch.empty((b, s, h, n), **f32)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = fn(*(t.data_ptr() for t in (
+                x, dt, A, B, C, cum, scores, states, grad_y, grad_final, dx,
+                ddt, dA, dB, dC)), None if dh0 is None else dh0.data_ptr(),
+                *(t.data_ptr() for t in (d_states, inner, terms, dB_part,
+                                         dC_part, dA_part)),
+                b, s, h, p, n, chunk, _DTYPES[x.dtype], stream)
+        build.check(self._lib, code, "ssd_scan_bwd launch")
+        with self._lock:
+            self.launches += 1
+        return dx, ddt, dA, dB, dC, dh0
+
+
+ssd_scan_bwd = SSDScanBwd()
+
+
 class SSDScanFunction(torch.autograd.Function):
     """``apply(x, dt, A, B, C, h0, chunk) -> (y, final_state)``: the
-    kernel's forward (counted), and a backward that recomputes the plain
-    version from the saved inputs and returns its gradients with respect
-    to x, dt, A, B, C and h0 (None when h0 was None).  A failed build or
-    launch in the forward raises, as without autograd."""
+    forward kernel (counted), keeping its scratch, and a backward that
+    launches the backward kernel (counted) and returns the gradients with
+    respect to x, dt, A, B, C and h0 (None when h0 was None), each only
+    where the input needs it.  A failed build or launch raises in
+    either."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, h0, chunk):
-        ctx.save_for_backward(x, dt, A, B, C, h0)
+        y, final, scratch = ssd_scan(x, dt, A, B, C, chunk, h0, keep=True)
+        ctx.save_for_backward(x, dt, A, B, C, h0, *scratch)
         ctx.chunk = chunk
-        return ssd_scan(x, dt, A, B, C, chunk, h0)
+        return y, final
 
     @staticmethod
     def backward(ctx, grad_y, grad_final):
         needs = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, needs)]
-            y, final = ref.ssd_scan_ref(*inputs[:5], ctx.chunk, h0=inputs[5])
-            grads = iter(torch.autograd.grad(
-                (y, final), [t for t in inputs if t is not None
-                             and t.requires_grad],
-                (grad_y, grad_final), allow_unused=True))
-        return tuple(next(grads) if need else None for need in needs) + (
-            None,)
+        x, dt, A, B, C, h0, *scratch = ctx.saved_tensors
+        grads = ssd_scan_bwd(x, dt, A, B, C, h0, scratch,
+                             grad_y.contiguous(), grad_final.contiguous(),
+                             ctx.chunk)
+        dx, ddt, dA, dB, dC, dh0 = grads
+        return tuple(g if need else None for g, need in zip(
+            (dx, ddt, dA, dB, dC, dh0), needs)) + (None,)

@@ -5,8 +5,8 @@ recompute over replayed (B, T) observation windows with the same banded
 (``sliding_window``) attention the acting path evaluates incrementally
 through the KV cache, so learner and actor compute the same function.  On
 the card both passes run the CUDA flash-attention kernel: the online pass
-through ``FlashAttentionFunction`` (kernel forward, plain-recompute
-backward), the target pass, under ``no_grad``, through the kernel alone.
+through ``FlashAttentionFunction`` (forward and backward kernels), the
+target pass, under ``no_grad``, through the forward kernel alone.
 
 Objective: R2D2-style double Q-learning with 1-step-within-sequence
 targets, prioritized by a max/mean mix of |TD|.  Positions whose attention

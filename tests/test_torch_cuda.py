@@ -1179,16 +1179,18 @@ def test_flash_grads_on_the_card_match_the_plain_route(cuda_device, h, kv,
                                                        sq, sk, causal,
                                                        window):
     """ops.flash_attention on CUDA tensors that require grad: an output
-    with a grad_fn, one forward launch, and gradients equal to the plain
-    version's (the backward recomputes it)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    with a grad_fn, one forward and one backward kernel launch, and
+    gradients within GRAD_TOL of the plain version's."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     inputs = [t.requires_grad_() for t in _flash_inputs(
         2, h, kv, sq, sk, 64, torch.float32, cuda_device, seed=sq)]
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention_bwd.launches
     out = ops.flash_attention(*inputs, causal=causal, window=window)
     assert out.grad_fn is not None
     grads = _grads_of([out], inputs)
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     plain = ref.flash_attention_ref(*inputs, causal=causal, window=window)
     _assert_grads_close(grads, _grads_of([plain], inputs))
 
@@ -1196,17 +1198,21 @@ def test_flash_grads_on_the_card_match_the_plain_route(cuda_device, h, kv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_grads_on_the_card_match_the_plain_route(cuda_device, with_h0):
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    """ops.ssd_scan on CUDA tensors that require grad: one forward and one
+    backward kernel launch, and gradients within GRAD_TOL of the plain
+    version's."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     tensors, h0 = _ssd_inputs(2, 512, 4, 64, 32, cuda_device, seed=5,
                               h0=with_h0)
     inputs = [t.requires_grad_() for t in tensors]
     if h0 is not None:
         inputs.append(h0.requires_grad_())
-    before = ssd_scan.launches
+    before = ssd_scan.launches, ssd_scan_bwd.launches
     y, final = ops.ssd_scan(*inputs[:5], chunk=128, h0=h0)
     assert y.grad_fn is not None and final.grad_fn is not None
     grads = _grads_of([y, final], inputs)
-    assert ssd_scan.launches == before + 1
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
     plain = ref.ssd_scan_ref(*inputs[:5], 128, h0=h0)
     _assert_grads_close(grads, _grads_of(plain, inputs))
 
@@ -1223,10 +1229,11 @@ def _param_grads(params, loss_fn):
 def test_q_sequence_grads_through_the_kernel_match_the_plain_route(
         cuda_device):
     """The transformer policy's learner forward at the served width: every
-    parameter gets a gradient through the flash kernel, within GRAD_TOL of
-    the plain route's; one forward launch per layer."""
+    parameter gets a gradient through the flash kernels, within GRAD_TOL of
+    the plain route's; one forward and one backward launch per layer."""
     from unittest import mock
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     cfg = TransformerPolicyConfig(num_layers=2, d_model=256, num_heads=4,
                                   num_kv_heads=2, head_dim=64, d_ff=512,
                                   window=8)
@@ -1241,9 +1248,10 @@ def test_q_sequence_grads_through_the_kernel_match_the_plain_route(
     def loss(p):
         return (network.q_sequence(p, arch, obs) * weights).sum()
 
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention_bwd.launches
     grads = _param_grads(params, loss)
-    assert flash_attention.launches == before + arch.num_layers
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + arch.num_layers, before[1] + arch.num_layers)
     with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref):
         plain = _param_grads(params, loss)
     _assert_grads_close(grads, plain)
@@ -1255,8 +1263,9 @@ def test_reduced_zamba2_grads_through_the_kernels_match_the_plain_route(
     import dataclasses
     from unittest import mock
     from repro_torch import configs
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     from repro_torch.models import layers, transformer
     cfg = dataclasses.replace(configs.reduced(configs.get_arch(
         "zamba2-1.2b")), num_layers=3, hybrid_attn_every=2)
@@ -1273,14 +1282,163 @@ def test_reduced_zamba2_grads_through_the_kernels_match_the_plain_route(
         logits = layers.unembed(transformer.unembed_table(p, cfg), feats)
         return (logits * weights).sum()
 
-    flash0, ssd0 = flash_attention.launches, ssd_scan.launches
+    counts = (flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd)
+    before = [k.launches for k in counts]
     grads = _param_grads(params, loss)
-    assert flash_attention.launches - flash0 == 1
-    assert ssd_scan.launches - ssd0 == cfg.num_layers
+    assert [k.launches - b for k, b in zip(counts, before)] == [
+        1, 1, cfg.num_layers, cfg.num_layers]
     with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref), \
             mock.patch.object(ops, "ssd_scan", _plain_ssd_scan):
         plain = _param_grads(params, loss)
     _assert_grads_close(grads, plain)
+
+
+# The backward kernels alone: (b, h, kv, sq, sk, d, causal, window); the
+# last has rows that see no key (sq 300 past sk 100 + window 64).
+FLASH_BWD_CASES = [(2, 4, 4, 256, 256, 64, True, None),
+                   (2, 8, 2, 200, 200, 64, True, 48),
+                   (2, 4, 2, 100, 300, 32, False, None),
+                   (1, 4, 2, 129, 129, 128, True, None),
+                   (2, 4, 2, 100, 100, 16, True, 8),
+                   (1, 2, 2, 300, 100, 64, True, 64)]
+GRAD_BF16_TOL = 2e-2
+
+
+def _max_scaled(actual, expected):
+    return max(((a.float() - e.float()).abs().max()
+                / (e.float().abs().max() + 1e-30)).item()
+               for a, e in zip(actual, expected) if a is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain_version(cuda_device, b, h, kv,
+                                                     sq, sk, d, causal,
+                                                     window, dtype):
+    """The backward kernel on the forward's output and log-sum-exp: grads
+    in q's dtype within GRAD_TOL (f32) or GRAD_BF16_TOL (bf16) of the
+    largest |grad| of its plain version and of autograd of the plain
+    forward, the same bits on a repeat, and the forward's output the same
+    with or without the log-sum-exp."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v = _flash_inputs(b, h, kv, sq, sk, d, dtype, cuda_device,
+                            seed=sq + d)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device, dtype)
+    out, lse = flash_attention(q, k, v, causal, window, with_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v, causal, window))
+    torch.testing.assert_close(lse, ref.flash_attention_lse_ref(
+        q, k, causal=causal, window=window), atol=1e-4, rtol=1e-5)
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, out, lse, g, causal, window)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, r) for a, r in zip(grads, again))
+    assert all(a.dtype == dtype and a.shape == t.shape
+               for a, t in zip(grads, (q, k, v)))
+    tol = GRAD_TOL if dtype == torch.float32 else GRAD_BF16_TOL
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
+                                        window=window)
+    assert _max_scaled(grads, plain) <= tol
+    inputs = [t.float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ref.flash_attention_ref(
+        *inputs, causal=causal, window=window), inputs, g.float())
+    assert _max_scaled(grads, auto) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_backward_rows_that_see_no_key(cuda_device):
+    """Rows whose band ends before the first key weigh every key 1/sk in
+    the forward: their grad_out reaches dV as grad_out / sk and nothing
+    else, and their dq is 0."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    b, h, kv, sq, sk, d, window = 1, 2, 2, 300, 100, 64, 64
+    q, k, v = _flash_inputs(b, h, kv, sq, sk, d, torch.float32, cuda_device,
+                            seed=4)
+    g = torch.zeros_like(q)
+    first = sk - 1 + window                      # the first such row
+    g[:, :, first:] = 1.0
+    out, lse = flash_attention(q, k, v, True, window, with_lse=True)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, True, window)
+    torch.cuda.synchronize()
+    assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
+    expected = torch.full_like(dv, (sq - first) / sk)
+    torch.testing.assert_close(dv, expected, atol=1e-5, rtol=1e-5)
+
+
+SSD_BWD_CASES = [(1, 256, 2, 32, 16, 64), (2, 512, 4, 64, 64, 256),
+                 (1, 300, 3, 16, 24, 100), (2, 512, 4, 64, 128, 256),
+                 (1, 512, 2, 128, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_CASES)
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain_version(cuda_device, b, s, h, p,
+                                                   n, chunk, with_h0, dtype):
+    """The backward kernel on the forward's scratch: dx, dB and dC in x's
+    dtype, ddt, dA and dh0 f32, each within GRAD_TOL (f32) or
+    GRAD_BF16_TOL (bf16) of the largest magnitude of its plain version's,
+    the same bits on a repeat."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    (x, dt, A, B, C), h0 = _ssd_inputs(b, s, h, p, n, cuda_device,
+                                       seed=s + p, h0=with_h0)
+    x, B, C = (t.to(dtype) for t in (x, B, C))
+    gen = torch.Generator().manual_seed(2)
+    gy = torch.randn((b, s, h, p), generator=gen).to(cuda_device)
+    gf = torch.randn((b, h, n, p), generator=gen).to(cuda_device)
+    _, _, scratch = ssd_scan(x, dt, A, B, C, chunk, h0, keep=True)
+    before = ssd_scan_bwd.launches
+    grads = ssd_scan_bwd(x, dt, A, B, C, h0, scratch, gy, gf, chunk)
+    again = ssd_scan_bwd(x, dt, A, B, C, h0, scratch, gy, gf, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 2
+    assert (grads[5] is None) == (not with_h0)
+    assert all(torch.equal(a, r) for a, r in zip(grads, again)
+               if a is not None)
+    assert [None if a is None else a.dtype for a in grads] == [
+        dtype, torch.float32, torch.float32, dtype, dtype,
+        torch.float32 if with_h0 else None]
+    plain = ref.ssd_scan_bwd_ref(x, dt, A, B, C, h0, gy, gf, chunk)
+    tol = GRAD_TOL if dtype == torch.float32 else GRAD_BF16_TOL
+    for a, e in zip(grads, plain):
+        if a is not None:
+            assert _max_scaled([a], [e]) <= tol
+
+
+@pytest.mark.cuda
+def test_backward_kernels_replay_from_a_cuda_graph(cuda_device):
+    """Both backward kernels captured in a CUDA graph give, on replay, the
+    bits of an eager call on the same inputs."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    q, k, v = _flash_inputs(2, 4, 2, 128, 128, 64, torch.float32,
+                            cuda_device, seed=5)
+    g = torch.randn_like(q)
+    out, lse = flash_attention(q, k, v, True, None, with_lse=True)
+    (x, dt, A, B, C), _ = _ssd_inputs(1, 256, 2, 32, 16, cuda_device, seed=6)
+    gy, gf = torch.randn_like(x), torch.randn(1, 2, 16, 32,
+                                              device=cuda_device)
+    _, _, scratch = ssd_scan(x, dt, A, B, C, 64, None, keep=True)
+
+    def both():
+        return (flash_attention_bwd(q, k, v, out, lse, g, True, None),
+                ssd_scan_bwd(x, dt, A, B, C, None, scratch, gy, gf, 64))
+    eager = both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, r in zip(eager[0] + eager[1], captured[0] + captured[1]):
+        assert (a is None and r is None) or torch.equal(a, r)
 
 
 # --------------------------------------------------------------------- DQN
@@ -1362,16 +1520,18 @@ def test_flash_kernel_head_dim_16_matches_plain_version(cuda_device, s,
 @pytest.mark.parametrize("s,window", [(10, 4), (16, 8), (33, 4)])
 def test_flash_grads_at_head_dim_16_match_the_plain_route(cuda_device, s,
                                                           window):
-    """FlashAttentionFunction at d = 16: one forward launch and the plain
-    route's gradients."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    """FlashAttentionFunction at d = 16: one forward and one backward
+    launch and the plain route's gradients."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     inputs = [t.requires_grad_() for t in _flash_inputs(
         8, 2, 1, s, s, 16, torch.float32, cuda_device, seed=s)]
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention_bwd.launches
     out = ops.flash_attention(*inputs, causal=True, window=window)
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     grads = _grads_of([out], inputs)
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     plain = ref.flash_attention_ref(*inputs, causal=True, window=window)
     _assert_grads_close(grads, _grads_of([plain], inputs))
 

@@ -691,36 +691,20 @@ def test_planted_faults_edit_the_committed_sources(monkeypatch, fault):
     assert text != committed and text.count(new) == 1
 
 # -------------------------------------------- gradients through the kernels
-class _PlainKernel:
-    """Stands in for a kernel wrapper on the CPU: the plain version's
-    forward, counted like a launch."""
-
-    def __init__(self, forward):
-        self.forward = forward
-        self.launches = 0
-
-    def __call__(self, *args):
-        self.launches += 1
-        return self.forward(*args)
+# The Functions' backwards launch the backward kernels; here the plain
+# backward versions stand in for them (``torch_card_route``), so their
+# gradients are held to plain autograd's at GRAD_TOL of each gradient's
+# largest magnitude (the forward tests' scaled rule): the same f32
+# arithmetic, written out instead of differentiated, in another order.
+GRAD_TOL = 1e-5
 
 
 def _route_as_on_the_card(monkeypatch):
     """CPU tensors dispatched as ``ops`` dispatches the card's, each
-    kernel's forward replaced by its plain version: what is left to test is
-    the dispatch and each ``torch.autograd.Function``'s backward."""
-    from repro_torch.kernels import flash_attention as flash_module
-    from repro_torch.kernels import ssd_scan as ssd_module
-    flash = _PlainKernel(lambda q, k, v, causal, window:
-                         ref.flash_attention_ref(q, k, v, causal=causal,
-                                                 window=window))
-    ssd = _PlainKernel(lambda x, dt, A, B, C, chunk, h0:
-                       ref.ssd_scan_ref(x, dt, A, B, C, chunk, h0=h0))
-    monkeypatch.setattr(ops, "_on_card", lambda t: True)
-    monkeypatch.setattr(ops, "_flash", flash)
-    monkeypatch.setattr(flash_module, "flash_attention", flash)
-    monkeypatch.setattr(ops, "_ssd", ssd)
-    monkeypatch.setattr(ssd_module, "ssd_scan", ssd)
-    return flash, ssd
+    kernel and backward kernel replaced by its plain version: what is left
+    to test is the dispatch and each ``torch.autograd.Function``."""
+    from torch_card_route import route_as_on_the_card
+    return route_as_on_the_card(monkeypatch)
 
 
 @pytest.fixture
@@ -737,11 +721,11 @@ def _grads(outputs, inputs, seed=0):
     return torch.autograd.grad(loss, inputs)
 
 
-def _assert_grads_equal(actual, expected):
+def _assert_grads_close(actual, expected, tol=GRAD_TOL):
     assert len(actual) == len(expected) > 0
     for a, b in zip(actual, expected):
         assert a is not None and a.shape == b.shape and a.dtype == b.dtype
-        torch.testing.assert_close(a, b, atol=0, rtol=0)
+        _assert_scaled_close(a.detach(), b.detach(), tol)
 
 
 @pytest.mark.parametrize("h,kv,sq,sk,causal,window", [
@@ -751,35 +735,36 @@ def _assert_grads_equal(actual, expected):
 def test_flash_function_backward_equals_plain_autograd(card_route, h, kv, sq,
                                                        sk, causal, window):
     """With grad on, ops.flash_attention goes through
-    FlashAttentionFunction: one forward launch, and a backward (the plain
-    recompute) whose gradients equal plain autograd's exactly."""
-    flash, _ = card_route
+    FlashAttentionFunction: one forward launch with the rows' log-sum-exp,
+    one backward launch, and gradients within GRAD_TOL of plain
+    autograd's."""
     inputs = [torch.as_tensor(a).requires_grad_()
               for a in _flash_arrays(2, h, kv, sq, sk, 32, seed=sq + h)]
     out = ops.flash_attention(*inputs, causal=causal, window=window)
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     grads = _grads([out], inputs)
-    assert flash.launches == 1                     # the forward only
+    assert (card_route.flash.launches, card_route.flash_bwd.launches) == (
+        1, 1)
     plain = ref.flash_attention_ref(*inputs, causal=causal, window=window)
     torch.testing.assert_close(out, plain, atol=0, rtol=0)
-    _assert_grads_equal(grads, _grads([plain], inputs))
+    _assert_grads_close(grads, _grads([plain], inputs))
 
 
 @pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
 def test_ssd_function_backward_equals_plain_autograd(card_route, with_h0):
     """With grad on, ops.ssd_scan goes through SSDScanFunction; the
     gradient of a loss over both outputs (y and the final state) with
-    respect to x, dt, A, B, C and h0 equals plain autograd's exactly."""
-    _, ssd = card_route
+    respect to x, dt, A, B, C and h0 is within GRAD_TOL of plain
+    autograd's, from one forward and one backward launch."""
     inputs = [torch.as_tensor(a).requires_grad_()
               for a in _ssd_arrays(2, 128, 3, 16, 8, seed=9, h0=with_h0)]
     h0 = inputs[5] if with_h0 else None
     y, final = ops.ssd_scan(*inputs[:5], chunk=32, h0=h0)
     assert type(y.grad_fn).__name__ == "SSDScanFunctionBackward"
     grads = _grads([y, final], inputs)
-    assert ssd.launches == 1
+    assert (card_route.ssd.launches, card_route.ssd_bwd.launches) == (1, 1)
     plain = ref.ssd_scan_ref(*inputs[:5], 32, h0=h0)
-    _assert_grads_equal(grads, _grads(plain, inputs))
+    _assert_grads_close(grads, _grads(plain, inputs))
 
 
 def test_functions_return_grads_only_where_inputs_need_them(card_route):
@@ -796,7 +781,7 @@ def test_functions_return_grads_only_where_inputs_need_them(card_route):
 def test_kernels_run_without_autograd_when_no_grad_is_wanted(card_route):
     """Without grad mode, or with no input that requires grad, ops calls
     the kernel itself: no Function, nothing saved for a backward."""
-    flash, ssd = card_route
+    flash, ssd = card_route.flash, card_route.ssd
     q, k, v = map(torch.as_tensor, _flash_arrays(1, 2, 2, 16, 16, 32, 3))
     assert ops.flash_attention(q, k, v).grad_fn is None
     with torch.no_grad():
@@ -805,6 +790,8 @@ def test_kernels_run_without_autograd_when_no_grad_is_wanted(card_route):
     y, final = ops.ssd_scan(*arrays, chunk=32)
     assert y.grad_fn is None and final.grad_fn is None
     assert (flash.launches, ssd.launches) == (2, 1)
+    assert (card_route.flash_bwd.launches, card_route.ssd_bwd.launches) == (
+        0, 0)
 
 
 def _all_grads(params, loss_fn):
@@ -819,7 +806,8 @@ def test_q_sequence_grads_through_the_functions_equal_the_plain_route(
         monkeypatch):
     """The transformer policy's full-sequence Q values (the learner's
     forward pass, slice 5): every parameter's gradient through
-    FlashAttentionFunction equals the plain route's."""
+    FlashAttentionFunction is within GRAD_TOL of the plain route's, from
+    one forward and one backward launch per layer."""
     from repro_torch.policies import TransformerPolicyConfig, network
     cfg = TransformerPolicyConfig(num_layers=2, d_model=64, num_heads=4,
                                   num_kv_heads=2, head_dim=32, d_ff=128,
@@ -836,18 +824,18 @@ def test_q_sequence_grads_through_the_functions_equal_the_plain_route(
         return (network.q_sequence(p, arch, obs) * weights).sum()
 
     plain = _all_grads(params, loss)
-    flash, _ = _route_as_on_the_card(monkeypatch)
+    route = _route_as_on_the_card(monkeypatch)
     routed = _all_grads(params, loss)
-    assert flash.launches == arch.num_layers
-    _assert_grads_equal(routed, plain)
+    assert route.flash.launches == route.flash_bwd.launches == arch.num_layers
+    _assert_grads_close(routed, plain)
 
 
 def test_reduced_zamba2_grads_through_the_functions_equal_the_plain_route(
         monkeypatch):
     """A reduced Zamba2 forward to the logits (Mamba2 layers, a
     shared-attention site and a tail): every parameter's gradient through
-    both Functions equals the plain route's; one forward launch per site
-    and per layer."""
+    both Functions is within GRAD_TOL of the plain route's; one forward
+    and one backward launch per site and per layer."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import layers, transformer
@@ -866,8 +854,9 @@ def test_reduced_zamba2_grads_through_the_functions_equal_the_plain_route(
         return (logits * weights).sum()
 
     plain = _all_grads(params, loss)
-    flash, ssd = _route_as_on_the_card(monkeypatch)
+    route = _route_as_on_the_card(monkeypatch)
     routed = _all_grads(params, loss)
-    assert flash.launches == cfg.num_layers // cfg.hybrid_attn_every
-    assert ssd.launches == cfg.num_layers
-    _assert_grads_equal(routed, plain)
+    sites = cfg.num_layers // cfg.hybrid_attn_every
+    assert route.flash.launches == route.flash_bwd.launches == sites
+    assert route.ssd.launches == route.ssd_bwd.launches == cfg.num_layers
+    _assert_grads_close(routed, plain)

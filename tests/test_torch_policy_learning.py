@@ -226,15 +226,36 @@ def test_learner_masks_truncated_context_and_padding():
 
 
 class _PlainFlash:
-    """The flash kernel's stand-in on the CPU: the plain forward, counted
-    like a launch."""
+    """The flash kernel's stand-in on the CPU: the plain forward (with the
+    rows' log-sum-exp when asked), counted like a launch."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, q, k, v, causal, window):
+    def __call__(self, q, k, v, causal, window, with_lse=False):
         self.launches += 1
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        if with_lse:
+            return out, ref.flash_attention_lse_ref(q, k, causal=causal,
+                                                    window=window)
+        return out
+
+
+class _RecomputedFlashBwd:
+    """The backward kernel's stand-in on the CPU: autograd of the plain
+    forward, recomputed from the saved inputs (the plain route's own
+    gradients, bit for bit), counted like a launch."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, out, lse, grad_out, causal, window):
+        self.launches += 1
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            plain = ref.flash_attention_ref(*inputs, causal=causal,
+                                            window=window)
+            return torch.autograd.grad(plain, inputs, grad_out)
 
 
 def test_learner_runs_flash_attention_as_on_the_card(monkeypatch):
@@ -255,13 +276,16 @@ def test_learner_runs_flash_attention_as_on_the_card(monkeypatch):
         functions.append(args[0].requires_grad)
         return original(*args)
 
+    flash_bwd = _RecomputedFlashBwd()
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
     monkeypatch.setattr(ops, "_flash", flash)
     monkeypatch.setattr(flash_module, "flash_attention", flash)
+    monkeypatch.setattr(flash_module, "flash_attention_bwd", flash_bwd)
     monkeypatch.setattr(ops.FlashAttentionFunction, "apply", apply)
     metrics = [routed.step() for _ in range(2)]
     layers = CONFIGS[name]["num_layers"]
     assert flash.launches == 2 * 2 * layers      # online + target, 2 steps
+    assert flash_bwd.launches == 2 * layers      # the online passes' backward
     assert functions == [True] * (2 * layers)    # the online passes only
     assert [m["loss"] for m in metrics] == [m["loss"] for m in plain]
     for (_, a), (_, b) in zip(routed_sent, plain_sent):
