@@ -154,12 +154,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    policy learner's s 16, with the forward's log-sum-exp held to its plain
    version; the SSD scan at SSD_CASES and SSD_CHUNKINGS with and without
    h0 in f32 and bf16; then, at the training path's shapes (Zamba2-1.2B
-   at 4 x 1024 tokens) and at qwen3-1.7b's d 128 (4 x 2048, f32 and bf16),
+   at 4 x 1024 tokens), at qwen3-1.7b's d 128 (4 x 2048, f32 and bf16)
+   and, for flash over every key, at Whisper-base's encoder (4 x 1500, f32),
    each backward kernel (CUDA graph and eager), its forward, its plain
    version and the plain recompute it replaced, and for flash
    ``scaled_dot_product_attention``'s backward in the path's dtype and in
    bf16 (K/V repeated), beside the bound; one call must launch the
-   designs' CUDA kernels in order (3 for flash, 6 for the SSD scan);
+   designs' CUDA kernels in order (3 for flash, 5 for the SSD scan);
 14. the transformer policy learns Catch on the card: ``run_experiment``
    with ``TransformerPolicyBuilder`` at the reference acceptance's preset
    and schedule (``tests/conftest.py:67-70``, seed 0, 250 episodes, 20
@@ -1813,13 +1814,35 @@ def profiled_kernels(torch, fn):
             if not e.name.startswith(("Memcpy", "Memset"))]
 
 
-def launched_kernels(torch, fn, stages, what, tries=3):
+def evented_launches(torch, fn, wrapper, launches, calls=5):
+    """Each launch's device ms of a call of ``fn``, from CUDA events that
+    ``wrapper`` has its library record before each of its ``launches`` and
+    after the last (``mark_launches``): the median over ``calls`` calls."""
+    samples = []
+    for _ in range(calls + 1):  # the first call warms up
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(launches + 1)]
+        wrapper.mark_launches(events)
+        try:
+            fn()
+        finally:
+            wrapper.mark_launches(None)
+        events[-1].synchronize()
+        samples.append([events[i].elapsed_time(events[i + 1])
+                        for i in range(launches)])
+    return [statistics.median(s[i] for s in samples[1:])
+            for i in range(launches)]
+
+
+def launched_kernels(torch, fn, stages, what, tries=3, wrapper=None):
     """The CUDA kernels one call of ``fn`` launches (``graph_kernels``),
     held to the design's ``stages`` in order (each a part of its kernel's
     name): (their count, {stage: device ms}).  The times come from
     ``profiled_kernels``; in a long run the profiler at times records no
     device activity for several sessions in a row (cause not found), so it
-    is tried ``tries`` times, and then each time is None (not measured)."""
+    is tried ``tries`` times; then, for a ``wrapper`` that can mark its
+    launches, from CUDA events between them (``evented_launches``), else
+    each time is None (not measured)."""
     names = graph_kernels(torch, fn)
     check(len(names) == len(stages)
           and all(stage in name for name, stage in zip(names, stages)),
@@ -1829,6 +1852,12 @@ def launched_kernels(torch, fn, stages, what, tries=3):
         if traced is not None:
             break
     if traced is None or len(traced) != len(names):
+        if wrapper is not None:
+            times = evented_launches(torch, fn, wrapper, len(names))
+            log(f"  {what}: the profiler recorded {traced!r} for a call of "
+                f"{len(names)} kernels; device times from CUDA events "
+                f"between the launches")
+            return len(names), dict(zip(stages, times))
         log(f"  {what}: the profiler recorded {traced!r} for a call of "
             f"{len(names)} kernels; their device times not measured")
         return len(names), {stage: None for stage in stages}
@@ -2949,8 +2978,9 @@ def ssd_bwd_bound(b, s, h, p, n, chunk):
 
 
 def time_flash_bwd(torch, ref, flash, flash_bwd, label, b, h, kv, s, d,
-                   name, window):
-    """At a training shape (causal, sq = sk = s): the backward kernel (a
+                   name, window, causal=True):
+    """At a training shape (sq = sk = s; causal, or with ``causal`` False
+    every key, as Whisper's encoder): the backward kernel (a
     CUDA graph's replay: device ms; and eager), the forward kernel with
     its log-sum-exp, the plain backward version, the plain recompute (the
     backward route before the kernel: autograd of the plain forward, run
@@ -2965,13 +2995,13 @@ def time_flash_bwd(torch, ref, flash, flash_bwd, label, b, h, kv, s, d,
     q, k, v = flash_inputs(b, h, kv, s, s, d, dtype, rng)
     g = torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32)
                         ).to("cuda", dtype)
-    out, lse = flash(q, k, v, True, window, with_lse=True)
-    grads = flash_bwd(q, k, v, out, lse, g, True, window)
-    again = flash_bwd(q, k, v, out, lse, g, True, window)
+    out, lse = flash(q, k, v, causal, window, with_lse=True)
+    grads = flash_bwd(q, k, v, out, lse, g, causal, window)
+    again = flash_bwd(q, k, v, out, lse, g, causal, window)
     repeats = all(torch.equal(a, r) for a, r in zip(grads, again))
     del again
-    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=True,
-                                        window=window)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g,
+                                        causal=causal, window=window)
     err = max((a.float() - e.float()).abs().max().item()
               for a, e in zip(grads, plain))
     scaled = max(grad_scaled_err(a, e) for a, e in zip(grads, plain))
@@ -2985,35 +3015,36 @@ def time_flash_bwd(torch, ref, flash, flash_bwd, label, b, h, kv, s, d,
     check(scaled <= tol, f"flash_attention_bwd at {label} {name}: scaled "
           f"error {scaled} against the plain backward > {tol}")
     del grads, plain
-    bound, bound_by, bound_tc = flash_bwd_bound(b, h, kv, s, s, d, True,
+    bound, bound_by, bound_tc = flash_bwd_bound(b, h, kv, s, s, d, causal,
                                                 window, q.element_size())
     timed = {"shape": {"label": label, "b": b, "h": h, "kv": kv, "sq": s,
-                       "sk": s, "d": d, "causal": True, "window": window,
+                       "sk": s, "d": d, "causal": causal, "window": window,
                        "dtype": name},
              "max_abs_err_timed": err, "max_scaled_err_timed": scaled,
              "bound_ms": bound, "bound_by": bound_by,
              "bound_tc_ms": bound_tc}
 
     def bwd():
-        return flash_bwd(q, k, v, out, lse, g, True, window)
+        return flash_bwd(q, k, v, out, lse, g, causal, window)
 
     def recompute():
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in (q, k, v)]
-            plain_out = ref.flash_attention_ref(*inputs, causal=True,
+            plain_out = ref.flash_attention_ref(*inputs, causal=causal,
                                                 window=window)
             return torch.autograd.grad(plain_out, inputs, g)
     timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
         launched_kernels(torch, bwd, ("flash_bwd_rows", "flash_bwd_dkdv",
                                       "flash_bwd_dq"),
-                         f"flash_attention_bwd {label} {name}"))
+                         f"flash_attention_bwd {label} {name}",
+                         wrapper=flash_bwd))
     timed["ms"] = time_ms(bwd, warmup=3, launches=20, graph=True)
     timed["eager_ms"] = time_ms(bwd, warmup=3, launches=20, graph=False)
-    timed["fwd_ms"] = time_ms(lambda: flash(q, k, v, True, window,
+    timed["fwd_ms"] = time_ms(lambda: flash(q, k, v, causal, window,
                                             with_lse=True),
                               warmup=3, launches=20, graph=True)
     timed["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, lse, g, causal=True, window=window), warmup=1,
+        q, k, v, out, lse, g, causal=causal, window=window), warmup=1,
         launches=3, repeats=3, graph=False)
     timed["recompute_ms"] = time_ms(recompute, warmup=1, launches=3,
                                     repeats=3, graph=False)
@@ -3030,7 +3061,8 @@ def time_flash_bwd(torch, ref, flash, flash_bwd, label, b, h, kv, s, d,
                   for t in (lk, lv))
         lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
-                                              is_causal=mask is None)
+                                              is_causal=causal
+                                              and mask is None)
         lg = g.to(lib_dtype)
         timed[f"{lib_name}_ms"] = time_ms(
             lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
@@ -3038,7 +3070,8 @@ def time_flash_bwd(torch, ref, flash, flash_bwd, label, b, h, kv, s, d,
             warmup=3, launches=20, graph=False)
         del lq, lk, lv, lout
     log(f"  flash_attention_bwd at {label} (b {b}, h {h}, kv {kv}, s {s}, d "
-        f"{d}, causal, window {window}, {name}): backward kernel "
+        f"{d}, {'causal' if causal else 'every key'}, window {window}, "
+        f"{name}): backward kernel "
         f"{timed['ms']:.4f} ms (eager {timed['eager_ms']:.4f}), forward "
         f"kernel {timed['fwd_ms']:.4f}, plain backward "
         f"{timed['plain_ms']:.3f}, plain recompute "
@@ -3058,7 +3091,7 @@ def time_ssd_bwd(torch, ref, ssd, ssd_bwd, cfg):
     the plain backward version and the plain recompute; no single PyTorch
     call computes the SSD scan's backward.  The kernel's grads must be
     within GRAD_TOL of the plain backward's largest magnitude, and a repeat
-    bit-equal.  One call must launch the design's six CUDA kernels once
+    bit-equal.  One call must launch the design's five CUDA kernels once
     each, in order."""
     ssm = cfg.ssm
     b, s = TRAIN_ZAMBA_SHAPE
@@ -3109,9 +3142,9 @@ def time_ssd_bwd(torch, ref, ssd, ssd_bwd, cfg):
             return torch.autograd.grad((y, final), inputs, (gy, gf))
     timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
         launched_kernels(torch, bwd, ("ssd_bwd_local", "ssd_bwd_pass",
-                                      "ssd_bwd_rows", "ssd_bwd_cols",
-                                      "ssd_bwd_dt", "ssd_bwd_sum"),
-                         "ssd_scan_bwd"))
+                                      "ssd_bwd_pairs", "ssd_bwd_dt",
+                                      "ssd_bwd_sum"),
+                         "ssd_scan_bwd", wrapper=ssd_bwd))
     timed["ms"] = time_ms(bwd, warmup=3, launches=20, graph=True)
     timed["eager_ms"] = time_ms(bwd, warmup=3, launches=20, graph=False)
     timed["fwd_ms"] = time_ms(lambda: ssd(x, dt, A, B, C, chunk, None,
@@ -3244,7 +3277,11 @@ def kernel_grads(torch, kernels, zamba):
         time_flash_bwd(torch, ref, flash, flash_bwd, "qwen3_1_7b", db,
                        dense.num_heads, dense.num_kv_heads, ds,
                        dense.head_dim, name, dense.sliding_window)
-        for name in ("float32", "bfloat16")]
+        for name in ("float32", "bfloat16")] + [
+        time_flash_bwd(torch, ref, flash, flash_bwd, label, b_, h, kv, sq,
+                       d, "float32", None, causal=False)
+        for label, b_, h, kv, sq, sk, d, causal, _ in FLASH_ZOO
+        if label == "whisper_encoder"]
     torch.cuda.empty_cache()
     out["ssd_scan_bwd_timed"] = time_ssd_bwd(torch, ref, ssd, ssd_bwd, zamba)
     torch.cuda.empty_cache()
@@ -6221,9 +6258,9 @@ def main() -> int:
     phase("phase 1: build")
     t0 = time.monotonic()
     # Every nvcc starts here, together.  The backward kernels' libraries
-    # (the SSD's has 32 heavy entries and takes ~90 s) finish in a thread
-    # while phases 2-12, which launch none of them, run; phase 13 waits
-    # for them.  The thread is not a daemon, so a run that fails earlier
+    # (the flash backward's 18 entries and the SSD's 22, ~70 s together)
+    # finish in a thread while phases 2-12, which launch none of them,
+    # run; phase 13 waits for them.  The thread is not a daemon, so a run that fails earlier
     # still waits for its compilers before it exits.
     backward = {}
 
@@ -6354,17 +6391,30 @@ def main() -> int:
     if "error" in backward:
         raise backward["error"]
     report.update(backward["report"])
-    bwd_usage = {}
+    bwd_usage, bwd_hgmma = {}, {}
     for name in ("flash_attention_bwd", "ssd_scan_bwd"):
+        short = r"(?:flash|ssd)_bwd_[a-z]+_kernel(?:I\w+?EE)?"
         bwd_usage[name] = {
-            re.search(r"(?:flash|ssd)_bwd_[a-z]+_kernel(?:I\w+?EE)?",
-                      entry).group(0): usage
+            re.search(short, entry).group(0): usage
             for entry, usage in ptxas_usage(report[name]["log"]).items()}
+        counts = sass_counts(build.library_path(name), "HGMMA")
+        bwd_hgmma[name] = None if counts is None else {
+            re.search(short, entry).group(0): lines
+            for entry, lines in counts.items() if re.search(short, entry)}
         log(f"  {name}: nvcc {report[name]['seconds']:.2f} s (beside phases "
-            f"2-12); entries (ptxas): " + "; ".join(
+            f"2-12); entries (ptxas; HGMMA lines in SASS): " + "; ".join(
                 f"{entry} {usage.get('registers')} registers, "
-                f"{usage.get('spill_store_bytes', 0)} B spilled"
+                f"{usage.get('spill_store_bytes', 0)} B spilled, HGMMA "
+                f"{'not measured' if bwd_hgmma[name] is None else bwd_hgmma[name].get(entry)}"
                 for entry, usage in sorted(bwd_usage[name].items())))
+    # every entry of the flash backward's main launch runs on wgmma
+    main_entries = {entry: lines for entry, lines in
+                    (bwd_hgmma["flash_attention_bwd"] or {}).items()
+                    if "flash_bwd_dkdv" in entry}
+    check(bwd_hgmma["flash_attention_bwd"] is None
+          or (len(main_entries) == 8
+              and all(lines > 0 for lines in main_entries.values())),
+          f"flash_attention_bwd: entries without HGMMA: {main_entries}")
     grads = kernel_grads(torch, kernels, zamba)
 
     phase(f"phase 14: the transformer policy learns Catch on the card — "
@@ -6614,7 +6664,8 @@ def main() -> int:
             (kernels[4], grads["flash_attention_bwd_timed"],
              grads["flash_attention_bwd_worst"],
              {"library_bf16_ms": flash_bwd_main["library_bf16_ms"],
-              "qwen3_1_7b_d128": grads["flash_attention_bwd_timed"][1:],
+              "qwen3_1_7b_d128": grads["flash_attention_bwd_timed"][1:3],
+              "whisper_encoder": grads["flash_attention_bwd_timed"][3],
               "differentiates": "src/repro/kernels/ref.py:10"}),
             (kernels[5], [ssd_bwd_main], grads["ssd_scan_bwd_worst"],
              {"differentiates": "src/repro/models/ssm.py:82"})):
@@ -6643,6 +6694,7 @@ def main() -> int:
             "device_ms_by_kernel": main_shape["device_ms_by_kernel"],
             "build_seconds": report[name]["seconds"],
             "ptxas": bwd_usage[name],
+            "hgmma_sass_lines": bwd_hgmma[name],
             "shape": main_shape["shape"],
             "grad_path_launches": grads["zamba2_reduced"]["launches"][name]
             + grads["q_sequence"]["launches"][name],

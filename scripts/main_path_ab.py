@@ -2,7 +2,8 @@
 card, in the order A, B, B, A, each run in a process of its own; then
 their numbers side by side.
 
-  python scripts/main_path_ab.py --a DIR --b DIR [--what main|flash_forward]
+  python scripts/main_path_ab.py --a DIR --b DIR
+                                 [--what main|flash_forward|backward]
                                  [--out FILE]
 
 ``--a`` and ``--b`` are the roots of two checkouts (for example the parent
@@ -16,7 +17,12 @@ functions' own checks hold, so a run fails as the phase would.  What runs:
 - ``flash_forward``: phase 5's flash attention forward rows,
   ``time_flash``, ``time_flash_policy`` and ``time_flash_zoo`` (each call
   against the plain version): device ms (a CUDA graph's replay) and eager
-  ms at the main paths' shapes.
+  ms at the main paths' shapes;
+- ``backward``: phase 13's timed backward shapes, ``time_flash_bwd`` at
+  Zamba2's training shape (f32, d 64) and qwen3-1.7b's (d 128, f32 and
+  bf16), ``time_ssd_bwd`` at Zamba2's, and the flash backward over every
+  key at Whisper's encoder shape (f32, d 64; timed here by one function for
+  both checkouts): device ms and eager ms.
 
 The records go to ``--out`` (JSON) and the table to standard output, with
 the card's name and power limit.
@@ -92,6 +98,59 @@ for name, row in timed.items():
     rows[f"{name} ms"] = row["ms"]
     rows[f"{name} eager ms"] = row["eager_ms"]
 print("AB_RESULT " + json.dumps({"seconds": {"flash rows":
+                                             time.monotonic() - t0},
+                                 "rows": rows}))
+""", "backward": PRELUDE + r"""
+build.build(["flash_attention", "flash_attention_bwd", "ssd_scan",
+             "ssd_scan_bwd"])
+flash = flash_attention.flash_attention
+flash_bwd = flash_attention.flash_attention_bwd
+zamba = configs.get_arch(chip_smoke.ZAMBA)
+dense = configs.get_arch(chip_smoke.TRAIN_DENSE)
+b, s = chip_smoke.TRAIN_ZAMBA_SHAPE
+db, ds = chip_smoke.TRAIN_DENSE_SHAPE
+t0 = time.monotonic()
+timed = {"flash zamba2_train float32": chip_smoke.time_flash_bwd(
+    torch, ref, flash, flash_bwd, "zamba2_train", b, zamba.num_heads,
+    zamba.num_kv_heads, s, zamba.head_dim, "float32", zamba.sliding_window)}
+for name in ("float32", "bfloat16"):
+    timed[f"flash qwen3_1_7b {name}"] = chip_smoke.time_flash_bwd(
+        torch, ref, flash, flash_bwd, "qwen3_1_7b", db, dense.num_heads,
+        dense.num_kv_heads, ds, dense.head_dim, name, dense.sliding_window)
+timed["ssd zamba2_train float32"] = chip_smoke.time_ssd_bwd(
+    torch, ref, ssd_scan.ssd_scan, ssd_scan.ssd_scan_bwd, zamba)
+
+
+def every_key(b, h, kv, s, d):
+    # attention over every key, timed by the same code in both checkouts;
+    # the grads held to the plain backward at GRAD_TOL and a repeat
+    rng = chip_smoke.np.random.RandomState(chip_smoke.SEED + 32)
+    q, k, v = chip_smoke.flash_inputs(b, h, kv, s, s, d, torch.float32, rng)
+    g = torch.as_tensor(rng.randn(b, h, s, d).astype("float32")).cuda()
+    out, lse = flash(q, k, v, False, None, with_lse=True)
+    grads = flash_bwd(q, k, v, out, lse, g, False, None)
+    again = flash_bwd(q, k, v, out, lse, g, False, None)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=False)
+    scaled = max(chip_smoke.grad_scaled_err(a, e)
+                 for a, e in zip(grads, plain))
+    assert all(torch.equal(a, r) for a, r in zip(grads, again))
+    assert scaled <= chip_smoke.GRAD_TOL, scaled
+
+    def bwd():
+        return flash_bwd(q, k, v, out, lse, g, False, None)
+    return {"ms": chip_smoke.time_ms(bwd, warmup=3, launches=20, graph=True),
+            "eager_ms": chip_smoke.time_ms(bwd, warmup=3, launches=20,
+                                           graph=False)}
+
+
+for label, b_, h, kv, sq, sk, d, causal, _ in chip_smoke.FLASH_ZOO:
+    if label == "whisper_encoder":
+        timed[f"flash {label} float32"] = every_key(b_, h, kv, sq, d)
+rows = {}
+for name, row in timed.items():
+    rows[f"{name} ms"] = row["ms"]
+    rows[f"{name} eager ms"] = row["eager_ms"]
+print("AB_RESULT " + json.dumps({"seconds": {"backward rows":
                                              time.monotonic() - t0},
                                  "rows": rows}))
 """}

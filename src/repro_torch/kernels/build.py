@@ -104,3 +104,25 @@ def check(lib: ctypes.CDLL, code: int, what: str):
     if code != 0:
         message = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({message})")
+
+
+def mark_launches(fn, events, launches: int, what: str):
+    """Have a library's next calls record ``events`` (``launches`` + 1
+    ``torch.cuda.Event``s made with ``enable_timing``) on their stream, one
+    before each launch and one after the last, through its C setter ``fn``
+    (``repro_*_mark_launches``), so that each launch's device time can be
+    read; ``events`` None stops.  Returns what must stay referenced until
+    then (None after a stop).  The setting is one for the process and every
+    call reads it: for measurement, from one thread, and never left on."""
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = None
+    if events is None:
+        fn(None, 0)
+        return None
+    if len(events) != launches + 1:
+        raise ValueError(f"{what}: {launches + 1} events, got {len(events)}")
+    for event in events:  # torch creates an event at its first record
+        event.record()
+    handles = (ctypes.c_void_p * len(events))(*(e.cuda_event for e in events))
+    fn(handles, len(events))
+    return events, handles

@@ -20,8 +20,9 @@ bases and strides: an unaligned bf16 view raises, it is not copied.
 ``FlashAttentionFunction`` makes the kernel differentiable: its forward
 launches the forward kernel, which also writes the rows' log-sum-exp, and
 saves q, k, v, the output and the log-sum-exp; its backward launches the
-backward kernel (FlashAttention-2's: dK/dV over key tiles, dQ over query
-tiles, deterministic, with no atomics) on them.  A failed build or launch
+backward kernel (FlashAttention-2's five products on ``wgmma``: blocks over
+key tiles, dQ's parts added in the order of the key tiles; deterministic,
+with no float atomics) on them.  A failed build or launch
 raises in either; nothing falls back to the plain version.
 """
 from __future__ import annotations
@@ -160,7 +161,10 @@ flash_attention = FlashAttention()
 class FlashAttentionBwd:
     """``(q, k, v, out, lse, grad_out) -> (dq, dk, dv)`` on the card,
     counting launches; each call launches three CUDA kernels in order on
-    the current stream (the rows' D and lse, dK/dV, dQ)."""
+    the current stream: the rows' D and lse; the main kernel, whose blocks
+    each own a key tile and form S and dP once a (query tile, key tile,
+    head) for dV, dK and dQ's part, added to an f32 sum in the order of
+    the key tiles; dQ, scaled and converted."""
 
     name = "flash_attention_bwd"
 
@@ -173,13 +177,21 @@ class FlashAttentionBwd:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_flash_attention_bwd
-            fn.argtypes = ([ctypes.c_void_p] * 10
+            fn.argtypes = ([ctypes.c_void_p] * 12
                            + [ctypes.POINTER(ctypes.c_longlong)]
                            + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            lib.repro_flash_bwd_sync_ints.argtypes = [ctypes.c_int] * 3
+            lib.repro_flash_bwd_sync_ints.restype = ctypes.c_longlong
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def mark_launches(self, events=None):
+        """``build.mark_launches`` for this library's three launches."""
+        self._kernel()
+        self._marks = build.mark_launches(
+            self._lib.repro_flash_bwd_mark_launches, events, 3, self.name)
 
     def __call__(self, q, k, v, out, lse, grad_out, causal: bool = True,
                  window=None):
@@ -211,9 +223,14 @@ class FlashAttentionBwd:
                               device=q.device).transpose(1, 2)
                   for _ in range(2))
         # scratch, written before it is read: each row's lse in log2 units
-        # and D = rowsum(grad_out * out)
+        # and D = rowsum(grad_out * out); dQ's f32 sum over the key tiles;
+        # the work ticket and one counter a (batch row, head, query tile)
         rows = torch.empty((2, b, h, sq), dtype=torch.float32,
                            device=q.device)
+        dq_acc = torch.empty((b, h, sq, d), dtype=torch.float32,
+                             device=q.device)
+        sync = torch.empty((self._lib.repro_flash_bwd_sync_ints(b, h, sq),),
+                           dtype=torch.int32, device=q.device)
         strides = (ctypes.c_longlong * 24)(
             *(t.stride(i) for t in (q, k, v, out, grad_out, dq, dk, dv)
               for i in range(3)))
@@ -222,7 +239,8 @@ class FlashAttentionBwd:
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      rows.data_ptr(), strides, b, h, kv, sq, sk, d,
+                      rows.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(),
+                      strides, b, h, kv, sq, sk, d,
                       int(bool(causal)), int(window or 0), _DTYPES[q.dtype],
                       d ** -0.5, stream)
         build.check(self._lib, code, "flash_attention_bwd launch")

@@ -9,8 +9,8 @@ the plain version in ``ref.py``.  ``ssd_scan.launches`` and
 its Mamba2 layers, and their gradients, went through the kernels.  A
 forward call launches four CUDA kernels in order on the current stream
 (cumulative sums and scores, chunk states, state passing, chunk scan), a
-backward call six (local states, state passing backwards, rows, columns,
-dt, the sums over heads).  Unlike the Pallas kernel the forward also takes
+backward call five (local states, state passing backwards, the tile pairs,
+dt, the sums).  Unlike the Pallas kernel the forward also takes
 an initial state and returns the final one, so the model's
 ``ssd_chunked`` maps onto it whole.
 
@@ -18,8 +18,10 @@ an initial state and returns the final one, so the model's
 the forward kernel and keeps the scratch the backward reuses (the f64
 cumulative sums, the scores C.B^T and the states entering each chunk);
 its backward launches the backward kernel on them, for both outputs (y and
-the final state) and for h0 when it was given.  The gradients are
-deterministic (no atomics).  A failed build or launch raises in either;
+the final state) and for h0 when it was given.  The backward runs the
+products the function needs and no others: dW = dy x^T once a head and
+tile pair, dG summed over each group of eight heads before its products
+with B and C.  The gradients are deterministic (no atomics).  A failed build or launch raises in either;
 nothing falls back to the plain version.
 """
 from __future__ import annotations
@@ -71,10 +73,13 @@ class SSDScan:
         CUDA device.  Returns (y (b, s, h, p), final_state (b, h, n, p)),
         both float32; with ``keep``, (y, final_state, scratch): the f64
         cumulative sums, the scores and the entering states, which the
-        backward reads."""
+        backward reads; it raises first, before any launch, if the
+        backward kernel has no entry for this head_dim and d_state."""
         _check(x, dt, A, B, C, chunk, h0, "ssd_scan")
         b, s, h, p = x.shape
         n = B.shape[-1]
+        if keep:
+            ssd_scan_bwd.require_built(p, n)
 
         fn = self._kernel()
         y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -150,7 +155,10 @@ ssd_scan = SSDScan()
 class SSDScanBwd:
     """``(x, dt, A, B, C, h0, scratch, grad_y, grad_final, chunk) -> (dx,
     ddt, dA, dB, dC, dh0)`` on the card, counting launches; each call
-    launches six CUDA kernels in order on the current stream."""
+    launches five CUDA kernels in order on the current stream: local
+    states, state passing backwards, the tile pairs (dx, and dG summed over
+    each group of heads), dt, and the sums (dB, dC once for all heads from
+    the groups' dG, and dA)."""
 
     name = "ssd_scan_bwd"
 
@@ -163,13 +171,30 @@ class SSDScanBwd:
         if self._fn is None:
             lib = build.load(self.name)
             fn = lib.repro_ssd_scan_bwd
-            fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [
+            fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            lib.repro_ssd_bwd_pass_blocks.argtypes = [ctypes.c_int] * 2
-            lib.repro_ssd_bwd_pass_blocks.restype = ctypes.c_int
+            lib.repro_ssd_bwd_scratch.argtypes = [ctypes.c_int] * 7
+            lib.repro_ssd_bwd_scratch.restype = ctypes.c_longlong
+            lib.repro_ssd_bwd_built.argtypes = [ctypes.c_int] * 2
+            lib.repro_ssd_bwd_built.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def require_built(self, p: int, n: int):
+        """Raise unless the library holds an entry for head_dim ``p`` and
+        d_state ``n``: it is built for the port's models' and tests' shapes
+        only (``repro_ssd_bwd_built``)."""
+        self._kernel()
+        if not self._lib.repro_ssd_bwd_built(p, n):
+            raise ValueError(f"{self.name}: no kernel built for head_dim "
+                             f"{p} and d_state {n}")
+
+    def mark_launches(self, events=None):
+        """``build.mark_launches`` for this library's five launches."""
+        self._kernel()
+        self._marks = build.mark_launches(
+            self._lib.repro_ssd_bwd_mark_launches, events, 5, self.name)
 
     def __call__(self, x, dt, A, B, C, h0, scratch, grad_y, grad_final,
                  chunk: int = 256):
@@ -204,23 +229,18 @@ class SSDScanBwd:
         dA = torch.empty((h,), dtype=torch.float32, device=dev)
         dh0 = None if h0 is None else torch.empty_like(h0)
         # scratch, written before it is read: dS' of every chunk, <S, dS'>
-        # and dt . d.a per chunk, four per-step terms of d.cum, and the
-        # per-head parts of dB and dC
-        f32 = dict(dtype=torch.float32, device=dev)
-        d_states = torch.empty((b, nc, h, n, p), **f32)
-        inner = torch.empty(
-            (b, nc, h, self._lib.repro_ssd_bwd_pass_blocks(n, p)), **f32)
-        dA_part = torch.empty((b, nc, h), **f32)
-        terms = torch.empty((4, b, s, h), **f32)
-        dB_part = torch.empty((b, s, h, n), **f32)
-        dC_part = torch.empty((b, s, h, n), **f32)
+        # per chunk, three per-step terms of d.cum, R's row sums a tile
+        # pair, dG^T summed over each group of heads a tile pair, the heads'
+        # state terms of dB and dC, and dt . d.a per chunk
+        scratch = [torch.empty(
+            (self._lib.repro_ssd_bwd_scratch(which, b, s, h, p, n, chunk),),
+            dtype=torch.float32, device=dev) for which in range(7)]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = fn(*(t.data_ptr() for t in (
                 x, dt, A, B, C, cum, scores, states, grad_y, grad_final, dx,
                 ddt, dA, dB, dC)), None if dh0 is None else dh0.data_ptr(),
-                *(t.data_ptr() for t in (d_states, inner, terms, dB_part,
-                                         dC_part, dA_part)),
+                *(t.data_ptr() for t in scratch),
                 b, s, h, p, n, chunk, _DTYPES[x.dtype], stream)
         build.check(self._lib, code, "ssd_scan_bwd launch")
         with self._lock:

@@ -1294,13 +1294,16 @@ def test_reduced_zamba2_grads_through_the_kernels_match_the_plain_route(
 
 
 # The backward kernels alone: (b, h, kv, sq, sk, d, causal, window); the
-# last has rows that see no key (sq 300 past sk 100 + window 64).
+# sixth has rows that see no key (sq 300 past sk 100 + window 64); the
+# last runs dQ's ordered sums over 32 key tiles of 32 (f32) or 16 of 64
+# (bf16) for each of 16 query tiles and 8 heads.
 FLASH_BWD_CASES = [(2, 4, 4, 256, 256, 64, True, None),
                    (2, 8, 2, 200, 200, 64, True, 48),
                    (2, 4, 2, 100, 300, 32, False, None),
                    (1, 4, 2, 129, 129, 128, True, None),
                    (2, 4, 2, 100, 100, 16, True, 8),
-                   (1, 2, 2, 300, 100, 64, True, 64)]
+                   (1, 2, 2, 300, 100, 64, True, 64),
+                   (1, 8, 2, 1024, 1024, 128, True, None)]
 GRAD_BF16_TOL = 2e-2
 
 
@@ -1350,6 +1353,33 @@ def test_flash_backward_kernel_matches_plain_version(cuda_device, b, h, kv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_one_query_and_one_key(cuda_device, causal, dtype):
+    """sq = sk = 1: P is 1, so dS = P (dP - D) is 0 in exact arithmetic;
+    dq and dk are rounding around 0 in the kernel and in the plain version
+    alike, and dv is grad_out.  The error is scaled by the largest |grad|
+    plus 1 (the inputs' scale): over a largest |grad| near 0 alone it would
+    measure the rounding, not the kernel."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v = _flash_inputs(2, 1, 1, 1, 1, 64, dtype, cuda_device, seed=5)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda_device, dtype)
+    out, lse = flash_attention(q, k, v, causal, None, with_lse=True)
+    grads = flash_attention_bwd(q, k, v, out, lse, g, causal, None)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    tol = GRAD_TOL if dtype == torch.float32 else GRAD_BF16_TOL
+    for a, e in zip(grads, plain):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        assert ((a.float() - e.float()).abs().max()
+                / (e.float().abs().max() + 1.0)).item() <= tol
+    torch.testing.assert_close(grads[2].float(), g.float(), atol=tol,
+                               rtol=0)
+
+
+@pytest.mark.cuda
 def test_flash_backward_rows_that_see_no_key(cuda_device):
     """Rows whose band ends before the first key weigh every key 1/sk in
     the forward: their grad_out reaches dV as grad_out / sk and nothing
@@ -1370,9 +1400,29 @@ def test_flash_backward_rows_that_see_no_key(cuda_device):
     torch.testing.assert_close(dv, expected, atol=1e-5, rtol=1e-5)
 
 
+# (b, s, h, p, n, chunk); the last has 20 heads: groups of 8, 8 and 4,
+# whose dG the backward sums before its products with B and C
 SSD_BWD_CASES = [(1, 256, 2, 32, 16, 64), (2, 512, 4, 64, 64, 256),
                  (1, 300, 3, 16, 24, 100), (2, 512, 4, 64, 128, 256),
-                 (1, 512, 2, 128, 128, 128)]
+                 (1, 512, 2, 128, 128, 128), (1, 512, 20, 64, 64, 256)]
+
+
+@pytest.mark.cuda
+def test_ssd_forward_for_training_raises_where_no_backward_is_built(
+        cuda_device):
+    """The backward library holds the port's (head_dim, state width)
+    entries only; a forward that keeps its scratch for a backward at
+    another shape (p 128 with d_state 32) raises before it launches, and
+    the same forward without ``keep`` runs."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    (x, dt, A, B, C), _ = _ssd_inputs(1, 256, 2, 128, 32, cuda_device)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="no kernel built"):
+        ssd_scan(x, dt, A, B, C, 64, None, keep=True)
+    assert ssd_scan.launches == before
+    ssd_scan(x, dt, A, B, C, 64, None)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
 
 
 @pytest.mark.cuda
