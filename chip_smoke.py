@@ -815,6 +815,25 @@ SSD_PATH_TOL = 1e-4       # at the path's shape (see phase 2 above)
 # chunks, the ragged chunk 100 and d_state 128 over two state tiles:
 # (label, b, s, h, p, n, chunk)
 FLASH_EDGES = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 257, 385]
+# phase 2, the persistent bf16 route (one block an SM walks work items of
+# 128 query rows of one head): fewer items than SMs, more (ragged sq, GQA
+# 6:1, sq != sk), windows that end inside a key tile, the model's strided
+# views: (label, b, h, kv, sq, sk, d)
+FLASH_PERSISTENT = [("one_item", 1, 1, 1, 1, 1, 128),
+                    ("few_items", 1, 2, 1, 129, 129, 64),
+                    ("items_288", 2, 48, 8, 300, 300, 128),
+                    ("items_576", 3, 24, 8, 1000, 1000, 64),
+                    ("sq_lt_sk", 2, 16, 8, 200, 700, 128),
+                    ("sq_gt_sk", 2, 12, 2, 700, 200, 32)]
+# phase 2, decode's cluster design: (b, kv, s, d) one key either side of
+# the most splits one cluster holds (s 511 and 512: 8 splits; 513: 9, the
+# combine launch) and of a tile boundary of the serving plan (s 383, 384
+# and 385 at b 8, kv 8, d 128), every group size at d 128 and every head
+# dim at the serving group (6), in all three dtype pairs; the whole group x
+# head dim grid is in tests/test_torch_cuda.py
+DECODE_CLUSTER_EDGES = [(7, 1, 511, 64), (7, 1, 512, 64), (7, 1, 513, 64),
+                        (8, 8, 383, 128), (8, 8, 384, 128), (8, 8, 385, 128)]
+DECODE_GROUPS = [1, 2, 3, 4, 5, 6, 7, 8, 12]
 FLASH_BF16_EDGES = [1, 65, 129, 257, 385]
 FLASH_TF32_WGMMA_EDGES = [1, 31, 32, 33, 63, 64, 65, 129]
 FLASH_WINDOWS = [65, 100, 130]
@@ -990,7 +1009,8 @@ def check_decode_attention(kernel, ref, torch, plan_splits, head_dims):
             err = (out.float() - expected.float()).abs().max().item()
             worst[name] = max(worst[name], err)
             log(f"  decode_attention {label:8s} b={b:<3d} h={h:<2d} kv={kv} "
-                f"s={s:<5d} d={d:<3d} splits={plan_splits(b, kv, s, d)[0]:<3d}"
+                f"s={s:<5d} d={d:<3d} "
+                f"splits={plan_splits(b, kv, s, d, dtype)[0]:<3d}"
                 f" {name:8s} max_abs_err={err:.3e}")
             check(err <= TOL[name], f"decode_attention {label} {name}: "
                   f"max_abs_err {err} > {TOL[name]}")
@@ -1023,6 +1043,7 @@ def check_decode_mixed(kernel, ref, torch, plan_splits):
     No cache-sized buffer may be allocated: the bytes a call requests from
     the allocator must be its output and the split plan's partials, which
     at s >= 384 stay below one layer's K and V."""
+    from repro_torch.kernels.decode_attention import CLUSTER_MAX
     rng = np.random.RandomState(SEED + 24)
     cases = [(b, 2 * group, 2, s, d)
              for b in (1, 8) for s in (1, 384, 1500)
@@ -1037,9 +1058,9 @@ def check_decode_mixed(kernel, ref, torch, plan_splits):
         q, k, v, lens = decode_inputs(b, h, kv, s, d, lengths, torch.float32,
                                       rng)
         k, v = k.bfloat16(), v.bfloat16()
-        splits = plan_splits(b, kv, s, d)[0]
+        splits = plan_splits(b, kv, s, d, q.dtype, k.dtype)[0]
         needed = 4 * (q.numel() + (splits * b * h * (d + 2)
-                                   if splits > 1 else 0))
+                                   if splits > CLUSTER_MAX else 0))
         cache_bytes = 2 * k.numel() * k.element_size()
         out, rise = requested_rise(torch, lambda: kernel(q, k, v, lens))
         expected = ref.decode_attention_ref(q, k.float(), v.float(), lens)
@@ -1064,6 +1085,51 @@ def check_decode_mixed(kernel, ref, torch, plan_splits):
             "max_requested_bytes": worst_rise}
 
 
+def check_decode_edges(kernel, ref, torch, plan_splits):
+    """The cluster design's edges in all three dtype pairs (``PAIRS``):
+    caches one key either side of the most splits a cluster holds and of
+    the serving plan (DECODE_CLUSTER_EDGES), lengths at the splits' edges;
+    every group size (DECODE_GROUPS, 12 in two head blocks) at d 128 and
+    every head dim at a group of 6; each call repeated bit-equal, and a
+    call at another plan between them.  Returns the worst error per q
+    dtype."""
+    from repro_torch.kernels.decode_attention import HEAD_DIMS, PAIRS
+    rng = np.random.RandomState(SEED + 28)
+    cases = [(b, 4 * kv, kv, s, d) for b, kv, s, d in DECODE_CLUSTER_EDGES]
+    cases += [(8, 2 * group, 2, 300, 128) for group in DECODE_GROUPS]
+    cases += [(8, 12, 2, 300, d) for d in HEAD_DIMS if d != 128]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    other = decode_inputs(4, 8, 2, 1000, 32, edge_lengths(4, 1000, 256, rng),
+                          torch.float32, rng)
+    for q_dtype, kv_dtype in PAIRS:
+        name = str(q_dtype).split(".")[-1]
+        for b, h, kv, s, d in cases:
+            splits, keys = plan_splits(b, kv, s, d, q_dtype, kv_dtype)
+            q, k, v, lens = decode_inputs(b, h, kv, s, d,
+                                          edge_lengths(b, s, keys, rng),
+                                          torch.float32, rng)
+            q, k, v = q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+            first = kernel(q, k, v, lens)
+            kernel(*other)
+            again = kernel(q, k, v, lens)
+            torch.cuda.synchronize()
+            expected = ref.decode_attention_ref(q, k, v, lens)
+            err = (first.float() - expected.float()).abs().max().item()
+            label = (f"decode_attention edge b={b} h={h} kv={kv} s={s} d={d}"
+                     f" splits={splits} q {name} cache "
+                     f"{str(kv_dtype).split('.')[-1]}")
+            check(first.dtype == q.dtype and bool(torch.isfinite(first).all())
+                  and err <= TOL[name], f"{label}: max_abs_err {err}")
+            check(torch.equal(first, again),
+                  f"{label}: a repeat call is not bit-equal")
+            worst[name] = max(worst[name], err)
+        log(f"  decode_attention q {name}, cache "
+            f"{str(kv_dtype).split('.')[-1]}: {len(cases)} cluster and "
+            f"group edges, worst max_abs_err={worst[name]:.3e}; repeats "
+            f"bit-equal")
+    return worst
+
+
 def time_decode_attention(kernel, ref, torch, plan_splits, b, s,
                           lengths_value):
     """``time_decode_shape`` at the served policy's head layout."""
@@ -1077,11 +1143,13 @@ def time_decode_shape(kernel, ref, torch, plan_splits, b, h, kv, s, d,
     """Kernel, plain version and scaled_dot_product_attention (the library
     yardstick, never called by the port) on random inputs of one shape, q
     in ``dtype`` and K/V in ``kv_dtype`` (default ``dtype``), and the CUDA
-    kernels one call launches, counted by torch.profiler: the split plan's
-    one, or two when it cuts the cache.  The library call takes one dtype:
+    kernels one call launches, counted by torch.profiler: one, the block
+    kernel of q's dtype, or two when the split plan outgrows a cluster
+    (``decode_attention.kernel_names``).  The library call takes one dtype:
     under a bfloat16 cache and float32 queries it gets the cache upcast to
     float32 (prepared outside the timed region)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel_names
     kv_dtype = kv_dtype or dtype
     rng = np.random.RandomState(SEED + 1)
     lengths = np.full((b,), lengths_value, np.int32)
@@ -1103,14 +1171,13 @@ def time_decode_shape(kernel, ref, torch, plan_splits, b, h, kv, s, d,
         "library_": lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True),
     }
-    splits = plan_splits(b, kv, s, d)[0]
+    splits = plan_splits(b, kv, s, d, q.dtype, k.dtype)[0]
     timed = {"shape": {"b": b, "h": h, "kv": kv, "s": s, "d": d,
                        "lengths": int(lengths_value), "dtype": dtype,
                        "kv_dtype": kv_dtype, "splits": splits},
              "max_abs_err_timed": err, "bound_ms": bound,
              "bound_by": bound_by}
-    stages = ["decode_split_kernel"] + (
-        ["decode_combine_kernel"] if splits > 1 else [])
+    stages = kernel_names(q.dtype, k.dtype, b, kv, s, d)
     timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
         launched_kernels(torch, calls[""], stages, "decode_attention"))
     for prefix, fn in calls.items():
@@ -1420,6 +1487,45 @@ def check_flash_edges(kernel, ref, torch, rng):
     return worst
 
 
+def check_flash_persistent(kernel, ref, torch, rng):
+    """The persistent bf16 route (FLASH_PERSISTENT): fewer work items than
+    SMs and more, ragged sq, sq != sk, causal with windows that end inside
+    a key tile and not, on the model's strided views, with the rows'
+    log-sum-exp against the plain version's; each call repeated
+    bit-equal.  Returns the worst error."""
+    worst = 0.0
+    for label, b, h, kv, sq, sk, d in FLASH_PERSISTENT:
+        model = [torch.as_tensor(rng.randn(b, s, heads, d).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+            for s, heads in ((sq, h), (sk, kv), (sk, kv))]
+        q, k, v = (t.transpose(1, 2) for t in model)
+        for causal, window in ((True, None), (True, 65), (True, 100),
+                               (False, None)):
+            out, lse = kernel(q, k, v, causal, window, with_lse=True)
+            again = kernel(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            expected = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+            lse_ref = ref.flash_attention_lse_ref(q, k, causal=causal,
+                                                  window=window)
+            err = (out.float() - expected.float()).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            what = (f"flash_attention persistent {label} b={b} h={h} kv={kv}"
+                    f" sq={sq} sk={sk} d={d} causal={causal:d} "
+                    f"window={window}")
+            check(bool(torch.isfinite(out).all()) and err <= TOL["bfloat16"]
+                  and lse_err <= TOL["bfloat16"],
+                  f"{what}: max_abs_err {err}, lse {lse_err}")
+            check(torch.equal(out, again), f"{what}: a repeat call is not "
+                  f"bit-equal")
+            worst = max(worst, err)
+        log(f"  flash_attention persistent bf16 {label} ({-(-sq // 128) * h * b}"
+            f" work items) b={b} h={h} kv={kv} sq={sq} sk={sk} d={d}, four "
+            f"masks, strided views: max_abs_err={worst:.3e}; repeats "
+            f"bit-equal")
+    return worst
+
+
 def ptxas_usage(build_log):
     """Per kernel entry of ptxas's -v report in ``build_log``: registers,
     spill stores and loads (bytes) and static shared memory (bytes)."""
@@ -1592,11 +1698,18 @@ def check_flash_zoo(kernel, ref, torch, rng):
 
 def time_flash_zoo(kernel, ref, torch, usage=None, hgmma=None):
     """FLASH_ZOO's shapes in the path's dtype, on the model's strided
-    views: the kernel, its plain version, and scaled_dot_product_attention
-    on contiguous (b, heads, s, d) tensors with K/V repeated to the query
-    heads (the repeat made before timing; the library yardstick, never
-    called by the port).  A kernel slower than the library call is
-    reported, not failed: it orders the next kernel work.  Each row names
+    views (and, as ``contiguous_ms``, on contiguous (b, heads, s, d)
+    copies; as ``cold_l2_ms``, each call after 64 MB of other writes, so
+    its inputs come from device memory as in a model's step): the kernel,
+    its plain version, and
+    scaled_dot_product_attention (the library yardstick, never called by
+    the port) on contiguous (b, heads, s, d) tensors, twice: with K/V
+    repeated to the query heads (the repeat made before timing;
+    ``library_repeat_ms``) and on K/V as they are with ``enable_gqa=True``
+    (``library_gqa_ms``).  ``library_ms`` is the faster of the two, so
+    ``vs_library`` is the larger factor.  A kernel slower than the library
+    call is reported, not failed: it orders the next kernel work.  Each
+    row names
     the kernel's route and, from ``usage`` (``ptxas_usage``) and ``hgmma``
     (``sass_counts``), the entry's registers, spills, shared memory and
     HGMMA instructions ("not measured" without them)."""
@@ -1613,12 +1726,13 @@ def time_flash_zoo(kernel, ref, torch, usage=None, hgmma=None):
         expected = ref.flash_attention_ref(q, k, v, causal=causal)
         err = (kernel(*views, causal, None).float()
                - expected.float()).abs().max().item()
-        lib_err = (F.scaled_dot_product_attention(q, k_rep, v_rep,
-                                                  is_causal=causal).float()
-                   - expected.float()).abs().max().item()
+        lib_err = max((F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=causal, enable_gqa=gqa).float()
+            - expected.float()).abs().max().item()
+            for kk, vv, gqa in ((k_rep, v_rep, False), (k, v, True)))
         check(err <= TOL[dtypes[0]] and lib_err <= TOL[dtypes[0]],
               f"flash_attention {label}: max_abs_err {err}, the library "
-              f"call's {lib_err}")
+              f"calls' {lib_err}")
         bound, bound_by, bound_tc = flash_bound(
             b, h, kv, sq, sk, d, causal, None, q.element_size())
         timed = {"path": label,
@@ -1637,11 +1751,14 @@ def time_flash_zoo(kernel, ref, torch, usage=None, hgmma=None):
                      flash_route_entry(hgmma, route(dtype, d), d))}
         calls = {
             "": (lambda: kernel(*views, causal, None), True),
+            "contiguous_": (lambda: kernel(q, k, v, causal, None), False),
             "plain_": (lambda: ref.flash_attention_ref(q, k, v,
                                                        causal=causal),
                        False),
-            "library_": (lambda: F.scaled_dot_product_attention(
+            "library_repeat_": (lambda: F.scaled_dot_product_attention(
                 q, k_rep, v_rep, is_causal=causal), True),
+            "library_gqa_": (lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), True),
         }
         for prefix, (fn, eager) in calls.items():
             timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20)
@@ -1649,6 +1766,18 @@ def time_flash_zoo(kernel, ref, torch, usage=None, hgmma=None):
                 timed[f"eager_{prefix}ms"] = time_ms(fn, warmup=3,
                                                      launches=20,
                                                      graph=False)
+        # the kernel after 64 MB of other writes, as a model's step calls
+        # it (L2 holds 50 MB): the flush's own time taken out
+        flush = torch.empty(16 * 2 ** 20, device="cuda")
+        timed["cold_l2_ms"] = time_ms(
+            lambda: (flush.zero_(), kernel(*views, causal, None)), warmup=3,
+            launches=20) - time_ms(flush.zero_, warmup=3, launches=20)
+        del flush
+        faster = min(("library_repeat_", "library_gqa_"),
+                     key=lambda prefix: timed[f"{prefix}ms"])
+        timed["library_ms"] = timed[f"{faster}ms"]
+        timed["eager_library_ms"] = timed[f"eager_{faster}ms"]
+        timed["library_call"] = faster.rstrip("_")
         timed["vs_library"] = timed["ms"] / timed["library_ms"]
         log(f"  flash_attention at {label} {json.dumps(timed)}; "
             f"{timed['ms'] / bound:.2f}x its bound, "
@@ -2220,18 +2349,78 @@ def zamba2_batches(cfg):
             for _ in range(ZAMBA_BATCHES)]
 
 
-def profile_step(torch, step, params, batch):
+class ClockSamples:
+    """The card's SM clock (MHz) and power draw (W), sampled by
+    ``nvidia-smi -lms`` every ``period_ms`` while the block runs; the
+    sampler's first line is read before the block starts.  ``summary()``:
+    min, median and max of each over the samples, or None when nvidia-smi
+    gave none."""
+
+    def __init__(self, period_ms=20):
+        self.period_ms = period_ms
+        self.rows = []
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", f"-lms={self.period_ms}"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        first = self.proc.stdout.readline()
+        self.reader = threading.Thread(target=self._read, args=(first,),
+                                       daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self, first):
+        for line in [first, *self.proc.stdout]:
+            parts = [x.strip() for x in line.split(",")]
+            try:
+                self.rows.append((float(parts[0]), float(parts[1])))
+            except (IndexError, ValueError):
+                continue
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=10)
+        return False
+
+    def summary(self):
+        if not self.rows:
+            return None
+        clocks = sorted(r[0] for r in self.rows)
+        power = sorted(r[1] for r in self.rows)
+        return {"samples": len(self.rows),
+                "sm_clock_mhz": [clocks[0], statistics.median(clocks),
+                                 clocks[-1]],
+                "power_w": [power[0], statistics.median(power), power[-1]]}
+
+
+def profile_step(torch, step, params, batch, clock=False):
     """Device time by kernel over one scoring step, from torch.profiler,
-    and the device's idle share of the step's wall time."""
+    and the device's idle share of the step's wall time; with ``clock``,
+    also the SM clock and power draw sampled during the step (min, median,
+    max; ``ClockSamples``)."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    sampler = ClockSamples() if clock else contextlib.nullcontext()
+    with sampler, profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         step(params, batch)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    clocks = sampler.summary() if clock else None
+    if clock:
+        log(f"  SM clock and power during the profiled step (min, median, "
+            f"max): {json.dumps(clocks) if clocks else 'not measured'}")
     # device-side entries (kernels, copies); an operator's own entry
     # repeats the device time of the kernels it launched
     events = [e for e in prof.key_averages()
@@ -2241,7 +2430,8 @@ def profile_step(torch, step, params, batch):
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     if device_ms == 0:
         log("  profile: the profiler recorded no device time (not measured)")
-        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
+                "clock": clocks}
     log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
         f"{device_ms:.1f} ms, idle share {1 - device_ms / wall_ms:.3f}")
     for e in top:
@@ -2250,10 +2440,11 @@ def profile_step(torch, step, params, batch):
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall_ms,
             "top": [(e.key[:90], e.count, e.self_device_time_total / 1e3)
-                    for e in top]}
+                    for e in top], "clock": clocks}
 
 
-def score_model(torch, kernels, cfg, params, batches, timed_steps):
+def score_model(torch, kernels, cfg, params, batches, timed_steps,
+                clock=False):
     """make_prefill_step over a model: one unmeasured step first (cuBLAS
     plans, the allocator's pool), then the counted run of the batches
     (launch counts zeroed just before, read just after), then more steps
@@ -2300,7 +2491,7 @@ def score_model(torch, kernels, cfg, params, batches, timed_steps):
         check(logits.shape == (batch, cfg.padded_vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{cfg.name}: bad last_logits")
-    profile = profile_step(torch, step, params, batches[0])
+    profile = profile_step(torch, step, params, batches[0], clock)
     return {"launches": launches, "step": step, "outs": outs,
             "step_ms": times, "step_ms_p50": p50, "step_ms_p95": p95,
             "requests_per_s": timed_steps * batch / seconds,
@@ -4695,6 +4886,23 @@ class SlowFirstReplicaBuilder:
         return learner
 
 
+def host_census():
+    """What else runs in this process and beside it: the live Python
+    threads by name, the process's OS threads, its child processes, and
+    the objects the garbage collector tracks."""
+    import gc
+    names = sorted(t.name for t in threading.enumerate())
+    task = Path("/proc/self/task")
+    os_threads = len(list(task.iterdir())) if task.is_dir() else None
+    children = None
+    if task.is_dir():
+        children = sum(len((entry / "children").read_text().split())
+                       for entry in task.iterdir()
+                       if (entry / "children").exists())
+    return {"python_threads": names, "os_threads": os_threads,
+            "child_processes": children, "gc_objects": len(gc.get_objects())}
+
+
 def fig20_async_learner(torch):
     """Phase 22, part 3: fig20's measurement on the card (its smoke
     window): aggregate learner steps a second of two DQN replicas, one a
@@ -4703,6 +4911,7 @@ def fig20_async_learner(torch):
     from repro_torch.agents.dqn import DQNBuilder, DQNConfig
     from repro_torch.core import make_environment_spec
 
+    log(f"  before fig20: {host_census()}")
     out = {}
     for sync in ("barrier", "async"):
         spec = make_environment_spec(catch_env(0))
@@ -4893,7 +5102,7 @@ def zoo_config(torch, kernels, name, dtype_name, flash_per_step):
             else ZOO_SEQ - cfg.vision_tokens)
     batches = zoo_batches(torch, cfg, dtype, ZOO_BATCH, text, ZOO_BATCHES)
     path = score_model(torch, kernels, cfg, params, batches,
-                       ZOO_TIMED_STEPS)
+                       ZOO_TIMED_STEPS, clock=True)
     launches = path["launches"]
     check(launches["flash_attention"] == flash_per_step * ZOO_BATCHES,
           f"{name}: flash_attention launched {launches['flash_attention']} "
@@ -6287,6 +6496,18 @@ def main() -> int:
                   else json.dumps(flash_hgmma))
     log(f"  flash_attention entries (ptxas): {json.dumps(flash_usage)}; "
         f"HGMMA lines in SASS: {hgmma_text}")
+    for d in flash_module.HEAD_DIMS:
+        entry = flash_route_entry(flash_usage, "wgmma_tma_bf16", d)
+        check(entry is not None and entry.get("spill_store_bytes") == 0
+              and entry.get("spill_load_bytes") == 0,
+              f"flash_attention's bf16 entry at d {d}: ptxas reports "
+              f"{entry}, not an entry without spills")
+        if flash_hgmma is not None:
+            count = flash_route_entry(flash_hgmma, "wgmma_tma_bf16", d)
+            check(bool(count), f"flash_attention's bf16 entry at d {d}: "
+                  f"{count} HGMMA lines in its SASS")
+    decode_usage = ptxas_usage(report["decode_attention"]["log"])
+    log(f"  decode_attention entries (ptxas): {json.dumps(decode_usage)}")
 
     phase("phase 2: kernels against their plain versions")
     decode = decode_module.decode_attention
@@ -6295,12 +6516,20 @@ def main() -> int:
     worst = check_decode_attention(decode, ref, torch, plan_splits,
                                    decode_module.HEAD_DIMS)
     mixed = check_decode_mixed(decode, ref, torch, plan_splits)
+    t0 = time.monotonic()
+    edges = check_decode_edges(decode, ref, torch, plan_splits)
+    log(f"  check_decode_edges: {time.monotonic() - t0:.1f} s")
+    worst = {name: max(worst[name], edges[name]) for name in worst}
     worst_vtrace = check_vtrace(vtrace, ref, torch)
     flash = flash_module.flash_attention
     ssd = ssd_module.ssd_scan
     worst_flash = check_flash(flash, ref, torch, zamba)
     worst_zoo = check_flash_zoo(flash, ref, torch,
                                 np.random.RandomState(SEED + 21))
+    t0 = time.monotonic()
+    worst_zoo["bfloat16"] = max(worst_zoo["bfloat16"], check_flash_persistent(
+        flash, ref, torch, np.random.RandomState(SEED + 29)))
+    log(f"  check_flash_persistent: {time.monotonic() - t0:.1f} s")
     worst_flash = {name: max(worst_flash[name], worst_zoo[name])
                    for name in worst_flash}
     worst_ssd = check_ssd(ssd, ref, torch, zamba)

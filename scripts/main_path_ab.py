@@ -3,7 +3,7 @@ card, in the order A, B, B, A, each run in a process of its own; then
 their numbers side by side.
 
   python scripts/main_path_ab.py --a DIR --b DIR
-                                 [--what main|flash_forward|backward]
+                                 [--what main|decode|flash_forward|backward]
                                  [--out FILE]
 
 ``--a`` and ``--b`` are the roots of two checkouts (for example the parent
@@ -14,6 +14,10 @@ functions' own checks hold, so a run fails as the phase would.  What runs:
 - ``main`` (the default): phases 24 and 25, ``zoo_serving`` and
   ``training`` (the model zoo's serving path and training): tokens/s and
   step times;
+- ``decode``: phase 5's decode attention rows, ``time_decode_serving``
+  (the zoo's serving shapes), the long cache (b 64, s 2048) and the
+  policy's serving shape (b 16, s 8), each against the plain version:
+  device ms (a CUDA graph's replay), eager ms and CUDA launches a call;
 - ``flash_forward``: phase 5's flash attention forward rows,
   ``time_flash``, ``time_flash_policy`` and ``time_flash_zoo`` (each call
   against the plain version): device ms (a CUDA graph's replay) and eager
@@ -84,6 +88,25 @@ for row in serving["configs"]:
 print("AB_RESULT " + json.dumps({"seconds": {"phase 24": t24,
                                              "phase 25": t25},
                                  "rows": rows}))
+""", "decode": PRELUDE + r"""
+build.build(["decode_attention"])
+decode = decode_attention.decode_attention
+plan = decode_attention.plan_splits
+t0 = time.monotonic()
+timed = {row["label"]: row for row in chip_smoke.time_decode_serving(
+    decode, ref, torch, plan)}
+timed["long_cache"] = chip_smoke.time_decode_attention(decode, ref, torch,
+                                                       plan, 64, 2048, 2048)
+timed["policy"] = chip_smoke.time_decode_attention(decode, ref, torch, plan,
+                                                   16, 8, 8)
+rows = {}
+for name, row in timed.items():
+    rows[f"{name} ms"] = row["ms"]
+    rows[f"{name} eager ms"] = row["eager_ms"]
+    rows[f"{name} launches a call"] = row["cuda_launches_per_call"]
+print("AB_RESULT " + json.dumps({"seconds": {"decode rows":
+                                             time.monotonic() - t0},
+                                 "rows": rows}))
 """, "flash_forward": PRELUDE + r"""
 build.build(["flash_attention"])
 flash = flash_attention.flash_attention
@@ -97,6 +120,9 @@ rows = {}
 for name, row in timed.items():
     rows[f"{name} ms"] = row["ms"]
     rows[f"{name} eager ms"] = row["eager_ms"]
+    for key in ("contiguous_ms", "cold_l2_ms", "library_ms"):
+        if key in row:
+            rows[f"{name} {key.replace('_ms', '')} ms"] = row[key]
 print("AB_RESULT " + json.dumps({"seconds": {"flash rows":
                                              time.monotonic() - t0},
                                  "rows": rows}))
@@ -193,6 +219,8 @@ def main(argv=None) -> int:
     print(f"card: {card}; {args.what}; order A, B, B, A; each cell 'first, "
           f"second' run")
     for name in runs[0]["rows"]:
+        if any(name not in r["rows"] for r in runs):
+            continue  # a row one checkout does not time
         a = [r["rows"][name] for r in runs if r["label"] == "A"]
         b = [r["rows"][name] for r in runs if r["label"] == "B"]
         print(f"{name}: A {a[0]:.6g}, {a[1]:.6g} (mean "

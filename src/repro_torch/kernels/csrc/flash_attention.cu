@@ -26,17 +26,28 @@
 // multiply-adds over (2 b h sq + 2 b kv sk) d elements.  Three routes, by
 // dtype and head dim alone (there is no fallback between them):
 //
-// - bfloat16, d in {16, 32, 64, 128}: `wgmma` at the native bf16 rate.  A
-//   block of 384 threads takes 128 query rows of one head: a producer
-//   warpgroup, of which one thread issues TMA loads (Q once, then K/V tiles
-//   of 128 keys into a ring of 2 or 3 stages, completion on mbarriers) and
-//   hands its registers to the consumers with `setmaxnreg`; two consumer
-//   warpgroups of 64 rows each run S = Q.K^T with Q and K from shared
-//   memory, the online softmax in f32 registers (the scale d^-1/2 log2(e)
-//   applied to S in f32), round P to bf16 in registers and run O += P.V
-//   with P as the register A operand and V read as staged (keys x d) under
-//   the transpose bit.  Tiles carry the swizzle that TMA writes and the
-//   wgmma descriptors name (hopper.cuh).
+// - bfloat16, d in {16, 32, 64, 128}: `wgmma` at the native bf16 rate, in
+//   a persistent kernel: one block of 384 threads an SM walks work items of
+//   128 query rows of one head (heaviest first under `causal`; the heads
+//   of a KV head adjacent, so their K/V tiles come from L2).  A producer
+//   warpgroup, of which one thread issues TMA loads (each item's Q into one
+//   of two buffers, K and V tiles of 128 keys into rings of their own of 2
+//   or 3 stages, completion on mbarriers, running ahead across items), hands
+//   its registers to the consumers with `setmaxnreg`.  Two consumer
+//   warpgroups of 64 rows each take turns at the tensor cores on named
+//   barriers (FlashAttention-3's ping-pong; the order is enforced, not left
+//   to the warp scheduler): in its turn a consumer issues S = Q.K^T of a
+//   tile (Q and K from shared memory) and O += P.V of the tile before (P as
+//   the register A operand, V read as staged (keys x d) under the transpose
+//   bit), hands the turn over, waits for S alone and runs its online
+//   softmax (f32 registers, the scale d^-1/2 log2(e) applied to S in f32,
+//   exp2 on the MUFU unit) beside its own P.V and the other's products;
+//   then it rounds P to bf16 and rescales O.  Each consumer writes its
+//   normalised O into its half of the item's Q buffer, which its products
+//   no longer read, and one TMA store takes it out while the next item
+//   runs; the buffer goes back to the producer once the store has read it.
+//   Tiles carry the swizzle that TMA writes and the wgmma descriptors name
+//   (hopper.cuh).
 // - float32, d <= 64: three TF32 passes of mma.sync (tf32_mma.cuh), f32-
 //   accurate; least time 3x the work over the TF32 rate.  Blocks of 4 warps
 //   take 64 query rows; Q's fragments, pre-scaled by d^-1/2 log2(e) and
@@ -103,11 +114,16 @@ template <int BM, int BN>
 struct Walk {
   int q0, head, row, kv_head, k_begin, n_tiles;
 
-  __device__ Walk(int h, int kv, int sq, int sk, int causal, int window) {
-    const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  // the block's own: heaviest query tiles first under `causal`
+  __device__ Walk(int h, int kv, int sq, int sk, int causal, int window)
+      : Walk(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x, blockIdx.y,
+             blockIdx.z, h, kv, sq, sk, causal, window) {}
+
+  __device__ Walk(int tile, int head_, int row_, int h, int kv, int sq,
+                  int sk, int causal, int window) {
     q0 = tile * BM;
-    head = blockIdx.y;
-    row = blockIdx.z;
+    head = head_;
+    row = row_;
     kv_head = head / (h / kv);
     const int q_last = min(q0 + BM, sq) - 1;
     k_begin = 0;
@@ -658,11 +674,15 @@ static_assert(kSmem <= kMaxSmem, "flash_attention (d 128): shared memory");
 // ============================================ bfloat16: wgmma and TMA
 namespace wg {
 
-constexpr int kM = 128;         // query rows a block: two consumers of 64
+constexpr int kM = 128;         // query rows a work item: two consumers of 64
 constexpr int kN = 128;         // keys a tile
 constexpr int kThreads = 384;   // producer warpgroup, then two consumers
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
+// named barriers: consumer c may issue its products once bar kTurn + c has
+// completed; each consumer's own 128 threads meet at kStore + c
+constexpr int kTurn = 1;
+constexpr int kStore = 3;
 
 // Bytes of one swizzle atom's row (32, 64 or 128) and the bf16 columns it
 // holds; a tile is D / atom_cols column blocks of R rows x atom_bytes.
@@ -687,21 +707,26 @@ template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) {
   return (uint32_t)rows * D * 2;
 }
-// Q, then K and V for each stage (all 1024-byte aligned: the 128-byte
-// swizzle repeats every 8 rows of 128 bytes), then the barriers: q_full,
-// full[stages], empty[stages].
+// Two Q buffers (a work item's Q, then its O on the way out), the K ring,
+// the V ring (all 1024-byte aligned: the 128-byte swizzle repeats every 8
+// rows of 128 bytes), then the barriers: q_full[2], q_empty[2],
+// k_full[S], k_empty[S], v_full[S], v_empty[S].
 template <int D>
 __host__ __device__ constexpr uint32_t k_offset(int stage) {
-  return tile_bytes<D>(kM) + 2 * stage * tile_bytes<D>(kN);
+  return 2 * tile_bytes<D>(kM) + stage * tile_bytes<D>(kN);
+}
+template <int D>
+__host__ __device__ constexpr uint32_t v_offset(int stage) {
+  return k_offset<D>(stages<D>()) + stage * tile_bytes<D>(kN);
 }
 template <int D>
 __host__ __device__ constexpr uint32_t barrier_offset() {
-  return k_offset<D>(stages<D>());
+  return v_offset<D>(stages<D>());
 }
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
   // + the barriers, + 1024 to align the base
-  return barrier_offset<D>() + 8 * (1 + 2 * stages<D>()) + 1024;
+  return barrier_offset<D>() + 8 * (4 + 4 * stages<D>()) + 1024;
 }
 
 // K-major descriptor (Q or K: d contiguous) of the k-step of 16 columns
@@ -736,181 +761,361 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const void* map,
                      a * atom_cols<D>(), pos, head, row);
 }
 
+// The byte offset, in a tile of kM rows as TMA writes it, of row r and
+// column `col`: column block, row, then the swizzle (the 16-byte chunk
+// XOR the row's place in its 8-row period; base 1024-aligned).
+template <int D>
+__device__ __forceinline__ uint32_t swizzled(int r, int col) {
+  constexpr int AB = atom_bytes<D>();
+  constexpr uint32_t mask = AB / 16 - 1;
+  const uint32_t lin = (col / atom_cols<D>()) * kM * AB + r * AB +
+                       (col % atom_cols<D>()) * 2;
+  return lin ^ (((lin >> 7) & mask) << 4);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// 2^x by the MUFU unit alone: exp2f without fast math also scales its
+// argument and result to keep results below 2^-126; those weigh nothing
+// beside a row's largest weight, 1, so they are flushed to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The work item of round k of block `block` of `blocks`: rounds go left to
+// right and right to left in turn, so the heavy items of the early rounds
+// and the light ones of the late rounds even out across blocks.
+__device__ __forceinline__ int item_of_round(int k, int block, int blocks) {
+  return k * blocks + ((k & 1) ? blocks - 1 - block : block);
+}
+
+// A work item: 128 query rows of one head and batch row.  Items are
+// numbered query tile outermost (under `causal` the heaviest first), then
+// batch row, then head, so the query heads that share a KV head are
+// neighbours and read its tiles from L2.
+__device__ __forceinline__ Walk<kM, kN> item(int w, int n_q, int h, int b,
+                                             int kv, int sq, int sk,
+                                             int causal, int window) {
+  const int qi = w / (h * b);
+  const int rest = w - qi * (h * b);
+  return Walk<kM, kN>(causal ? n_q - 1 - qi : qi, rest % h, rest / h, h, kv,
+                      sq, sk, causal, window);
+}
+
+// One block an SM walks one work item a round (item_of_round).  A
+// producer warpgroup, of which one thread issues every TMA load: each
+// item's Q into the item's buffer (two, alternating), and its K and V tiles
+// into their rings, running ahead across items.  Two consumer warpgroups
+// of 64 query rows each take turns at the tensor cores (FlashAttention-3's
+// ping-pong, on named barriers): in its turn a consumer issues S = Q.K^T
+// of a tile and P.V of the one before, hands the turn over, and runs the
+// online softmax while its P.V and the other's products run.  The
+// output goes to the consumer's half of the item's Q buffer (which its
+// products no longer read) and out by one TMA store, which overlaps the
+// next item; the buffer is handed back once the store has read it.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel_bf16_wgmma(
         const __grid_constant__ CUtensorMap q_map,
         const __grid_constant__ CUtensorMap k_map,
         const __grid_constant__ CUtensorMap v_map,
-        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Strides os,
-        int h, int kv, int sq, int sk, int causal, int window,
+        const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
+        int b, int h, int kv, int sq, int sk, int causal, int window,
         float scale_log2) {
   constexpr int S = stages<D>();
-  const Walk<kM, kN> w(h, kv, sq, sk, causal, window);
+  const int n_q = (sq + kM - 1) / kM;
+  const int n_items = n_q * h * b;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (hop::smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;
   const uint32_t bars = base + barrier_offset<D>();
-  const uint32_t q_full = bars;
-  auto full = [&](int stage) { return bars + 8 * (1 + stage); };
-  auto empty = [&](int stage) { return bars + 8 * (1 + S + stage); };
-  auto k_s = [&](int stage) { return base + k_offset<D>(stage); };
-  auto v_s = [&](int stage) { return k_s(stage) + tile_bytes<D>(kN); };
+  auto q_s = [&](int qb) { return base + qb * tile_bytes<D>(kM); };
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto k_full = [&](int st) { return bars + 8 * (4 + st); };
+  auto k_empty = [&](int st) { return bars + 8 * (4 + S + st); };
+  auto v_full = [&](int st) { return bars + 8 * (4 + 2 * S + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (4 + 3 * S + st); };
+  auto k_s = [&](int st) { return base + k_offset<D>(st); };
+  auto v_s = [&](int st) { return base + v_offset<D>(st); };
 
   if (threadIdx.x == 0) {
-    hop::mbar_init(q_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      hop::mbar_init(q_full(i), 1);
+      hop::mbar_init(q_empty(i), 2);
+    }
     for (int i = 0; i < S; ++i) {
-      hop::mbar_init(full(i), 1);
-      hop::mbar_init(empty(i), 2 * 128);
+      hop::mbar_init(k_full(i), 1);
+      hop::mbar_init(k_empty(i), 2 * 128);
+      hop::mbar_init(v_full(i), 1);
+      hop::mbar_init(v_empty(i), 2 * 128);
     }
     hop::mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // ---- producer: one thread keeps the ring full
+    // ---- producer: one thread keeps the buffers and rings full
     hop::release_registers<kProducerRegs>();
     if (threadIdx.x == 0) {
-      hop::mbar_arrive_expect_tx(q_full, tile_bytes<D>(kM));
-      load_tile<D>(q_s, &q_map, q_full, kM, w.q0, w.head, w.row);
-      for (int it = 0; it < w.n_tiles; ++it) {
-        const int stage = it % S;
-        if (it >= S) hop::mbar_wait(empty(stage), ((it / S) - 1) & 1);
-        hop::mbar_arrive_expect_tx(full(stage), 2 * tile_bytes<D>(kN));
-        const int kt = w.k_begin + it * kN;
-        load_tile<D>(k_s(stage), &k_map, full(stage), kN, kt, w.kv_head,
-                     w.row);
-        load_tile<D>(v_s(stage), &v_map, full(stage), kN, kt, w.kv_head,
-                     w.row);
+      int n = 0;  // K/V tiles issued, over every item
+      for (int k = 0;; ++k) {
+        const int w = item_of_round(k, blockIdx.x, gridDim.x);
+        if (w >= n_items) break;
+        const Walk<kM, kN> it =
+            item(w, n_q, h, b, kv, sq, sk, causal, window);
+        const int qb = k & 1;
+        if (k >= 2) hop::mbar_wait(q_empty(qb), ((k >> 1) - 1) & 1);
+        hop::mbar_arrive_expect_tx(q_full(qb), tile_bytes<D>(kM));
+        load_tile<D>(q_s(qb), &q_map, q_full(qb), kM, it.q0, it.head,
+                     it.row);
+        for (int i = 0; i < it.n_tiles; ++i, ++n) {
+          const int st = n % S;
+          const int kt = it.k_begin + i * kN;
+          if (n >= S) hop::mbar_wait(k_empty(st), ((n / S) - 1) & 1);
+          hop::mbar_arrive_expect_tx(k_full(st), tile_bytes<D>(kN));
+          load_tile<D>(k_s(st), &k_map, k_full(st), kN, kt, it.kv_head,
+                       it.row);
+          if (n >= S) hop::mbar_wait(v_empty(st), ((n / S) - 1) & 1);
+          hop::mbar_arrive_expect_tx(v_full(st), tile_bytes<D>(kN));
+          load_tile<D>(v_s(st), &v_map, v_full(st), kN, kt, it.kv_head,
+                       it.row);
+        }
       }
     }
   } else {
-    // ---- consumers: 64 query rows each.  Each runs a tile's two products
-    // back to back; the two warpgroups overlap one's softmax with the
-    // other's products.  (Issuing tile it + 1's S before tile it's P.V, with
-    // the softmax beside P.V, measured slower on an H100: PERF.md.)
+    // ---- consumers: 64 query rows each
     hop::claim_registers<kConsumerRegs>();
     const int c = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
     const int g = (tid & 31) >> 2;
     const int t = tid & 3;
-    const int rows0 = w.q0 + 64 * c;  // this warpgroup's first row
-    const int r0 = rows0 + 16 * (tid >> 5) + g;
-    const int r1 = r0 + 8;
+    const int my_turn = kTurn + c, other_turn = kTurn + 1 - c;
+    if (c == 1) hop::bar_arrive(kTurn, 256);  // consumer 0 goes first
 
-    float o[D / 2];
+    int n = 0;              // K/V tiles consumed before this item
+    int stored = -1;        // the Q buffer whose O store is in flight
+    for (int k = 0;; ++k) {
+      const int w = item_of_round(k, blockIdx.x, gridDim.x);
+      if (w >= n_items) break;
+      const Walk<kM, kN> it =
+          item(w, n_q, h, b, kv, sq, sk, causal, window);
+      const bool last_item =
+          item_of_round(k + 1, blockIdx.x, gridDim.x) >= n_items;
+      const int qb = k & 1;
+      const int rows0 = it.q0 + 64 * c;  // this warpgroup's first row
+      const int r0 = rows0 + 16 * (tid >> 5) + g;
+      const int r1 = r0 + 8;
+
+      float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units)
-    float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
-
-    hop::mbar_wait(q_full, 0);
-    for (int it = 0; it < w.n_tiles; ++it) {
-      const int stage = it % S;
-      hop::mbar_wait(full(stage), (it / S) & 1);
-      const int kt = w.k_begin + it * kN;
-
-      // S = Q.K^T: 64 rows x 128 keys in f32
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units)
+      float l0 = 0.f, l1 = 0.f;          // this thread's part of the sums
       float s[kN / 2];
-      hop::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hop::wgmma_ss_m64n128k16(s, k_major<D>(q_s, kM, 64 * c, 16 * kk),
-                                 k_major<D>(k_s(stage), kN, 0, 16 * kk),
-                                 kk > 0);
-      hop::wgmma_commit();
-      hop::wgmma_wait<0>();
-      hop::fence_registers(s);
+      uint32_t p[kN / 16][4];            // the last tile's P, bf16
+      float a0 = 1.f, a1 = 1.f;          // the last tile's rescale of O
 
-      // scale in f32, then the masks where the tile needs them
+      // A turn: wait for this consumer's turn, issue its products (each
+      // turn's sequence is fixed, so no wgmma sits on a divergent path),
+      // let the other consumer issue.  A middle turn issues S of its tile
+      // first and P.V of the last tile after it, and waits for S alone
+      // before the softmax, which runs beside its own P.V as well as the
+      // other consumer's products (FlashAttention-3's order); O is
+      // rescaled and P rounded once P.V is done.
+      auto turn_begin = [&]() {
+        hop::bar_sync(my_turn, 256);
+        hop::fence_registers(o);
+        hop::wgmma_fence();
+      };
+      auto turn_end = [&](bool grant) {
+        hop::wgmma_commit();
+        if (grant) hop::bar_arrive(other_turn, 256);
+        hop::wgmma_wait<0>();
+        hop::fence_registers(s);
+        hop::fence_registers(o);
+      };
+      auto issue_s = [&](int st) {
 #pragma unroll
-      for (int i = 0; i < kN / 2; ++i) s[i] *= scale_log2;
-      if (!unmasked(rows0, 64, kt, kN, sk, causal, window)) {
+        for (int kk = 0; kk < D / 16; ++kk)
+          hop::wgmma_ss_m64n128k16(s, k_major<D>(q_s(qb), kM, 64 * c, 16 * kk),
+                                   k_major<D>(k_s(st), kN, 0, 16 * kk),
+                                   kk > 0);
+      };
+      auto issue_pv = [&](int st) {
 #pragma unroll
-        for (int i = 0; i < kN / 2; ++i)
-          s[i] = masked(s[i], (i & 2) ? r1 : r0,
-                        kt + 8 * (i >> 2) + 2 * t + (i & 1), sk, causal,
-                        window);
-      }
+        for (int kk = 0; kk < kN / 16; ++kk)
+          hop::wgmma_rs<D>(o, p[kk], mn_major<D>(v_s(st), 16 * kk), 1);
+      };
+      // the online softmax of tile i: its weights in s (f32), m, l and the
+      // rescale factors for O
+      auto softmax = [&](int i) {
+        const int kt = it.k_begin + i * kN;
+        float mx0 = m0, mx1 = m1;
+        if (unmasked(rows0, 64, kt, kN, sk, causal, window)) {
+          // no mask on the tile: the row max of the raw scores, scaled
+          // once; each weight is 2^(s scale - m) by one fused multiply-add
+          float r0x = -INFINITY, r1x = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < kN / 8; ++j) {
+            r0x = fmaxf(r0x, fmaxf(s[4 * j], s[4 * j + 1]));
+            r1x = fmaxf(r1x, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+          }
+          mx0 = fmaxf(mx0, quad_max(r0x) * scale_log2);
+          mx1 = fmaxf(mx1, quad_max(r1x) * scale_log2);
+#pragma unroll
+          for (int j = 0; j < kN / 8; ++j) {
+            s[4 * j] = fmaf(s[4 * j], scale_log2, -mx0);
+            s[4 * j + 1] = fmaf(s[4 * j + 1], scale_log2, -mx0);
+            s[4 * j + 2] = fmaf(s[4 * j + 2], scale_log2, -mx1);
+            s[4 * j + 3] = fmaf(s[4 * j + 3], scale_log2, -mx1);
+          }
+        } else {
+          // scale in f32, then the masks
+#pragma unroll
+          for (int j = 0; j < kN / 2; ++j)
+            s[j] = masked(s[j] * scale_log2, (j & 2) ? r1 : r0,
+                          kt + 8 * (j >> 2) + 2 * t + (j & 1), sk, causal,
+                          window);
+#pragma unroll
+          for (int j = 0; j < kN / 8; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+          }
+          mx0 = quad_max(mx0);
+          mx1 = quad_max(mx1);
+#pragma unroll
+          for (int j = 0; j < kN / 8; ++j) {
+            s[4 * j] -= mx0;
+            s[4 * j + 1] -= mx0;
+            s[4 * j + 2] -= mx1;
+            s[4 * j + 3] -= mx1;
+          }
+        }
+        const float alpha0 = ex2(m0 - mx0);
+        const float alpha1 = ex2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          s[4 * j] = ex2(s[4 * j]);
+          s[4 * j + 1] = ex2(s[4 * j + 1]);
+          s[4 * j + 2] = ex2(s[4 * j + 2]);
+          s[4 * j + 3] = ex2(s[4 * j + 3]);
+          sum0 += s[4 * j] + s[4 * j + 1];
+          sum1 += s[4 * j + 2] + s[4 * j + 3];
+        }
+        l0 = l0 * alpha0 + sum0;
+        l1 = l1 * alpha1 + sum1;
+        a0 = alpha0;
+        a1 = alpha1;
+      };
+      // P in bf16 for the next turn's P.V, and O rescaled, once the last
+      // P.V is done
+      auto to_p = [&]() {
+        const float alpha0 = a0, alpha1 = a1;
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk) {
+          p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int j = 0; j < D / 2; j += 4) {
+          o[j] *= alpha0;
+          o[j + 1] *= alpha0;
+          o[j + 2] *= alpha1;
+          o[j + 3] *= alpha1;
+        }
+      };
 
-      // online softmax in f32 registers
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      hop::mbar_wait(q_full(qb), (k >> 1) & 1);
+      // turn 0: S of tile 0
+      hop::mbar_wait(k_full(n % S), (n / S) & 1);
+      turn_begin();
+      issue_s(n % S);
+      turn_end(true);
+      if (stored >= 0 && tid == 0) {
+        // the last item's O has left its Q buffer: hand it back
+        hop::bulk_wait_read<0>();
+        hop::mbar_arrive(q_empty(stored));
       }
-      mx0 = quad_max(mx0);
-      mx1 = quad_max(mx1);
-      const float alpha0 = exp2f(m0 - mx0);
-      const float alpha1 = exp2f(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j) {
-        s[4 * j] = exp2f(s[4 * j] - m0);
-        s[4 * j + 1] = exp2f(s[4 * j + 1] - m0);
-        s[4 * j + 2] = exp2f(s[4 * j + 2] - m1);
-        s[4 * j + 3] = exp2f(s[4 * j + 3] - m1);
-        sum0 += s[4 * j] + s[4 * j + 1];
-        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      hop::mbar_arrive(k_empty(n % S));
+      softmax(0);
+      to_p();
+      // turn i: S of tile i, then P.V of tile i - 1
+      for (int i = 1; i < it.n_tiles; ++i) {
+        const int st = (n + i) % S, pst = (n + i - 1) % S;
+        hop::mbar_wait(k_full(st), ((n + i) / S) & 1);
+        hop::mbar_wait(v_full(pst), ((n + i - 1) / S) & 1);
+        turn_begin();
+        issue_s(st);
+        hop::wgmma_commit();
+        issue_pv(pst);
+        hop::wgmma_commit();
+        hop::bar_arrive(other_turn, 256);
+        hop::wgmma_wait<1>();
+        hop::fence_registers(s);
+        hop::mbar_arrive(k_empty(st));
+        softmax(i);
+        hop::wgmma_wait<0>();
+        hop::fence_registers(o);
+        hop::mbar_arrive(v_empty(pst));
+        to_p();
       }
-      l0 = l0 * alpha0 + sum0;
-      l1 = l1 * alpha1 + sum1;
+      // the last turn: P.V of the last tile; consumer 1's very last turn
+      // has no turn of consumer 0 after it to grant
+      {
+        const int pst = (n + it.n_tiles - 1) % S;
+        hop::mbar_wait(v_full(pst), ((n + it.n_tiles - 1) / S) & 1);
+        turn_begin();
+        issue_pv(pst);
+        turn_end(!(c == 1 && last_item));
+        hop::mbar_arrive(v_empty(pst));
+      }
+      n += it.n_tiles;
 
-      // P in bf16 as the A fragments of 16 keys each: the accumulator's
-      // key groups 2kk and 2kk + 1 are the fragment's columns 0-7 and 8-15
-      uint32_t p[kN / 16][4];
+      // ---- epilogue: O into this consumer's half of the Q buffer, then
+      // out by TMA (rows past sq are not written)
+      const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+      const float inv0 = 1.f / fmaxf(sum0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(sum1, 1e-30f);
+      store_lse(lse, (long long)it.row * h + it.head, sq, r0, r1, m0, m1,
+                sum0, sum1);
+      unsigned char* q_gen =
+          smem_raw + (q_s(qb) - hop::smem_addr(smem_raw));
+      const int rr0 = 64 * c + 16 * (tid >> 5) + g;
 #pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk) {
-        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(q_gen + swizzled<D>(rr0, col)) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(q_gen + swizzled<D>(rr0 + 8, col)) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
+      hop::fence_proxy_async();
+      hop::bar_sync(kStore + c, 128);
+      if (tid == 0) {
+        if (rows0 < sq) {
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 4) {
-        o[i] *= alpha0;
-        o[i + 1] *= alpha0;
-        o[i + 2] *= alpha1;
-        o[i + 3] *= alpha1;
+          for (int a = 0; a < D / atom_cols<D>(); ++a)
+            hop::tma_store_4d(&o_map,
+                              q_s(qb) + a * kM * atom_bytes<D>() +
+                                  64 * c * atom_bytes<D>(),
+                              a * atom_cols<D>(), rows0, it.head, it.row);
+        }
+        hop::bulk_commit();
       }
-
-      // O += P.V, V read as staged under the transpose bit
-      hop::fence_registers(o);
-      hop::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk)
-        hop::wgmma_rs<D>(o, p[kk], mn_major<D>(v_s(stage), 16 * kk), 1);
-      hop::wgmma_commit();
-      hop::wgmma_wait<0>();
-      hop::fence_registers(o);
-      hop::mbar_arrive(empty(stage));
+      stored = qb;
     }
-
-    const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
-    const float inv0 = 1.f / fmaxf(sum0, 1e-30f);
-    const float inv1 = 1.f / fmaxf(sum1, 1e-30f);
-    store_lse(lse, (long long)w.row * h + w.head, sq, r0, r1, m0, m1, sum0,
-              sum1);
-    __nv_bfloat16* out_bh = out + w.row * os.b + w.head * os.h;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (r0 < sq)
-        *reinterpret_cast<__nv_bfloat162*>(out_bh + r0 * os.s + col) =
-            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      if (r1 < sq)
-        *reinterpret_cast<__nv_bfloat162*>(out_bh + r1 * os.s + col) =
-            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-    }
+    if (stored >= 0 && tid == 0) hop::bulk_wait_read<0>();
   }
 }
 
@@ -974,6 +1179,18 @@ bool tensor_map(CUtensorMap* map, const void* base, Strides st, int s,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The card's SM count, once a device.
+int sm_count() {
+  static int counts[64] = {0};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64)
+    return 0;
+  if (counts[device] == 0)
+    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount,
+                           device);
+  return counts[device];
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, const Strides* strides, int b, int h, int kv,
@@ -981,19 +1198,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static_assert(smem <= kMaxSmem, "flash_attention (bf16): shared memory");
-  CUtensorMap q_map, k_map, v_map;
+  CUtensorMap q_map, k_map, v_map, o_map;
   if (!tensor_map<D>(&q_map, q, strides[0], sq, h, b, kM) ||
       !tensor_map<D>(&k_map, k, strides[1], sk, kv, b, kN) ||
-      !tensor_map<D>(&v_map, v, strides[2], sk, kv, b, kN))
+      !tensor_map<D>(&v_map, v, strides[2], sk, kv, b, kN) ||
+      !tensor_map<D>(&o_map, out, strides[3], sq, h, b, kM / 2))
     return cudaErrorInvalidValue;
   auto kernel = flash_attention_kernel_bf16_wgmma<D>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kM - 1) / kM, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, strides[3],
-      h, kv, sq, sk, causal, window, scale * kLog2e);
+  const long long items = (long long)((sq + kM - 1) / kM) * h * b;
+  const int sms = sm_count();
+  if (sms <= 0 || items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  kernel<<<grid, kThreads, smem, stream>>>(q_map, k_map, v_map, o_map, lse, b,
+                                           h, kv, sq, sk, causal, window,
+                                           scale * kLog2e);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Hopper's asynchronous pieces, as the flash kernels' wgmma routes use them:
-// mbarriers, TMA tile loads, warpgroup matrix multiplies (`wgmma`, bf16 and
-// TF32) and their shared-memory descriptors, proxy fences and named
-// barriers, and register hand-over between warpgroups (`setmaxnreg`).
+// mbarriers, TMA tile loads and stores, warpgroup matrix multiplies
+// (`wgmma`, bf16 and TF32) and their shared-memory descriptors, proxy
+// fences and named barriers, and register hand-over between warpgroups
+// (`setmaxnreg`).
 // Everything here needs sm_90a.
 //
 // Shared-memory tiles are written by TMA with a swizzle of 32, 64 or 128
@@ -85,6 +86,26 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// One box of shared memory at `src` into a 4-D tensor map; elements outside
+// the tensor are not written.  Committed as a bulk group.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read their
+// shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
 // -------------------------------------------------------------- setmaxnreg
 template <int N>
 __device__ __forceinline__ void release_registers() {
@@ -127,6 +148,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // __syncthreads()'s.
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrives at named barrier `id` without waiting: with bar_sync on the same
+// id and count, one warpgroup lets another go on.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of registers that an

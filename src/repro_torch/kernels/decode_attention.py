@@ -5,9 +5,16 @@
 The wrapper takes CUDA tensors only; ``ops.decode_attention`` sends CPU
 tensors to the plain version in ``ref.py``.  ``decode_attention.launches``
 counts the wrapper's calls that launched the kernel, so a run can show
-that its decode steps went through it.  A call is one CUDA launch, or two
-when ``plan_splits`` cuts the cache into several ranges (the second merges
-their partial results).
+that its decode steps went through it.
+
+A call is one CUDA launch when ``plan_splits`` cuts the cache into at most
+``CLUSTER_MAX`` key ranges: the ranges of a (row, KV head) are one
+thread-block cluster and merge through distributed shared memory.  A plan
+of more ranges (a cache far longer than the batch's blocks can cover)
+merges their partial results in a second launch.  That routing is by shape
+alone (``kernel_names``).  bfloat16 queries over a bfloat16 cache run on
+tensor cores (``decode_mma_kernel``); float32 queries on CUDA cores
+(``decode_split_kernel``), f32-accurate.
 
 K and V are read in their own dtype: a bfloat16 decode cache under float32
 queries (``transformer.init_cache``'s default under float32 params) is
@@ -32,23 +39,60 @@ PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 _MAX_ROWS = 65535          # the grid's y extent
 TILE_ELEMS = 4096          # kTileElems in csrc/decode_attention.cu
 SMS = 132                  # streaming multiprocessors of an H100 SXM
-TARGET_BLOCKS = 4 * SMS
+CLUSTER_MAX = 8            # kClusterMax: key ranges a cluster merges
+# The blocks a plan aims at, by route: the most that stay one wave once a
+# cluster's blocks must sit together, at the route's work a key.  The
+# tensor-core route is cheap a key, so it wants few long ranges; the
+# CUDA-core route over an f32 cache (73 KB of shared memory a block) more;
+# over a bf16 cache (41 KB) most.  Read off `scripts/decode_plan_sweep.py`
+# at the zoo's serving shapes on an H100 (PERF.md).
+TARGET_BLOCKS = {"mma": SMS + SMS // 2, "cuda_f32_cache": 5 * SMS // 2,
+                 "cuda_bf16_cache": 4 * SMS}
 
 
-def plan_splits(b: int, kv: int, s: int, d: int):
+def route(q_dtype, kv_dtype=None) -> str:
+    """The block kernel's route for these dtypes: tensor cores for bfloat16
+    queries (over a bfloat16 cache), CUDA cores for float32 queries over
+    either cache."""
+    kv_dtype = kv_dtype or q_dtype
+    if q_dtype == torch.bfloat16:
+        return "mma"
+    return ("cuda_bf16_cache" if kv_dtype == torch.bfloat16
+            else "cuda_f32_cache")
+
+
+def plan_splits(b: int, kv: int, s: int, d: int, q_dtype=torch.float32,
+                kv_dtype=None):
     """``(splits, keys_per_split)``: how the kernel cuts the cache axis.
 
-    From the shapes alone, never from ``lengths``, so a call adds no sync
-    with the device.  Each split is a whole number of key tiles
-    (``TILE_ELEMS // d`` keys), none is empty, and together they cover the
-    ``s`` keys.  When ``b * kv`` blocks already fill the card several times
-    over (``TARGET_BLOCKS``), or the cache is one tile, there is one split:
-    the serving shapes are one launch."""
+    From the shapes and dtypes alone, never from ``lengths``, so a call
+    adds no sync with the device.  Each split is a whole number of key
+    tiles (``TILE_ELEMS // d`` keys), none is empty, and together they
+    cover the ``s`` keys: as many splits as keep ``splits * b * kv``
+    blocks within the route's target (``TARGET_BLOCKS``), at least one.
+    Up to ``CLUSTER_MAX`` splits merge inside one cluster (one launch);
+    more take the combine launch (``kernel_names``).  Where the target
+    allows at most twice a cluster's splits (every serving shape), the
+    plan stops at one cluster."""
     tile = TILE_ELEMS // d
     tiles = -(-s // tile)
-    wanted = -(-TARGET_BLOCKS // (b * kv))
+    wanted = max(1, TARGET_BLOCKS[route(q_dtype, kv_dtype)] // (b * kv))
+    if wanted <= 2 * CLUSTER_MAX:
+        wanted = min(wanted, CLUSTER_MAX)
     per_split = -(-tiles // min(wanted, tiles))
     return -(-tiles // per_split), per_split * tile
+
+
+def kernel_names(q_dtype, kv_dtype, b: int, kv: int, s: int, d: int):
+    """The CUDA kernels one call launches, in order, from the shapes and
+    dtypes alone: the block kernel (tensor cores for bfloat16 q, CUDA cores
+    for float32 q), then the combine kernel when the plan has more splits
+    than a cluster holds."""
+    first = ("decode_mma_kernel" if route(q_dtype, kv_dtype) == "mma"
+             else "decode_split_kernel")
+    splits = plan_splits(b, kv, s, d, q_dtype, kv_dtype)[0]
+    return [first] + (["decode_combine_kernel"] if splits > CLUSTER_MAX
+                      else [])
 
 
 class DecodeAttention:
@@ -104,12 +148,14 @@ class DecodeAttention:
             raise ValueError("decode_attention: tensors must be contiguous")
 
         fn = self._kernel()
-        splits, keys_per_split = plan_splits(b, kv, s, d)
+        splits, keys_per_split = plan_splits(b, kv, s, d, q.dtype, k.dtype)
         out = torch.empty_like(q)
-        # the splits' partial (m, l) and accumulators, merged by the second
-        # launch; from the caching allocator, so a CUDA graph captures it
+        # past a cluster, the splits' partial (m, l) and accumulators,
+        # merged by the second launch; from the caching allocator, so a
+        # CUDA graph captures it
         part = (torch.empty(splits * b * h * (d + 2), dtype=torch.float32,
-                            device=q.device) if splits > 1 else None)
+                            device=q.device) if splits > CLUSTER_MAX
+                else None)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),

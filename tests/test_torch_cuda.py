@@ -24,15 +24,18 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
 import json
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (HEAD_DIMS, decode_attention,
+from repro_torch.kernels.decode_attention import (CLUSTER_MAX, HEAD_DIMS,
+                                                  decode_attention,
                                                   plan_splits)
 from repro_torch.kernels.vtrace import vtrace
 from repro_torch.policies import PolicyEngine, TransformerPolicyConfig, network
@@ -151,6 +154,102 @@ def test_kernel_second_call_reads_no_stale_partials(cuda_device):
     assert torch.equal(decode_attention(*big), first)
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the cases phase 2 of chip_smoke.py runs too: decode's cluster edges (one
+# key either side of the most splits a cluster holds and of a tile of the
+# serving plan) and the persistent bf16 flash route's work-item counts
+SMOKE = _chip_smoke()
+DECODE_PAIRS = [(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16)]
+
+
+def _pair_inputs(b, h, kv, s, d, pair, lengths, seed):
+    q, k, v, lens = _inputs(b, h, kv, s, d, torch.float32, torch.device(
+        "cuda"), lengths, seed=seed)
+    return q.to(pair[0]), k.to(pair[1]), v.to(pair[1]), lens
+
+
+def _check_pair(q, k, v, lens):
+    """Against the plain version at q's tolerance, a repeat call
+    bit-equal, and one launch a call."""
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    again = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), ref.decode_attention_ref(q, k, v, lens).float(),
+        atol=TOL[q.dtype], rtol=TOL[q.dtype])
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv,s,d", SMOKE.DECODE_CLUSTER_EDGES)
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=str)
+def test_kernel_at_the_cluster_edges(cuda_device, b, kv, s, d, pair):
+    """Caches one key either side of a full cluster and of the serving
+    plan, in all three dtype pairs, lengths at the splits' edges."""
+    _, keys = plan_splits(b, kv, s, d, *pair)
+    _check_pair(*_pair_inputs(b, 4 * kv, kv, s, d, pair,
+                              _edge_lengths(b, s, keys, seed=s + d), s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", SMOKE.DECODE_GROUPS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=str)
+def test_kernel_every_group_and_head_dim_in_every_pair(cuda_device, group, d,
+                                                      pair):
+    """The tensor-core route's N = 8 holds up to 8 query heads; 12 takes
+    two head blocks.  300 keys in 5 splits, one cluster."""
+    b, kv, s = 8, 2, 300
+    _, keys = plan_splits(b, kv, s, d, *pair)
+    _check_pair(*_pair_inputs(b, kv * group, kv, s, d, pair,
+                              _edge_lengths(b, s, keys, seed=group), d))
+
+
+@pytest.mark.cuda
+def test_kernel_launches_the_kernels_its_plan_names(cuda_device):
+    """The kernel nodes of a CUDA graph that captures one call, by name in
+    order (``chip_smoke.graph_kernels``): the block kernel of q's dtype
+    alone up to a cluster's splits, then the combine kernel past them, as
+    ``kernel_names`` says; a replayed graph's output is right."""
+    from repro_torch.kernels.decode_attention import kernel_names
+    for pair, (b, kv, s, d), expected in (
+            (DECODE_PAIRS[1], (8, 8, 384, 128), ["decode_mma_kernel"]),
+            (DECODE_PAIRS[0], (8, 8, 384, 128), ["decode_split_kernel"]),
+            (DECODE_PAIRS[2], (8, 8, 384, 128), ["decode_split_kernel"]),
+            (DECODE_PAIRS[1], (7, 1, 513, 64),
+             ["decode_mma_kernel", "decode_combine_kernel"]),
+            (DECODE_PAIRS[0], (1, 1, 4096, 64),
+             ["decode_split_kernel", "decode_combine_kernel"])):
+        q, k, v, lens = _pair_inputs(b, 6 * kv, kv, s, d, pair, None, 3)
+        assert kernel_names(q.dtype, k.dtype, b, kv, s, d) == expected
+        assert (plan_splits(b, kv, s, d, q.dtype, k.dtype)[0]
+                > CLUSTER_MAX) == (len(expected) == 2)
+        names = SMOKE.graph_kernels(
+            torch, lambda: decode_attention(q, k, v, lens))
+        assert len(names) == len(expected) and all(
+            stage in name for name, stage in zip(names, expected)), names
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(q, k, v, lens)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), ref.decode_attention_ref(q, k, v, lens).float(),
+            atol=TOL[q.dtype], rtol=TOL[q.dtype])
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_inputs(cuda_device):
     assert 48 not in HEAD_DIMS
@@ -176,17 +275,18 @@ def test_kernel_rejects_unsupported_inputs(cuda_device):
 def test_kernel_reads_a_bf16_cache_under_f32_queries(cuda_device, b, s, group,
                                                      d):
     """A bfloat16 cache under float32 queries: read as it is (no
-    cache-sized buffer is allocated: the call's peak is its output and the
-    split plan's partials) and within the float32 tolerance of the plain
-    version on the upcast cache; the output is float32."""
+    cache-sized buffer is allocated: the call's peak is its output and, past
+    a cluster's splits, the plan's partials) and within the float32
+    tolerance of the plain version on the upcast cache; the output is
+    float32."""
     kv = 2
     q, _, _, lens = _inputs(b, kv * group, kv, s, d, torch.float32,
                             cuda_device, seed=s + group)
     _, k, v, _ = _inputs(b, kv * group, kv, s, d, torch.bfloat16, cuda_device,
                          lengths=lens.cpu().numpy(), seed=s + group + 1)
-    splits = plan_splits(b, kv, s, d)[0]
+    splits = plan_splits(b, kv, s, d, q.dtype, k.dtype)[0]
     needed = 4 * (q.numel() + (splits * b * kv * group * (d + 2)
-                               if splits > 1 else 0))
+                               if splits > CLUSTER_MAX else 0))
     torch.cuda.synchronize()
     base = torch.cuda.memory_stats()["requested_bytes.all.current"]
     torch.cuda.reset_peak_memory_stats()
@@ -668,6 +768,34 @@ def test_flash_kernel_reversed_causal_tiles_with_a_window_across_tiles(
         flash_attention(q, k, v, True, window),
         ref.flash_attention_ref(q, k, v, causal=True, window=window),
         atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d",
+                         [case[1:] for case in SMOKE.FLASH_PERSISTENT])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 65),
+                                           (True, 100), (False, None)])
+def test_flash_bf16_persistent_route(cuda_device, b, h, kv, sq, sk, d,
+                                     causal, window):
+    """On the model's strided views, with the rows' log-sum-exp: against
+    the plain version, a repeat call bit-equal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.RandomState(sq + sk + h)
+    q, k, v = (torch.as_tensor(rng.randn(b, s, heads, d), dtype=torch.float32
+                               ).to(cuda_device, torch.bfloat16
+                                    ).transpose(1, 2)
+               for s, heads in ((sq, h), (sk, kv), (sk, kv)))
+    out, lse = flash_attention(q, k, v, causal, window, with_lse=True)
+    again = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window).float(),
+        atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+    torch.testing.assert_close(
+        lse, ref.flash_attention_lse_ref(q, k, causal=causal, window=window),
+        atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -259,7 +259,9 @@ def _imported_roots(path: pathlib.Path):
                             ROOT / "scripts" / "latency_probe.py",
                             ROOT / "scripts" / "planted_faults.py",
                             ROOT / "scripts" / "acceptance_repeats.py",
-                            ROOT / "scripts" / "main_path_ab.py"],
+                            ROOT / "scripts" / "main_path_ab.py",
+                            ROOT / "scripts" / "decode_plan_sweep.py",
+                            ROOT / "scripts" / "fig20_after_phases.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     roots = set(_imported_roots(path))
