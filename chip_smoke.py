@@ -8,10 +8,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    with nvcc, one process per source, all started together (the two
    backward kernels' libraries finish in a thread beside phases 2-12,
    which launch neither, and phase 13 waits for them and reports their
-   entries' registers and spills); the flash library's entries with
-   ptxas's registers, spills and shared memory, and the HGMMA
+   entries' registers and spills); the flash and SSD libraries' entries
+   with ptxas's registers, spills and shared memory, and the HGMMA
    instructions in each entry's SASS (cuobjdump; "not measured" where the
-   toolkit has none);
+   toolkit has none); the SSD scan's main-path entries (forward here,
+   backward in phase 13) must spill nothing and hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card: decode
    attention at the serve shapes, the sweep shapes, a ragged cache, fully
    masked rows, caches of 1 key, of one tile and of one split and one key
@@ -73,7 +74,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (with the host's per-call cost: ``eager_ms``).  Flash attention and the
    SSD scan also carry their tensor-core bound (``bound_tc_ms``: three
    TF32 passes at 495 TFLOP/s) and, for the SSD scan, the CUDA kernels one
-   call launches, counted by torch.profiler (``cuda_launches_per_call``,
+   call launches (3: the chunk launch, state passing, the output), each
+   launch's device ms, and a second row at the training shape keeping its
+   scratch for the backward, counted by torch.profiler (``cuda_launches_per_call``,
    also for decode attention and V-trace); decode attention is also timed
    at a long cache (b 64, s 2048) and V-trace at shapes up to
    (100, 65536), beyond L2, in both layouts; flash attention fails the run
@@ -160,7 +163,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    version and the plain recompute it replaced, and for flash
    ``scaled_dot_product_attention``'s backward in the path's dtype and in
    bf16 (K/V repeated), beside the bound; one call must launch the
-   designs' CUDA kernels in order (3 for flash, 5 for the SSD scan);
+   designs' CUDA kernels in order (3 for flash, 6 for the SSD scan);
 14. the transformer policy learns Catch on the card: ``run_experiment``
    with ``TransformerPolicyBuilder`` at the reference acceptance's preset
    and schedule (``tests/conftest.py:67-70``, seed 0, 250 episodes, 20
@@ -249,7 +252,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bit for bit; env steps/s, learner steps/s, averaging rounds and the
    effective SPI;
 22. fault tolerance on the card: phase 20's policy in server mode, for
-   750 actor steps, with two learner replicas
+   1500 actor steps, with two learner replicas
    exchanging through the async parameter service every 10 steps (``learner_sync="async"``), once under the reference's
    ``RestartPolicy(max_restarts=3)`` with a chaos kill of
    ``learner/replica_1`` and ``learner/param_service`` at their 10th step
@@ -587,9 +590,14 @@ FIG17_POLICY = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
                     samples_per_insert=0.0, backend="auto")
 FIG17_ACTORS = 4
 FIG17_STEPS = 1500
-# phase 22's two fig17 runs (with failover and without): a quarter of
-# fig17's 3000, for the script's time limit
-FIG17_FAILOVER_STEPS = 750
+# phase 22's two fig17 runs (with failover and without): half of fig17's
+# 3000, for the script's time limit.  The chaos kill of the parameter
+# service lands at about its 5th exchange (each replica's step 25-35) and
+# the check after it needs a round past the service's restore: at 750
+# actor steps the replicas took 3-22 steps past the restore before the
+# run ended, within one exchange period of 10, so a slow host could end
+# the run before any round followed the restore.
+FIG17_FAILOVER_STEPS = 1500
 FIG17_TIMEOUT_S = 300.0
 # Phase 21: the reference's distributed DQN acceptances on the card:
 # tests/test_distributed.py:631-662 (2 replay shards, an evaluator, 4000
@@ -1552,6 +1560,52 @@ def ptxas_usage(build_log):
     return usage
 
 
+# the SSD scan's entries on the main paths, as the short names of
+# ssd_entries: f32 at head dim 64 and d_state 64 (Zamba2's scoring and
+# training) and at head dim 16 and d_state 16 (the reduced families'
+# training, phase 25 (c)).  ptxas must report no spills for them, and each
+# product must be HGMMA in their SASS
+SSD_MAIN_ENTRIES = {
+    "ssd_scan": ("ssd_chunk_kernelIffLi64ELb0EE",
+                 "ssd_output_kernelIfLi64EE",
+                 "ssd_chunk_kernelIffLi16ELb0EE",
+                 "ssd_output_kernelIfLi16EE"),
+    "ssd_scan_bwd": ("ssd_chunk_kernelIffLi64ELb1EE", "ssd_bwd_dx_kernelIfLi64EE",
+                     "ssd_bwd_dg_kernelIfLi64EE",
+                     "ssd_bwd_sum_kernelIfLi64ELi64EE",
+                     "ssd_chunk_kernelIffLi16ELb1EE", "ssd_bwd_dx_kernelIfLi16EE",
+                     "ssd_bwd_dg_kernelIfLi16EE",
+                     "ssd_bwd_sum_kernelIfLi16ELi64EE")}
+
+
+def ssd_entries(build_log, library):
+    """An SSD library's entries under short names (the kernel and its
+    template arguments): ptxas's usage, and HGMMA lines in the SASS (None
+    when cuobjdump is missing)."""
+    short = r"(?:ssd_bwd_|ssd_)[a-z]+_kernel(?:I\w+?EE)?"
+    usage = {re.search(short, entry).group(0): u
+             for entry, u in ptxas_usage(build_log).items()
+             if re.search(short, entry)}
+    counts = sass_counts(library, "HGMMA")
+    hgmma = None if counts is None else {
+        re.search(short, entry).group(0): lines
+        for entry, lines in counts.items() if re.search(short, entry)}
+    return usage, hgmma
+
+
+def check_ssd_entries(usage, hgmma, main, what):
+    """The main paths' entries spill nothing and run on wgmma."""
+    for entry in main:
+        got = usage.get(entry, {})
+        check(got.get("spill_store_bytes", 0) == 0
+              and got.get("spill_load_bytes", 0) == 0 and "registers" in got,
+              f"{what}: entry {entry} has ptxas usage {got}, not one "
+              f"without spills")
+        if hgmma is not None:
+            check(bool(hgmma.get(entry)), f"{what}: entry {entry} has "
+                  f"{hgmma.get(entry)} HGMMA lines in its SASS")
+
+
 def sass_counts(library, opcode):
     """{kernel entry: lines of its SASS that hold ``opcode``}, from the
     toolkit's cuobjdump; None where the toolkit has none."""
@@ -1993,31 +2047,34 @@ def launched_kernels(torch, fn, stages, what, tries=3, wrapper=None):
     return len(names), {stage: ms for stage, (_, ms) in zip(stages, traced)}
 
 
-def time_ssd(kernel, ref, torch, cfg):
-    """At the shape of one Mamba2 layer of the scoring path: the kernel and
-    its plain version; no single PyTorch call computes the SSD scan, so
-    there is no library yardstick.  One call must launch the design's four
-    CUDA kernels once each, in order, and nothing else."""
+def time_ssd(kernel, ref, torch, cfg, shape=None, keep=False):
+    """At the shape of one Mamba2 layer of the scoring path (or ``shape``,
+    (b, s), with the model's widths): the kernel and its plain version; no
+    single PyTorch call computes the SSD scan, so there is no library
+    yardstick.  With ``keep`` the kernel keeps its scratch for the backward,
+    as training's forward does.  One call must launch the design's three
+    CUDA kernels once each, in order (the chunk launch, state passing, the
+    output), and nothing else."""
     s_cfg = cfg.ssm
-    b, s, h, p, n, chunk = (ZAMBA_BATCH, ZAMBA_SEQ,
-                            s_cfg.num_heads(cfg.d_model), s_cfg.head_dim,
-                            s_cfg.d_state, s_cfg.chunk_size)
+    b, s = shape or (ZAMBA_BATCH, ZAMBA_SEQ)
+    h, p, n, chunk = (s_cfg.num_heads(cfg.d_model), s_cfg.head_dim,
+                      s_cfg.d_state, s_cfg.chunk_size)
     inputs = ssd_inputs(b, s, h, p, n, np.random.RandomState(SEED + 8),
                         model_like=True)
     err_y, err_state, abs_err, _ = ssd_errors(kernel, ref, inputs, chunk)
     bound, bound_by, bound_tc = ssd_bound(b, s, h, p, n, chunk)
     timed = {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
-                       "chunk": chunk, "dtype": "float32"},
+                       "chunk": chunk, "dtype": "float32", "keep": keep},
              "max_abs_err_timed": abs_err,
              "max_scaled_err_timed": max(err_y, err_state),
              "bound_ms": bound, "bound_by": bound_by,
              "bound_tc_ms": bound_tc, "library_ms": None}
-    calls = {"": lambda: kernel(*inputs, chunk),
+    calls = {"": lambda: kernel(*inputs, chunk, keep=keep),
              "plain_": lambda: ref.ssd_scan_ref(*inputs, chunk)}
     timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
         launched_kernels(torch, calls[""],
                          [f"ssd_{stage}_kernel" for stage in
-                          ("scores", "states", "pass", "output")],
+                          ("chunk", "pass", "output")],
                          "ssd_scan"))
     for prefix, fn in calls.items():
         timed[f"{prefix}ms"] = time_ms(fn, warmup=3, launches=20, graph=True)
@@ -3282,8 +3339,9 @@ def time_ssd_bwd(torch, ref, ssd, ssd_bwd, cfg):
     the plain backward version and the plain recompute; no single PyTorch
     call computes the SSD scan's backward.  The kernel's grads must be
     within GRAD_TOL of the plain backward's largest magnitude, and a repeat
-    bit-equal.  One call must launch the design's five CUDA kernels once
-    each, in order."""
+    bit-equal.  One call must launch the design's six CUDA kernels once
+    each, in order (local states on the chunk launch, state passing
+    backwards, dx, dG, dt, the sums)."""
     ssm = cfg.ssm
     b, s = TRAIN_ZAMBA_SHAPE
     h, p, n, chunk = (ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
@@ -3332,9 +3390,9 @@ def time_ssd_bwd(torch, ref, ssd, ssd_bwd, cfg):
             y, final = ref.ssd_scan_ref(*inputs, chunk)
             return torch.autograd.grad((y, final), inputs, (gy, gf))
     timed["cuda_launches_per_call"], timed["device_ms_by_kernel"] = (
-        launched_kernels(torch, bwd, ("ssd_bwd_local", "ssd_bwd_pass",
-                                      "ssd_bwd_pairs", "ssd_bwd_dt",
-                                      "ssd_bwd_sum"),
+        launched_kernels(torch, bwd, ("ssd_chunk_kernel", "ssd_bwd_pass",
+                                      "ssd_bwd_dx", "ssd_bwd_dg",
+                                      "ssd_bwd_dt", "ssd_bwd_sum"),
                          "ssd_scan_bwd", wrapper=ssd_bwd))
     timed["ms"] = time_ms(bwd, warmup=3, launches=20, graph=True)
     timed["eager_ms"] = time_ms(bwd, warmup=3, launches=20, graph=False)
@@ -4758,7 +4816,10 @@ def fig17_failover(torch, kernels, fig17):
                            if r["service"] == "learner/param_service")
             check(learners["rounds"] > service["rounds"],
                   f"fig17 {name}: rounds {learners['rounds']} not past "
-                  f"{service['rounds']} at the service's restore")
+                  f"{service['rounds']} at the service's restore (replica "
+                  f"steps {learners['per_replica_steps']} at the end, "
+                  f"{service['replica_steps']} at the restore, an exchange "
+                  f"every {learners['average_period']})")
             check(all(n > at for n, at in zip(learners["per_replica_steps"],
                                               last["replica_steps"])),
                   f"fig17 {name}: a replica did not step after the last "
@@ -5778,8 +5839,10 @@ def profile_train_step(torch, run):
            "idle_share": 1 - device_ms / wall_ms,
            "gemm_ms": kind(lambda k: "gemm" in k),
            "flash_forward_ms": kind(lambda k: "flash_attention_kernel" in k),
+           # the backward's local states run the chunk launch (, true>)
            "ssd_forward_ms": kind(lambda k: "ssd_" in k and "kernel" in k
-                                  and "ssd_bwd" not in k)}
+                                  and "ssd_bwd" not in k
+                                  and ", true>" not in k)}
     for key, fn in (("flash_backward", "FlashAttentionFunctionBackward"),
                     ("ssd_backward", "SSDScanFunctionBackward")):
         out[f"{key}_ms"], out[f"{key}_calls"] = backward_device_ms(prof, fn)
@@ -6467,7 +6530,7 @@ def main() -> int:
     phase("phase 1: build")
     t0 = time.monotonic()
     # Every nvcc starts here, together.  The backward kernels' libraries
-    # (the flash backward's 18 entries and the SSD's 22, ~70 s together)
+    # (the flash backward's 18 entries and the SSD's 40, ~70 s together)
     # finish in a thread while phases 2-12, which launch none of them,
     # run; phase 13 waits for them.  The thread is not a daemon, so a run that fails earlier
     # still waits for its compilers before it exits.
@@ -6508,6 +6571,12 @@ def main() -> int:
                   f"{count} HGMMA lines in its SASS")
     decode_usage = ptxas_usage(report["decode_attention"]["log"])
     log(f"  decode_attention entries (ptxas): {json.dumps(decode_usage)}")
+    ssd_usage, ssd_hgmma = ssd_entries(report["ssd_scan"]["log"],
+                                       build.library_path("ssd_scan"))
+    log(f"  ssd_scan entries (ptxas; HGMMA lines in SASS): "
+        f"{json.dumps(ssd_usage)}; {json.dumps(ssd_hgmma)}")
+    check_ssd_entries(ssd_usage, ssd_hgmma, SSD_MAIN_ENTRIES["ssd_scan"],
+                      "ssd_scan")
 
     phase("phase 2: kernels against their plain versions")
     decode = decode_module.decode_attention
@@ -6580,6 +6649,10 @@ def main() -> int:
     flash_zoo = time_flash_zoo(flash, ref, torch, flash_usage, flash_hgmma)
     ssd_timed = time_ssd(ssd, ref, torch, zamba)
     log(f"  ssd_scan {json.dumps(ssd_timed)}")
+    ssd_timed_train = time_ssd(ssd, ref, torch, zamba,
+                               shape=TRAIN_ZAMBA_SHAPE, keep=True)
+    log(f"  ssd_scan at the training shape, keeping its scratch "
+        f"{json.dumps(ssd_timed_train)}")
 
     phase(f"phase 6: IMPALA path — make_agent(IMPALABuilder) over "
         f"{IMPALA_ENVS} Catch envs, {IMPALA_EPISODES} episodes")
@@ -6622,7 +6695,7 @@ def main() -> int:
     report.update(backward["report"])
     bwd_usage, bwd_hgmma = {}, {}
     for name in ("flash_attention_bwd", "ssd_scan_bwd"):
-        short = r"(?:flash|ssd)_bwd_[a-z]+_kernel(?:I\w+?EE)?"
+        short = r"(?:flash_bwd_|ssd_bwd_|ssd_)[a-z]+_kernel(?:I\w+?EE)?"
         bwd_usage[name] = {
             re.search(short, entry).group(0): usage
             for entry, usage in ptxas_usage(report[name]["log"]).items()}
@@ -6636,6 +6709,8 @@ def main() -> int:
                 f"{usage.get('spill_store_bytes', 0)} B spilled, HGMMA "
                 f"{'not measured' if bwd_hgmma[name] is None else bwd_hgmma[name].get(entry)}"
                 for entry, usage in sorted(bwd_usage[name].items())))
+    check_ssd_entries(bwd_usage["ssd_scan_bwd"], bwd_hgmma["ssd_scan_bwd"],
+                      SSD_MAIN_ENTRIES["ssd_scan_bwd"], "ssd_scan_bwd")
     # every entry of the flash backward's main launch runs on wgmma
     main_entries = {entry: lines for entry, lines in
                     (bwd_hgmma["flash_attention_bwd"] or {}).items()
@@ -6875,6 +6950,9 @@ def main() -> int:
         "bound_ms": ssd_timed["bound_ms"], "bound_by": ssd_timed["bound_by"],
         "bound_tc_ms": ssd_timed["bound_tc_ms"],
         "cuda_launches_per_call": ssd_timed["cuda_launches_per_call"],
+        "device_ms_by_kernel": ssd_timed["device_ms_by_kernel"],
+        "training_shape_keeping_scratch": ssd_timed_train,
+        "ptxas": ssd_usage, "hgmma_sass_lines": ssd_hgmma,
         "library_ms": None, "eager_ms": ssd_timed["eager_ms"],
         "eager_plain_ms": ssd_timed["eager_plain_ms"],
         "shape": ssd_timed["shape"],

@@ -3,7 +3,7 @@ card, in the order A, B, B, A, each run in a process of its own; then
 their numbers side by side.
 
   python scripts/main_path_ab.py --a DIR --b DIR
-                                 [--what main|decode|flash_forward|backward]
+                                 [--what main|decode|flash_forward|ssd|backward]
                                  [--out FILE]
 
 ``--a`` and ``--b`` are the roots of two checkouts (for example the parent
@@ -22,6 +22,12 @@ functions' own checks hold, so a run fails as the phase would.  What runs:
   ``time_flash``, ``time_flash_policy`` and ``time_flash_zoo`` (each call
   against the plain version): device ms (a CUDA graph's replay) and eager
   ms at the main paths' shapes;
+- ``ssd``: the SSD scan's forward at Zamba2-1.2B's scoring shape (phase
+  5) and at its training shape keeping its scratch for the backward (phase
+  13's forward), and ``time_ssd_bwd`` at the training shape, each held to
+  the plain version: device ms (a CUDA graph's replay), eager ms, and each
+  launch's device ms (torch.profiler; rows named by the checkout's own
+  kernels, so they appear in the records but not side by side);
 - ``backward``: phase 13's timed backward shapes, ``time_flash_bwd`` at
   Zamba2's training shape (f32, d 64) and qwen3-1.7b's (d 128, f32 and
   bf16), ``time_ssd_bwd`` at Zamba2's, and the flash backward over every
@@ -41,7 +47,7 @@ import sys
 from pathlib import Path
 
 PRELUDE = r"""
-import json, sys, time
+import json, re, sys, time
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
 import torch
@@ -124,6 +130,48 @@ for name, row in timed.items():
         if key in row:
             rows[f"{name} {key.replace('_ms', '')} ms"] = row[key]
 print("AB_RESULT " + json.dumps({"seconds": {"flash rows":
+                                             time.monotonic() - t0},
+                                 "rows": rows}))
+""", "ssd": PRELUDE + r"""
+build.build(["ssd_scan", "ssd_scan_bwd"])
+ssd, ssd_bwd = ssd_scan.ssd_scan, ssd_scan.ssd_scan_bwd
+zamba = configs.get_arch(chip_smoke.ZAMBA)
+ssm = zamba.ssm
+h, p, n, chunk = (ssm.num_heads(zamba.d_model), ssm.head_dim, ssm.d_state,
+                  ssm.chunk_size)
+t0 = time.monotonic()
+rows = {}
+for label, (b, s), keep in (
+        ("forward scoring", (chip_smoke.ZAMBA_BATCH, chip_smoke.ZAMBA_SEQ),
+         False),
+        ("forward training keep", chip_smoke.TRAIN_ZAMBA_SHAPE, True)):
+    inputs = chip_smoke.ssd_inputs(
+        b, s, h, p, n, chip_smoke.np.random.RandomState(chip_smoke.SEED + 8),
+        model_like=True)
+
+    def fwd():
+        return ssd(*inputs, chunk, None, keep=keep)
+    y, final = fwd()[:2]
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk)
+    err = max(((a - e).abs().max() / (e.abs().max() + 1.0)).item()
+              for a, e in ((y, y_ref), (final, final_ref)))
+    assert err <= chip_smoke.SSD_PATH_TOL, (label, err)
+    del y, final, y_ref, final_ref
+    rows[f"{label} ms"] = chip_smoke.time_ms(fwd, warmup=3, launches=20,
+                                             graph=True)
+    rows[f"{label} eager ms"] = chip_smoke.time_ms(fwd, warmup=3,
+                                                   launches=20, graph=False)
+    for i, (name, ms) in enumerate(chip_smoke.profiled_kernels(torch, fwd)
+                                   or []):
+        kernel = re.search(r"ssd_\w+?_kernel", name)
+        rows[f"{label} launch {i} {kernel.group(0) if kernel else name} ms"] \
+            = ms
+bwd = chip_smoke.time_ssd_bwd(torch, ref, ssd, ssd_bwd, zamba)
+rows["backward training ms"] = bwd["ms"]
+rows["backward training eager ms"] = bwd["eager_ms"]
+for name, ms in bwd["device_ms_by_kernel"].items():
+    rows[f"backward training launch {name} ms"] = ms
+print("AB_RESULT " + json.dumps({"seconds": {"ssd rows":
                                              time.monotonic() - t0},
                                  "rows": rows}))
 """, "backward": PRELUDE + r"""
@@ -223,6 +271,8 @@ def main(argv=None) -> int:
             continue  # a row one checkout does not time
         a = [r["rows"][name] for r in runs if r["label"] == "A"]
         b = [r["rows"][name] for r in runs if r["label"] == "B"]
+        if any(v is None for v in a + b):
+            continue  # a launch the profiler did not record
         print(f"{name}: A {a[0]:.6g}, {a[1]:.6g} (mean "
               f"{statistics.mean(a):.6g}); B {b[0]:.6g}, {b[1]:.6g} (mean "
               f"{statistics.mean(b):.6g}); B/A "

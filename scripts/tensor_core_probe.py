@@ -13,8 +13,9 @@ Four measurements, in one process on one CUDA card:
    take one part of its work out.  A variant computes a wrong result and is
    only timed;
 4. the SSD scan at the scoring path's shape (b 4, s 2048, h 64, p 64, n 64,
-   chunk 256, float32) beside the variants of the shared header, with the
-   device time of each of its four CUDA kernels from torch.profiler.
+   chunk 256, float32) beside the variants of its pipeline header
+   (``ssd_pipe.cuh``), with the device time of each of its three CUDA
+   kernels from torch.profiler.
 
 The variants are built from copies of ``csrc/`` sources edited as text,
 into ``src/repro_torch/kernels/_build/probe/`` (which git ignores), with
@@ -104,13 +105,14 @@ MMA_RATE_CONFIGS = [(4, 2, 1), (4, 2, 2), (4, 2, 4), (4, 2, 8), (4, 4, 8),
 _HDR = "tf32_mma.cuh"
 _SRC = "flash_attention.cu"
 ONE_PASS = [(_HDR, "  mma(c, a_lo, b_hi);\n  mma(c, a_hi, b_lo);\n"
-             "  mma(c, a_hi, b_hi);\n}", "  mma(c, a_hi, b_hi);\n}"),
-            (_HDR, "#pragma unroll\n"
-             "  for (int i = 0; i < N; ++i) mma(c[i], a_lo, b_hi[i]);\n"
-             "#pragma unroll\n"
-             "  for (int i = 0; i < N; ++i) mma(c[i], a_hi, b_lo[i]);\n", "")]
+             "  mma(c, a_hi, b_hi);\n}", "  mma(c, a_hi, b_hi);\n}")]
 NO_SPLIT = (_HDR, "  hi = tf32(x);\n  lo = tf32(x - __uint_as_float(hi));",
             "  hi = __float_as_uint(x);\n  lo = hi;")
+# the SSD scan's products and splits are in its pipeline header
+_SSD = "ssd_pipe.cuh"
+SSD_ONE_PASS = [(_SSD, "    hop::wgmma_rs_tf32<N>(acc, a.lo[kk], bh, 1);\n"
+                 "    hop::wgmma_rs_tf32<N>(acc, a.hi[kk], bl, 1);\n", "")]
+SSD_NO_SPLIT = (_SSD, NO_SPLIT[1], NO_SPLIT[2])
 NO_EXP2 = (_SRC, "exp2f(", "(")
 NO_LOADS = [(_SRC, "    tc::stage(k_s, LD, k_bh", "    if (false) "
              "tc::stage(k_s, LD, k_bh"),
@@ -136,10 +138,10 @@ VARIANTS = {"flash_attention": {
     "mma_and_smem_only": ("the split, exp2f, the K/V loads and the barrier",
                           [NO_SPLIT, NO_EXP2, *NO_LOADS, NO_BARRIER]),
 }, "ssd_scan": {
-    "one_tf32_pass": ("two of the three mma passes (and the lo halves "
-                      "that only they read)", ONE_PASS),
-    "no_split": ("the hi/lo split: cvt.rna x2 and a subtraction per "
-                 "operand element", [NO_SPLIT]),
+    "one_tf32_pass": ("two of the three wgmma passes a k-step",
+                      SSD_ONE_PASS),
+    "no_split": ("the hi/lo split: two roundings and a subtraction per "
+                 "operand element", [SSD_NO_SPLIT]),
 }}
 
 

@@ -1,4 +1,4 @@
-// Mamba2 SSD chunk scan for Hopper (sm_90a), on tensor cores.
+// Mamba2 SSD chunk scan for Hopper (sm_90a), on TF32 wgmma.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel` / `ssd_scan` in
 // src/repro/kernels/ssd_scan.py.  For every batch row and head, with the
@@ -21,36 +21,46 @@
 // Layouts: x (b, s, h, p) f32 or bf16; dt (b, s, h) f32; A (h,) f32;
 // B, C (b, s, n) in x's type (one group, shared by every head); h0 and the
 // final state (b, h, n, p) f32; y (b, s, h, p) f32.  All contiguous.
-// Scratch, from the caller: cum (b, s, h) f64, G (b, nc, Q, Q) f32 and the
-// chunk states (b, nc, h, n, p) f32, nc = s / Q.
+// Scratch, from the caller, which the backward reads: cum (b, s, h) f64,
+// G = C.B^T (b, nc, Q, Q) f32 and the states entering each chunk (b, nc, h,
+// n, p) f32, nc = s / Q.
 //
 // What bounds it: operations.  Per chunk, C.B^T over the Q (Q + 1) / 2
 // pairs once for all heads (they share B and C), then per head the
 // decay-weighted scores times x, C times the entering state and the chunk
 // state, Q n p multiply-adds each: far above the ~20 operations per byte
 // the card needs before compute is the limit.  Every product runs on
-// tensor cores, f32-accurate in three TF32 passes (tf32_mma.cuh).  The
+// TF32 wgmma in three passes (f32-accurate), on the pipeline of
+// ssd_pipe.cuh: a producer warpgroup copies raw tiles into each consumer's
+// ring; two consumer warpgroups split each B operand into TF32 hi and lo
+// planes once (transposing x and the states as they split them), build
+// their A operands in registers and take turns at the tensor cores.  The
 // design is the chunked SSD of Mamba2 (arXiv:2405.21060 section 7): the
 // TPU grid walks the chunks in order and carries the state in VMEM; here
-// only the short state recurrence is serial, in four kernels launched in
+// only the short state recurrence is serial, in three kernels launched in
 // order on one stream:
-//   1. scores, grid (chunk x tile pair, b): the f64 cumulative sums of
-//      every head, and G = C.B^T once per (batch row, chunk) for all heads,
-//      one 64 x 64 tile at or below the diagonal per block;
-//   2. chunk states, grid (chunk x n-tile, h, b): S_c = B^T (w x) over the
-//      chunk, w_j = dt_j exp(cum_last - cum_j), all chunks in parallel;
-//   3. state passing, grid (n p / 256, h, b): S_in(c + 1) = exp(cum_last)
+//   1. chunk, grid (chunk, group of 8 heads, b): the group's f64
+//      cumulative sums (one warp a head, a scan over the lanes), the
+//      tile pairs of G = C.B^T that fall to the group (A: C from
+//      registers; B: B's planes), and each head's chunk state S_c =
+//      (w B)^T x, w_j = dt_j exp(cum_last - cum_j) (A: w_j B_j from
+//      registers; B: x's transposed planes);
+//   2. state passing, grid (n p / 256, h, b): S_in(c + 1) = exp(cum_last)
 //      S_in(c) + S_c from h0 or zero, written over S_c, and the final
 //      state: the one serial pass, short and memory-bound;
-//   4. chunk scan, grid (row tile x chunk, h, b): y for 64 rows, the
-//      decay-weighted G tile built in registers from G and the f64 sums
-//      (below the diagonal as G_ij u_i w_j, with per-tile factors <= 1),
-//      times x over the tiles at or below the diagonal, plus
-//      (exp(cum_i) C_i).S_in; the heaviest row tiles launch first.
-// Tiles of x, B, C, G and the states are staged in shared memory by
-// 16-byte cp.async, double-buffered in kernels 2 and 4; bf16 x, B and C
-// are copied as they are and widened to f32 as fragments are loaded.
-// wgmma, TMA and warp specialisation are later work.
+//   3. output, one block a (row tile, group of 8 heads, chunk, b), the row
+//      tiles that read the same x tiles side by side and the heaviest
+//      first: the block copies the row tile's G tiles once, for all its
+//      heads, and C's rows; per head, y = (exp(cum_i) C_i) . S_in (B:
+//      S_in's transposed planes) plus the decay-weighted G tile . x over
+//      the tiles at or below the diagonal (B: x's transposed planes).
+//      Below the diagonal every weight factors as G_ij u_i w_j against one
+//      reference, the step before the row tile: u_i = exp(cum_i - ref), w_j
+//      = exp(ref - cum_j) dt_j, both <= 1, formed once a head; on the
+//      diagonal each weight comes from its own f64 difference.  A consumer
+//      builds the next item under the current item's products.
+// G goes through device memory once and is read once a block, not once a
+// head; x is read by launches 1 and 3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,219 +68,18 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "tf32_mma.cuh"
+#include "ssd_pipe.cuh"
 
 namespace {
 
-constexpr int kTile = 64;       // rows per tile of a chunk
-constexpr int kMaxChunk = 256;
-constexpr int kMaxState = 128;  // n
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 227 * 1024;
+using ssd::cdiv;
+using ssd::kK;
+using ssd::kMaxChunk;
+using ssd::kThreads;
+using ssd::kTile;
+using ssd::staged_ld;
 
-// Shared-memory row pads, in elements, that keep rows 16-byte aligned and
-// the fragment loads free of bank conflicts: kPadCol for tiles whose
-// product sums along a row (lanes read down 8 rows, 4 columns), kPadRow for
-// tiles whose product sums down the columns (4 rows, 8 columns).
-template <typename T>
-constexpr int kPadCol = sizeof(T) == 4 ? 4 : 8;
-constexpr int kPadRow = 8;
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-template <typename T>
-__device__ __forceinline__ bool whole_chunks(int cols) {
-  return cols % (16 / (int)sizeof(T)) == 0;
-}
-
-// ------------------------------------------------- 1. cumulative sums, G
-template <typename T>
-__host__ __device__ constexpr size_t scores_smem(int n) {
-  return 2 * (size_t)kTile * (round_up(n, 8) + kPadCol<T>) * sizeof(T);
-}
-
-// The lower-triangle tile pair `pair` of a chunk: (ti, tj), tj <= ti.
-__device__ __forceinline__ void tile_pair(int pair, int& ti, int& tj) {
-  ti = 0;
-  while ((ti + 1) * (ti + 2) / 2 <= pair) ++ti;
-  tj = pair - ti * (ti + 1) / 2;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-    ssd_scores_kernel(const float* __restrict__ dt,
-                      const float* __restrict__ A, const T* __restrict__ Bm,
-                      const T* __restrict__ Cm, double* __restrict__ cum,
-                      float* __restrict__ G, int s, int h, int n, int chunk) {
-  constexpr int kBatch = 16;  // loads in flight per thread
-  const int tiles = (chunk + kTile - 1) / kTile;
-  const int pairs = tiles * (tiles + 1) / 2;
-  const int c = blockIdx.x / pairs;
-  const int pair = blockIdx.x - c * pairs;
-  const int nc = gridDim.x / pairs;
-  const int row = blockIdx.y;
-  const size_t t0 = (size_t)row * s + (size_t)c * chunk;
-
-  // the chunk's inclusive cumulative sums of dt * A, in f64, one head per
-  // thread in order, the heads spread over the chunk's blocks (coalesced:
-  // neighbouring heads are neighbours in dt)
-  for (int head = pair * blockDim.x + threadIdx.x; head < h;
-       head += pairs * blockDim.x) {
-    const float a = A[head];
-    const float* d = dt + t0 * h + head;
-    double* out = cum + t0 * h + head;
-    double acc = 0.0;
-    for (int i0 = 0; i0 < chunk; i0 += kBatch) {
-      float step[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        step[u] = i0 + u < chunk ? d[(size_t)(i0 + u) * h] : 0.f;
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (i0 + u < chunk) {
-          acc += (double)(step[u] * a);
-          out[(size_t)(i0 + u) * h] = acc;
-        }
-    }
-  }
-
-  // G[i][j] = C_i . B_j on this block's 64 x 64 tile; each warp takes 16
-  // rows x 32 columns
-  int ti, tj;
-  tile_pair(pair, ti, tj);
-  const int i0 = ti * kTile;
-  const int j0 = tj * kTile;
-  const int np = round_up(n, 8);
-  const int ld = np + kPadCol<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* c_s = reinterpret_cast<T*>(smem_raw);
-  T* b_s = c_s + kTile * ld;
-  const T* C0 = Cm + (t0 + i0) * n;
-  const T* B0 = Bm + (t0 + j0) * n;
-  const bool vec = tc::aligned16(C0, n) && tc::aligned16(B0, n) &&
-                   whole_chunks<T>(n);
-  tc::stage(c_s, ld, C0, n, min(kTile, chunk - i0), kTile, n, np, vec);
-  tc::stage(b_s, ld, B0, n, min(kTile, chunk - j0), kTile, n, np, vec);
-  tc::cp_async_commit();
-  tc::cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wr = 16 * (warp >> 1);
-  const int wc = 32 * (warp & 1);
-  float acc[4][4] = {};
-  tc::warp_mma3<4>(
-      acc, np,
-      [&](int r, int k) { return tc::to_float(c_s[(wr + r) * ld + k]); },
-      [&](int k, int col) { return tc::to_float(b_s[(wc + col) * ld + k]); });
-  float* G_c = G + ((size_t)row * nc + c) * chunk * chunk;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + wr + (lane >> 2) + (e < 2 ? 0 : 8);
-      const int j = j0 + wc + 8 * nt + 2 * (lane & 3) + (e & 1);
-      if (i < chunk && j < chunk) G_c[(size_t)i * chunk + j] = acc[nt][e];
-    }
-}
-
-// ----------------------------------------------------- 2. chunk states
-template <typename T, int P>
-__host__ __device__ constexpr size_t states_smem(int n) {
-  return kMaxChunk * sizeof(float) +
-         2 * (size_t)kTile *
-             (round_up(n < kTile ? n : kTile, 16) + kPadRow + P + kPadRow) *
-             sizeof(T);
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(128)
-    ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                      const T* __restrict__ Bm,
-                      const double* __restrict__ cum, float* __restrict__ S,
-                      int s, int h, int n, int chunk) {
-  constexpr int LDX = P + kPadRow;
-  const int ntn = (n + kTile - 1) / kTile;
-  const int c = blockIdx.x / ntn;
-  const int n0 = (blockIdx.x - c * ntn) * kTile;
-  const int nc = gridDim.x / ntn;
-  const int head = blockIdx.y;
-  const int row = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nn = min(kTile, n - n0);       // state rows of this block
-  const int nnp = round_up(nn, 16);
-  const int ldb = nnp + kPadRow;
-  const size_t t0 = (size_t)row * s + (size_t)c * chunk;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* w_s = reinterpret_cast<float*>(smem_raw);  // kMaxChunk
-  T* tiles_s = reinterpret_cast<T*>(w_s + kMaxChunk);
-  const int stage_len = kTile * (ldb + LDX);
-
-  // w_j = dt_j exp(cum_last - cum_j), 0 past the chunk
-  const double last = cum[(t0 + chunk - 1) * h + head];
-  for (int j = threadIdx.x; j < kMaxChunk; j += blockDim.x)
-    w_s[j] = j < chunk ? dt[(t0 + j) * h + head] *
-                             expf((float)(last - cum[(t0 + j) * h + head]))
-                       : 0.f;
-
-  const T* B0 = Bm + t0 * n + n0;
-  const T* x0 = x + t0 * h * P + (size_t)head * P;
-  const bool b_vec = tc::aligned16(B0, n) && whole_chunks<T>(nn);
-  const bool x_vec = tc::aligned16(x0, (long long)h * P);
-  const int tiles = (chunk + kTile - 1) / kTile;
-  auto stage = [&](int it) {
-    const int j0 = it * kTile;
-    const int rows = min(kTile, chunk - j0);
-    T* b_s = tiles_s + (it & 1) * stage_len;
-    tc::stage(b_s, ldb, B0 + (size_t)j0 * n, n, rows, kTile, nn, nnp, b_vec);
-    tc::stage(b_s + kTile * ldb, LDX, x0 + (size_t)j0 * h * P,
-              (long long)h * P, rows, kTile, P, P, x_vec);
-    tc::cp_async_commit();
-  };
-
-  // warp w: state rows n0 + wr .. + 16, all P columns
-  const int wr = 16 * warp;
-  float acc[P / 8][4] = {};
-  stage(0);
-  for (int it = 0; it < tiles; ++it) {
-    tc::cp_async_wait<0>();
-    __syncthreads();  // tile `it` and w_s are in; the other buffer is free
-    if (it + 1 < tiles) stage(it + 1);
-    if (wr < nn) {
-      const T* b_s = tiles_s + (it & 1) * stage_len;
-      const T* x_s = b_s + kTile * ldb;
-      const float* w = w_s + it * kTile;
-      tc::warp_mma3<P / 8>(
-          acc, kTile,
-          [&](int r, int k) { return tc::to_float(b_s[k * ldb + wr + r]); },
-          [&](int k, int col) {
-            return tc::to_float(x_s[k * LDX + col]) * w[k];
-          });
-    }
-  }
-
-  float* S_c = S + (((size_t)row * nc + c) * h + head) * n * P;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = wr + g + 8 * half;
-    if (r < nn) {
-      float* out = S_c + (size_t)(n0 + r) * P;
-#pragma unroll
-      for (int nt = 0; nt < P / 8; ++nt)
-        *reinterpret_cast<float2*>(out + 8 * nt + 2 * t) = make_float2(
-            acc[nt][2 * half], acc[nt][2 * half + 1]);
-    }
-  }
-}
-
-// ------------------------------------------------------- 3. state passing
+// ------------------------------------------------------- 2. state passing
 __global__ void __launch_bounds__(256)
     ssd_pass_kernel(const double* __restrict__ cum,
                     const float* __restrict__ h0, float* __restrict__ S,
@@ -307,192 +116,259 @@ __global__ void __launch_bounds__(256)
   final_state[off] = state;
 }
 
-// ---------------------------------------------------------- 4. chunk scan
-// Shared memory of the chunk scan, in bytes: the chunk's cumulative sums
-// (f64) and dt, the row decays exp(cum_i), each warp's factors of an
-// off-diagonal tile (16 rows, 64 columns), then two buffers of a G tile and
-// an x tile.  The C tile and the entering state are used once, before the
-// loop, and share the second buffer's space.
-constexpr size_t kOutputHead =
-    kMaxChunk * (sizeof(double) + sizeof(float)) +
-    (kTile + 4 * (16 + kTile)) * sizeof(float);
 
-template <typename T, int P>
-__host__ __device__ constexpr size_t output_ring_len() {
-  return (size_t)kTile *
-         ((kTile + 4) * sizeof(float) + (P + kPadRow) * sizeof(T));
-}
+// ------------------------------------------------------------- 3. output
+// Shared memory: each consumer's planes (P rows; two pairs where they
+// fit), the rings (a stage holds one x or state tile), the row tile's G
+// tiles (rows of LDG; sized at launch), C's 64 rows, each consumer's
+// cumulative sums, dt and a head's factors u and w, the barriers.
+template <int P>
+struct OutLayout {
+  // two plane pairs a consumer (the next item's split under the current
+  // item's products) where they fit, one at P 128
+  static constexpr int kPairs = P <= 64 ? 2 : 1;
+  static constexpr uint32_t kPlanes = kPairs * 2 * P * 128;
+  static constexpr uint32_t kStage = 32 * staged_ld<float>(P) * 4;
+  static constexpr uint32_t kC = kTile * (ssd::kMaxState + 4) * 4;
+  static constexpr uint32_t kConsumer = kMaxChunk * 16 + kTile * 4;
+  static constexpr int LDG = kTile + 4;  // a G tile's rows, read as A(i, j)
+  static constexpr uint32_t kGTile = kTile * LDG * 4;
+  static constexpr uint32_t kFixedMost =
+      2 * kPlanes + 4 * kGTile + kC + 2 * kConsumer;
+  static constexpr int kStages = ssd::stages_for(kFixedMost, kStage);
+  static_assert(kStages > 0, "ssd output: shared memory");
+  static constexpr size_t bytes(int tiles) {
+    return ssd::ring_bytes(kFixedMost, kStage, kStages) -
+           (4 - tiles) * kGTile;
+  }
+};
 
+// One block: row tile ti of a chunk for a group of kHeads heads.  Blocks
+// are numbered ((row * nc + chunk) * groups + group) * tiles + rank, ti =
+// tiles - 1 - rank: the row tiles that read the same x tiles run side by
+// side (x comes from L2 after the first), the heaviest first.
 template <typename T, int P>
-__host__ __device__ constexpr size_t output_once_len(int n) {
-  return (size_t)kTile * (round_up(n, 8) + kPadCol<T>) * sizeof(T) +
-         (size_t)round_up(n, 8) * (P + kPadRow) * sizeof(float);
-}
-
-template <typename T, int P>
-__host__ __device__ constexpr size_t output_smem(int n) {
-  return kOutputHead + output_ring_len<T, P>() +
-         (output_once_len<T, P>(n) > output_ring_len<T, P>()
-              ? output_once_len<T, P>(n)
-              : output_ring_len<T, P>());
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads, 1)
     ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const T* __restrict__ Cm,
                       const double* __restrict__ cum,
                       const float* __restrict__ G,
                       const float* __restrict__ S, float* __restrict__ y,
-                      int s, int h, int n, int chunk) {
-  constexpr int LDX = P + kPadRow;
-  constexpr int LDS = P + kPadRow;
-  constexpr int LDG = kTile + 4;
-  const int n_row_tiles = (chunk + kTile - 1) / kTile;
-  const int c = blockIdx.x / n_row_tiles;
-  const int ti = n_row_tiles - 1 - (blockIdx.x - c * n_row_tiles);
-  const int nc = gridDim.x / n_row_tiles;
-  const int head = blockIdx.y;
-  const int row = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int i0 = ti * kTile;
-  const int rows = min(kTile, chunk - i0);
-  const int np = round_up(n, 8);
-  const int ldc = np + kPadCol<T>;
+                      int b, int s, int h, int n, int chunk) {
+  using L = OutLayout<P>;
+  const int tiles = cdiv(chunk, kTile);
+  const int nc = s / chunk;
+  const int groups = cdiv(h, ssd::kHeads);
+  const int ti = tiles - 1 - blockIdx.x % tiles;
+  const int r1 = blockIdx.x / tiles;
+  const int hd0 = (r1 % groups) * ssd::kHeads;
+  const int c = (r1 / groups) % nc;
+  const int row = r1 / groups / nc;
+  const int heads = min(h, hd0 + ssd::kHeads) - hd0;
+  const int i0 = kTile * ti;
   const size_t t0 = (size_t)row * s + (size_t)c * chunk;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* cum_s = reinterpret_cast<double*>(smem_raw);  // kMaxChunk
-  float* dt_s = reinterpret_cast<float*>(cum_s + kMaxChunk);
-  float* dec_s = dt_s + kMaxChunk;                     // kTile
-  // warp w: rows i0 + wr .. + 16, all P columns, with its factors of an
-  // off-diagonal tile: u (16 rows) and w (64 columns)
-  const int wr = 16 * warp;
-  float* u_s = dec_s + kTile + warp * (16 + kTile);
-  float* w_s = u_s + 16;
-  unsigned char* ring = smem_raw + kOutputHead;
-  constexpr size_t ring_len = output_ring_len<T, P>();
-  T* c_s = reinterpret_cast<T*>(ring + ring_len);      // kTile x ldc
-  float* st_s = reinterpret_cast<float*>(c_s + kTile * ldc);  // np x LDS
+  const uint32_t smem_base = hop::smem_addr(smem_raw);
+  const uint32_t base = (smem_base + 1023) & ~1023u;
+  unsigned char* ring_s = smem_raw + (base - smem_base) + 2 * L::kPlanes;
+  unsigned char* after_ring = ring_s + 2 * L::kStages * L::kStage;
+  float* g_s = reinterpret_cast<float*>(after_ring);
+  T* c_s = reinterpret_cast<T*>(after_ring + tiles * L::kGTile);
+  unsigned char* consumer_s = reinterpret_cast<unsigned char*>(c_s) + L::kC;
+  // C's rows: n rounded to 32 and 16 bytes of pad
+  const int ldc = ssd::round_up(n, kK) + 16 / (int)sizeof(T);
+  const ssd::Ring ring{
+      ring_s, smem_base + (uint32_t)(consumer_s + 2 * L::kConsumer - smem_raw),
+      L::kStage, L::kStages};
 
-  const T* C0 = Cm + (t0 + i0) * n;
-  const float* st = S + (((size_t)row * nc + c) * h + head) * n * P;
-  const float* G_c = G + ((size_t)row * nc + c) * chunk * chunk +
-                     (size_t)i0 * chunk;
-  const T* x0 = x + t0 * h * P + (size_t)head * P;
-  const bool c_vec = tc::aligned16(C0, n) && whole_chunks<T>(n);
-  const bool st_vec = tc::aligned16(st, P);
-  const bool g_vec = tc::aligned16(G_c, chunk) && chunk % 4 == 0;
-  const bool x_vec = tc::aligned16(x0, (long long)h * P);
-  auto stage = [&](int tj) {  // into buffer tj & 1
-    const int j0 = tj * kTile;
-    float* g_s = reinterpret_cast<float*>(ring + (tj & 1) * ring_len);
-    T* x_s = reinterpret_cast<T*>(g_s + kTile * LDG);
-    tc::stage(g_s, LDG, G_c + j0, chunk, rows, kTile,
-              min(kTile, chunk - j0), kTile, g_vec);
-    tc::stage(x_s, LDX, x0 + (size_t)j0 * h * P, (long long)h * P,
-              min(kTile, chunk - j0), kTile, P, P, x_vec);
+  const int tid = threadIdx.x & 127;
+  const int need = min(chunk, i0 + kTile);
+  // the consumers' first head's sums and dt (two a thread), in flight
+  // while the block's tiles load
+  const int me = threadIdx.x / 128 - 1;
+  double cum_next[2] = {0.0, 0.0};
+  float dt_next[2] = {0.f, 0.f};
+  auto load_head = [&](int head) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int j = tid + 128 * q;
+      if (head < hd0 + heads && j < need) {
+        cum_next[q] = cum[(t0 + j) * h + head];
+        dt_next[q] = dt[(t0 + j) * h + head];
+      }
+    }
   };
-
-  tc::stage(c_s, ldc, C0, n, rows, kTile, n, np, c_vec);
-  tc::stage(st_s, LDS, st, P, n, np, P, P, st_vec);
-  stage(0);
-  tc::cp_async_commit();
-  for (int j = threadIdx.x; j < min(chunk, i0 + kTile); j += blockDim.x) {
-    cum_s[j] = cum[(t0 + j) * h + head];
-    dt_s[j] = dt[(t0 + j) * h + head];
+  if (me >= 0) load_head(hd0 + me);
+  // every thread: the G tiles of row tile ti and C's rows, by cp.async
+  {
+    ssd::Stager st{(int)threadIdx.x, kThreads};
+    const float* G_c = G + ((size_t)row * nc + c) * chunk * chunk;
+    for (int tj = 0; tj <= ti; ++tj)
+      st.tile(g_s + tj * kTile * L::LDG, L::LDG,
+              G_c + (size_t)i0 * chunk + kTile * tj, chunk, kTile,
+              min(kTile, chunk - i0), kTile, min(kTile, chunk - kTile * tj));
+    st.tile(c_s, ldc, Cm + (t0 + i0) * n, n, kTile, min(kTile, chunk - i0),
+            ssd::round_up(n, kK), n);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
   }
-  for (int r = threadIdx.x; r < kTile; r += blockDim.x)
-    dec_s[r] = r < rows ? expf((float)cum[(t0 + i0 + r) * h + head]) : 0.f;
-  tc::cp_async_wait<0>();
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
-  // first the entering state: (exp(cum_i) C_i) . S_in
-  float acc[P / 8][4] = {};
-  tc::warp_mma3<P / 8>(
-      acc, np,
-      [&](int r, int k) {
-        return tc::to_float(c_s[(wr + r) * ldc + k]) * dec_s[wr + r];
-      },
-      [&](int k, int col) { return st_s[k * LDS + col]; });
+  // a unit is a head: its entering-state items (32 state rows each), then
+  // x's items (32 steps each) at or below the diagonal
+  const int s_items = cdiv(n, kK);
+  const int x_items = 2 * ti + (i0 + kK < chunk ? 2 : 1);
+  const int per = s_items + x_items;
 
-  // then (G_ij exp(cum_i - cum_j) dt_j) . x_j over the tiles j <= i
-  for (int tj = 0; tj <= ti; ++tj) {
-    tc::cp_async_wait<0>();
-    // tile tj is in; every warp is done with the other buffer (at tj = 0,
-    // with the C tile and the state that share it)
-    __syncthreads();
-    if (tj < ti) {
-      stage(tj + 1);
-      tc::cp_async_commit();
-    }
-    const int j0 = tj * kTile;
-    const float* g_s =
-        reinterpret_cast<const float*>(ring + (tj & 1) * ring_len);
-    const T* x_s = reinterpret_cast<const T*>(g_s + kTile * LDG);
-    auto x_at = [&](int k, int col) {
-      return tc::to_float(x_s[k * LDX + col]);
-    };
-    if (tj < ti) {
-      // Below the diagonal every i > ref = j0 + 63 >= j, so the decay
-      // factors as exp(cum_i - cum_ref) exp(cum_ref - cum_j), both <= 1:
-      // u_i, and w_j = exp(cum_ref - cum_j) dt_j, each from an f64
-      // difference; rows past the chunk weigh 0.
-      const double ref = cum_s[j0 + kTile - 1];
-      const int lane_row = i0 + wr + (lane & 15);
-      __syncwarp();  // the warp's lanes are done with the last tile's factors
-      if (lane < 16)
-        u_s[lane] = lane_row < chunk ? expf((float)(cum_s[lane_row] - ref))
-                                     : 0.f;
-      w_s[lane] = expf((float)(ref - cum_s[j0 + lane])) * dt_s[j0 + lane];
-      w_s[lane + 32] =
-          expf((float)(ref - cum_s[j0 + lane + 32])) * dt_s[j0 + lane + 32];
-      __syncwarp();
-      tc::warp_mma3<P / 8>(
-          acc, kTile,
-          [&](int r, int k) {
-            return g_s[(wr + r) * LDG + k] * u_s[r] * w_s[k];
-          },
-          x_at);
-    } else {
-      // the diagonal tile: each weight from its own f64 difference; keys
-      // past the warp's last row are all masked
-      tc::warp_mma3<P / 8>(
-          acc, wr + 16,
-          [&](int r, int k) {
-            const int i = i0 + wr + r;
-            const int j = j0 + k;
-            return j <= i && i < chunk
-                       ? g_s[(wr + r) * LDG + k] *
-                             expf((float)(cum_s[i] - cum_s[j])) * dt_s[j]
-                       : 0.f;
-          },
-          x_at);
+  if (threadIdx.x < 128) {
+    // ---- producer
+    hop::release_registers<ssd::kProducerRegs>();
+    ssd::produce(
+        ring, heads * per, ssd::Cursor(heads, per),
+        [&](const ssd::Cursor& it, unsigned char* stage, ssd::Stager& st) {
+          const int head = hd0 + it.unit;
+          if (it.t < s_items) {
+            const int n0 = kK * it.t;
+            st.tile(reinterpret_cast<float*>(stage), staged_ld<float>(P),
+                    S + ((((size_t)row * nc + c) * h + head) * n + n0) * P, P,
+                    kK, min(kK, n - n0), P, P);
+          } else {
+            const int j0 = kK * (it.t - s_items);
+            st.tile(reinterpret_cast<T*>(stage), staged_ld<T>(P),
+                    x + ((t0 + j0) * h + head) * P, (long long)h * P, kK,
+                    min(kK, chunk - j0), P, P);
+          }
+        });
+  } else {
+    // ---- consumers: heads me, me + 2, ... of the group
+    hop::claim_registers<ssd::kConsumerRegs>();
+    const int bar = ssd::kConsumerBar + me;
+    const ssd::Lane ln(tid);
+    const uint32_t my_planes = base + me * L::kPlanes;
+    const ssd::Planes pb[2] = {
+        {my_planes, my_planes + P * 128},
+        {my_planes + (L::kPairs - 1) * 2 * P * 128,
+         my_planes + (L::kPairs - 1) * 2 * P * 128 + P * 128}};
+    unsigned char* mine = consumer_s + me * L::kConsumer;
+    double* cum_s = reinterpret_cast<double*>(mine);
+    float* dt_s = reinterpret_cast<float*>(cum_s + kMaxChunk);
+    float* u_s = dt_s + kMaxChunk;
+    float* w_s = u_s + kTile;
+    float acc[P / 2];
+    int slot = 0;
+    for (int u = me; u < heads; u += 2) {
+      const int head = hd0 + u;
+      // the head's sums and dt; the next head's loads go out
+      hop::bar_sync(bar, 128);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = tid + 128 * q;
+        if (j < need) {
+          cum_s[j] = cum_next[q];
+          dt_s[j] = dt_next[q];
+        }
+      }
+      load_head(head + 2);
+      hop::bar_sync(bar, 128);
+      // below the diagonal every weight factors as u_i w_j against one
+      // reference, the step before the row tile: u_i = exp(cum_i - ref),
+      // w_j = exp(ref - cum_j) dt_j, both <= 1 (each from an f64
+      // difference; 0 past the chunk)
+      if (ti > 0) {
+        const double ref = cum_s[i0 - 1];
+        if (tid < kTile)
+          u_s[tid] = i0 + tid < chunk ? expf((float)(cum_s[i0 + tid] - ref))
+                                      : 0.f;
+        for (int j = tid; j < i0; j += 128)
+          w_s[j] = expf((float)(ref - cum_s[j])) * dt_s[j];
+        hop::bar_sync(bar, 128);
+      }
+      float dec[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = i0 + ln.a_row(e);
+        dec[e] = i < chunk ? expf((float)cum_s[i]) : 0.f;
+      }
+      const float u_row[2] = {ti > 0 ? u_s[ln.a_row(0)] : 0.f,
+                              ti > 0 ? u_s[ln.a_row(1)] : 0.f};
+      ssd::zero(acc);
+      // item t: its planes split into pb[t & 1], its A operand built, while
+      // item t - 1's products run
+      auto prep = [&](int t, const ssd::Planes& pl, ssd::Frag& a) {
+        const int sl = slot++;
+        ring.wait_full(me, sl);
+        if (t < s_items)
+          ssd::split_transposed(
+              reinterpret_cast<const float*>(ring.stage(me, sl)),
+              staged_ld<float>(P), P, pl.hi, pl.lo, tid);
+        else
+          ssd::split_transposed(reinterpret_cast<const T*>(ring.stage(me, sl)),
+                                staged_ld<T>(P), P, pl.hi, pl.lo, tid);
+        ring.release(me, sl);
+        if (t < s_items) {
+          const int n0 = kK * t;
+          ssd::build(a, [&](int kk, int e) {
+            return dec[e & 1] *
+                   tc::to_float(c_s[ln.a_row(e) * ldc + n0 + ln.a_col(kk, e)]);
+          });
+        } else {
+          const int xi = t - s_items;
+          const int tj = xi >> 1;
+          const int j0 = kK * xi;
+          // G(i, j) of tile tj, row i0 + r, at g[r * LDG + j - j0 + ...]
+          const float* g = g_s + tj * kTile * L::LDG + kK * (xi & 1);
+          if (tj < ti) {
+            ssd::build(a, [&](int kk, int e) {
+              return g[ln.a_row(e) * L::LDG + ln.a_col(kk, e)] * u_row[e & 1] *
+                     w_s[j0 + ln.a_col(kk, e)];
+            });
+          } else {
+            ssd::build(a, [&](int kk, int e) {
+              const int r = ln.a_row(e);
+              const int j = j0 + ln.a_col(kk, e);
+              const int i = i0 + r;
+              return j <= i && i < chunk
+                         ? g[r * L::LDG + ln.a_col(kk, e)] *
+                               expf((float)(cum_s[i] - cum_s[j])) * dt_s[j]
+                         : 0.f;
+            });
+          }
+        }
+        hop::fence_proxy_async();
+      };
+      auto go = [&](const ssd::Planes& pl, const ssd::Frag& a) {
+        ssd::wait_mma<P>(acc);
+        hop::bar_sync(bar, 128);
+        ssd::issue_async<P>(acc, a, pl.hi, pl.lo);
+      };
+      ssd::Frag a0, a1;
+      prep(0, pb[0], a0);
+      go(pb[0], a0);
+      for (int t = 1; t < per; t += 2) {
+        if (L::kPairs == 1) ssd::wait_mma<P>(acc);
+        prep(t, pb[1], a1);
+        go(pb[1], a1);
+        if (t + 1 < per) {
+          if (L::kPairs == 1) ssd::wait_mma<P>(acc);
+          prep(t + 1, pb[0], a0);
+          go(pb[0], a0);
+        }
+      }
+      ssd::wait_mma<P>(acc);
+#pragma unroll
+      for (int j = 0; j < P / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + ln.c_row(2 * half);
+          if (i < chunk)
+            *reinterpret_cast<float2*>(y + ((t0 + i) * h + head) * P +
+                                       ln.c_col(j, 0)) =
+                make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
     }
   }
-
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = wr + g + 8 * half;
-    if (r < rows) {
-      float* out = y + ((t0 + i0 + r) * h + head) * P;
-#pragma unroll
-      for (int nt = 0; nt < P / 8; ++nt)
-        *reinterpret_cast<float2*>(out + 8 * nt + 2 * t) = make_float2(
-            acc[nt][2 * half], acc[nt][2 * half + 1]);
-    }
-  }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T, int P>
@@ -501,8 +377,9 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
                    void* final_state, void* cum, void* G, void* S, int b,
                    int s, int h, int n, int chunk, cudaStream_t stream) {
   const int nc = s / chunk;
+  const int tiles = cdiv(chunk, kTile);
+  const int groups = cdiv(h, ssd::kHeads);
   const T* xt = static_cast<const T*>(x);
-  const T* Bt = static_cast<const T*>(Bm);
   const T* Ct = static_cast<const T*>(Cm);
   const float* dtf = static_cast<const float*>(dt);
   double* cumd = static_cast<double*>(cum);
@@ -510,21 +387,12 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   float* Sf = static_cast<float*>(S);
   cudaError_t err;
 
-  const size_t smem1 = scores_smem<T>(n);
-  if ((err = allow_smem(ssd_scores_kernel<T>, smem1)) != cudaSuccess)
-    return err;
-  const int tiles = (chunk + kTile - 1) / kTile;
-  ssd_scores_kernel<T>
-      <<<dim3(nc * tiles * (tiles + 1) / 2, b), 256, smem1, stream>>>(
-      dtf, static_cast<const float*>(A), Bt, Ct, cumd, Gf, s, h, n, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t smem2 = states_smem<T, P>(n);
-  if ((err = allow_smem(ssd_states_kernel<T, P>, smem2)) != cudaSuccess)
-    return err;
-  const int ntn = (n + kTile - 1) / kTile;
-  ssd_states_kernel<T, P><<<dim3(nc * ntn, h, b), 128, smem2, stream>>>(
-      xt, dtf, Bt, cumd, Sf, s, h, n, chunk);
+  constexpr size_t smem1 = ssd::ChunkLayout<P>::kBytes;
+  auto chunk_kernel = ssd::ssd_chunk_kernel<T, T, P, false>;
+  if ((err = ssd::allow_smem(chunk_kernel, smem1)) != cudaSuccess) return err;
+  chunk_kernel<<<dim3(nc, groups, b), kThreads, smem1, stream>>>(
+      xt, static_cast<const T*>(Bm), Ct, dtf, static_cast<const float*>(A),
+      cumd, Gf, Sf, s, h, n, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   ssd_pass_kernel<<<dim3((n * P + 255) / 256, h, b), 256, 0, stream>>>(
@@ -532,21 +400,22 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
       static_cast<float*>(final_state), s, h, n * P, chunk, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t smem4 = output_smem<T, P>(n);
-  if ((err = allow_smem(ssd_output_kernel<T, P>, smem4)) != cudaSuccess)
+  auto out_kernel = ssd_output_kernel<T, P>;
+  if ((err = ssd::allow_smem(out_kernel, OutLayout<P>::bytes(4))) !=
+      cudaSuccess)
     return err;
-  const int row_tiles = (chunk + kTile - 1) / kTile;
-  ssd_output_kernel<T, P><<<dim3(nc * row_tiles, h, b), 128, smem4, stream>>>(
-      xt, dtf, Ct, cumd, Gf, Sf, static_cast<float*>(y), s, h, n, chunk);
+  out_kernel<<<(unsigned)(nc * tiles * groups * b), kThreads,
+               OutLayout<P>::bytes(tiles), stream>>>(
+      xt, dtf, Ct, cumd, Gf, Sf, static_cast<float*>(y), b, s, h, n, chunk);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_head_dim(const void* x, const void* dt, const void* A,
-                              const void* Bm, const void* Cm, const void* h0,
-                              void* y, void* final_state, void* cum, void* G,
-                              void* S, int b, int s, int h, int p, int n,
-                              int chunk, cudaStream_t stream) {
+cudaError_t by_head_dim(const void* x, const void* dt, const void* A,
+                        const void* Bm, const void* Cm, const void* h0,
+                        void* y, void* final_state, void* cum, void* G,
+                        void* S, int b, int s, int h, int p, int n, int chunk,
+                        cudaStream_t stream) {
   switch (p) {
     case 16:
       return launch<T, 16>(x, dt, A, Bm, Cm, h0, y, final_state, cum, G, S, b,
@@ -570,7 +439,7 @@ cudaError_t dispatch_head_dim(const void* x, const void* dt, const void* A,
 // dtype of x, B and C: 0 = float32, 1 = bfloat16.  h0 may be null (a zero
 // initial state).  cum (b, s, h) f64, G (b, s / chunk, chunk, chunk) f32
 // and S (b, s / chunk, h, n, p) f32 are scratch that the call overwrites
-// before it reads.  Launches four kernels on `stream`; returns the first
+// before it reads.  Launches three kernels on `stream`; returns the first
 // launch error.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* h0,
@@ -578,16 +447,18 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               void* S, int b, int s, int h, int p, int n,
                               int chunk, int dtype, void* stream) {
   if (b < 1 || b > 65535 || h < 1 || h > 65535 || s < 1 || n < 1 ||
-      n > kMaxState || chunk < 1 || chunk > kMaxChunk || s % chunk != 0)
+      n > ssd::kMaxState || chunk < 1 || chunk > kMaxChunk ||
+      s % chunk != 0 ||
+      (long long)(s / chunk) * cdiv(chunk, kTile) * cdiv(h, ssd::kHeads) *
+              b > 2147483647LL)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float>(x, dt, A, Bm, Cm, h0, y, final_state, cum,
-                                    G, S, b, s, h, p, n, chunk, st);
+    return by_head_dim<float>(x, dt, A, Bm, Cm, h0, y, final_state, cum, G,
+                              S, b, s, h, p, n, chunk, st);
   if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y,
-                                            final_state, cum, G, S, b, s, h,
-                                            p, n, chunk, st);
+    return by_head_dim<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y, final_state,
+                                      cum, G, S, b, s, h, p, n, chunk, st);
   return cudaErrorInvalidValue;
 }
 

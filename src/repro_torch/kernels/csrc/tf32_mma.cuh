@@ -1,6 +1,6 @@
-// Shared pieces of the tensor-core kernels (flash_attention.cu,
-// ssd_scan.cu and their backwards): f32-accurate products from three TF32
-// `mma.sync` passes.
+// Shared pieces of flash attention's mma.sync routes (flash_attention.cu
+// and its backward): f32-accurate products from three TF32 `mma.sync`
+// passes.  The SSD scan's products are on wgmma (ssd_pipe.cuh).
 // The `cp.async` staging and element conversions are in cp_async.cuh.
 //
 // Three passes.  One TF32 product keeps about three decimal digits, too
@@ -61,84 +61,6 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
   mma(c, a_lo, b_hi);
   mma(c, a_hi, b_lo);
   mma(c, a_hi, b_hi);
-}
-
-// c[i] += a.b[i] for N products that share a, to f32 accuracy, issued
-// pass by pass so that the N accumulations overlap.
-template <int N>
-__device__ __forceinline__ void mma3_n(float (*c)[4],
-                                       const uint32_t (&a_hi)[4],
-                                       const uint32_t (&a_lo)[4],
-                                       const uint32_t (*b_hi)[2],
-                                       const uint32_t (*b_lo)[2]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma(c[i], a_lo, b_hi[i]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma(c[i], a_hi, b_lo[i]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma(c[i], a_hi, b_hi[i]);
-}
-
-// One warp: acc[nt] += A[0 .. 16, 0 .. K) . B[0 .. K, 8 nt .. 8 nt + 8) for
-// K a multiple of 8, with a(r, k) and b(k, c) returning f32 elements (from
-// shared memory, or built in registers) relative to the warp's tile.
-template <int NT, typename FA, typename FB>
-__device__ __forceinline__ void warp_mma3(float (&acc)[NT][4], int K, FA a,
-                                          FB b) {
-  constexpr int NG = NT < 4 ? NT : 4;  // n-tiles whose passes interleave
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t ah[4], al[4];
-    split(a(g, k0 + t), ah[0], al[0]);
-    split(a(g + 8, k0 + t), ah[1], al[1]);
-    split(a(g, k0 + t + 4), ah[2], al[2]);
-    split(a(g + 8, k0 + t + 4), ah[3], al[3]);
-#pragma unroll
-    for (int n0 = 0; n0 < NT; n0 += NG) {
-      uint32_t bh[NG][2], bl[NG][2];
-#pragma unroll
-      for (int i = 0; i < NG; ++i) {
-        split(b(k0 + t, 8 * (n0 + i) + g), bh[i][0], bl[i][0]);
-        split(b(k0 + t + 4, 8 * (n0 + i) + g), bh[i][1], bl[i][1]);
-      }
-      mma3_n<NG>(acc + n0, ah, al, bh, bl);
-    }
-  }
-}
-
-// One warp: acc[nt] += P[0 .. 16, 0 .. 8 KT) . B[0 .. 8 KT, 8 nt .. 8 nt + 8)
-// with P held in registers as the C fragments p[KT][4] of a 16 x 8 KT
-// product, to f32 accuracy.  No shuffles: A's column t stands for P's
-// column 2t and column t + 4 for 2t + 1, so B's rows are read in that
-// order, b(k, c) returning the f32 element of B's row k.
-template <int NT, int KT, typename FB>
-__device__ __forceinline__ void frag_mma3(float (&acc)[NT][4],
-                                          const float (&p)[KT][4], FB b) {
-  constexpr int NG = NT < 4 ? NT : 4;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    uint32_t ah[4], al[4];
-    split(p[kk][0], ah[0], al[0]);  // (g, 2t)
-    split(p[kk][2], ah[1], al[1]);  // (g + 8, 2t)
-    split(p[kk][1], ah[2], al[2]);  // (g, 2t + 1)
-    split(p[kk][3], ah[3], al[3]);  // (g + 8, 2t + 1)
-#pragma unroll
-    for (int n0 = 0; n0 < NT; n0 += NG) {
-      uint32_t bh[NG][2], bl[NG][2];
-#pragma unroll
-      for (int i = 0; i < NG; ++i) {
-        split(b(8 * kk + 2 * t, 8 * (n0 + i) + g), bh[i][0], bl[i][0]);
-        split(b(8 * kk + 2 * t + 1, 8 * (n0 + i) + g), bh[i][1], bl[i][1]);
-      }
-      mma3_n<NG>(acc + n0, ah, al, bh, bl);
-    }
-  }
 }
 
 }  // namespace tc

@@ -55,7 +55,9 @@ def decode_attention(q, k, v, lengths):
 
 def ssd_scan(x, dt, A, B, C, *, chunk=256, h0=None):
     """x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, n); h0:
-    optional (b, h, n, p).  Returns (y, final_state), both float32."""
+    optional (b, h, n, p).  Returns (y, final_state), both float32.  On the
+    card a call is the kernel's three launches (``ssd_scan.SSDScan``), and
+    its gradient, through ``SSDScanFunction``, the backward's six."""
     if _on_card(x):
         if _wants_grad(x, dt, A, B, C, h0):
             return SSDScanFunction.apply(x, dt, A, B, C, h0, chunk)

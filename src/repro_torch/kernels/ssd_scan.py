@@ -1,28 +1,34 @@
 """Mamba2 SSD chunk scan: the wrappers of the CUDA kernels in
 ``csrc/ssd_scan.cu`` (the forward, which replaces the Pallas TPU kernel
 ``repro/kernels/ssd_scan.py``) and ``csrc/ssd_scan_bwd.cu`` (its
-backward).
+backward), both on TF32 ``wgmma`` through the pipeline of
+``csrc/ssd_pipe.cuh``.
 
 The wrappers take CUDA tensors only; ``ops.ssd_scan`` sends CPU tensors to
 the plain version in ``ref.py``.  ``ssd_scan.launches`` and
 ``ssd_scan_bwd.launches`` count each kernel's calls, so a run can show that
 its Mamba2 layers, and their gradients, went through the kernels.  A
-forward call launches four CUDA kernels in order on the current stream
-(cumulative sums and scores, chunk states, state passing, chunk scan), a
-backward call five (local states, state passing backwards, the tile pairs,
-dt, the sums).  Unlike the Pallas kernel the forward also takes
-an initial state and returns the final one, so the model's
-``ssd_chunked`` maps onto it whole.
+forward call launches three CUDA kernels in order on the current stream
+(the chunk launch: cumulative sums, scores and chunk states; state
+passing; the output), a backward call six (local states, state passing
+backwards, dx, dG, dt, the sums).  Both are bound by operations; every
+product runs on tensor cores in three TF32 passes: a producer warpgroup
+copies the raw tiles, and two consumer warpgroups that take turns at the
+tensor cores split each B operand into hi and lo planes once and build
+each A operand in registers.  Unlike the Pallas kernel
+the forward also takes an initial state and returns the final one, so the
+model's ``ssd_chunked`` maps onto it whole.
 
 ``SSDScanFunction`` makes the kernel differentiable: its forward launches
 the forward kernel and keeps the scratch the backward reuses (the f64
 cumulative sums, the scores C.B^T and the states entering each chunk);
 its backward launches the backward kernel on them, for both outputs (y and
-the final state) and for h0 when it was given.  The backward runs the
-products the function needs and no others: dW = dy x^T once a head and
-tile pair, dG summed over each group of eight heads before its products
-with B and C.  The gradients are deterministic (no atomics).  A failed build or launch raises in either;
-nothing falls back to the plain version.
+the final state) and for h0 when it was given.  The backward runs dW = dy
+x^T once a head and tile pair, takes R's row sums and E's column sums
+from the same products, and sums dG over the heads before its products
+with B and C.  The gradients are deterministic (no atomics).  A
+failed build or launch raises in either; nothing falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -155,10 +161,10 @@ ssd_scan = SSDScan()
 class SSDScanBwd:
     """``(x, dt, A, B, C, h0, scratch, grad_y, grad_final, chunk) -> (dx,
     ddt, dA, dB, dC, dh0)`` on the card, counting launches; each call
-    launches five CUDA kernels in order on the current stream: local
-    states, state passing backwards, the tile pairs (dx, and dG summed over
-    each group of heads), dt, and the sums (dB, dC once for all heads from
-    the groups' dG, and dA)."""
+    launches six CUDA kernels in order on the current stream: local
+    states, state passing backwards, dx (with the entering state's term, E's
+    column sums and V), dG (summed over the heads, and R's row sums), dt,
+    and the sums (dB, dC once for all heads, and dA)."""
 
     name = "ssd_scan_bwd"
 
@@ -191,10 +197,10 @@ class SSDScanBwd:
                              f"{p} and d_state {n}")
 
     def mark_launches(self, events=None):
-        """``build.mark_launches`` for this library's five launches."""
+        """``build.mark_launches`` for this library's six launches."""
         self._kernel()
         self._marks = build.mark_launches(
-            self._lib.repro_ssd_bwd_mark_launches, events, 5, self.name)
+            self._lib.repro_ssd_bwd_mark_launches, events, 6, self.name)
 
     def __call__(self, x, dt, A, B, C, h0, scratch, grad_y, grad_final,
                  chunk: int = 256):
@@ -229,9 +235,9 @@ class SSDScanBwd:
         dA = torch.empty((h,), dtype=torch.float32, device=dev)
         dh0 = None if h0 is None else torch.empty_like(h0)
         # scratch, written before it is read: dS' of every chunk, <S, dS'>
-        # per chunk, three per-step terms of d.cum, R's row sums a tile
-        # pair, dG^T summed over each group of heads a tile pair, the heads'
-        # state terms of dB and dC, and dt . d.a per chunk
+        # per chunk, two per-step terms of d.cum (the entering state's, V),
+        # R's row sums and E's column sums a tile pair, dG summed over the
+        # heads a tile pair, and dt . d.a per chunk
         scratch = [torch.empty(
             (self._lib.repro_ssd_bwd_scratch(which, b, s, h, p, n, chunk),),
             dtype=torch.float32, device=dev) for which in range(7)]

@@ -3,8 +3,9 @@
 Prefill and scoring use the chunked SSD algorithm: quadratic
 attention-like compute *within* fixed-size chunks plus a linear recurrence
 *across* chunk states.  ``ssd_chunked`` calls ``ops.ssd_scan``: the CUDA
-SSD kernel on CUDA tensors, its plain version (``kernels/ref.py``, the
-port of the JAX package's jnp ``ssd_chunked``) on CPU tensors.
+SSD kernel on CUDA tensors (three launches a call, on TF32 wgmma; its
+backward six), its plain version (``kernels/ref.py``, the port of the JAX
+package's jnp ``ssd_chunked``) on CPU tensors.
 
 Head layout follows Mamba2: d_inner = expand*d_model split into H heads of
 P=head_dim channels; B and C are shared across heads (single group, like

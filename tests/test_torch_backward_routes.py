@@ -14,12 +14,19 @@ their products in bf16; dV and dK summed over the block's tiles; dQ's parts
 added into an f32 sum in the order of the key tiles, the first writing,
 with the kernel's counter protocol checked at every add.
 
-The SSD scan's backward (``csrc/ssd_scan_bwd.cu``): per chunk, tile pairs
-(i >= j) of 64 steps; dW = dy_i x_j^T once a head and pair, from which dx_j
-(W^T dy), E's column sums and R's row sums (per-tile partials, summed in
-order); dG and the state terms of dB and dC summed over the heads of a
-group in head order, then over the groups in order, dG before its
-products with B and C; three TF32 passes.
+The SSD scan (``csrc/ssd_scan.cu``, ``csrc/ssd_scan_bwd.cu``): the
+forward's f64 cumulative sums, scores G = C.B^T once a chunk, chunk states
+(w B)^T x, the state pass, and the output's decay-weighted G tiles times x,
+below the diagonal as G_ij u_i w_j against one reference (the step before
+the row tile) and on it from each pair's own difference; its kept scratch
+(the sums, G, the entering states).  The backward's six launches: local
+states, the state pass backwards, dx (the entering term, Z_j = sum_i G_ij
+exp(cum_i - cum_j) dy_i against one reference a column tile, and V as a
+dot with x_j), dG a tile pair (dW = dy_i x_j^T once a head, R's row sums
+and E's column sums from the same values, dG summed over the heads, the
+even heads' sum plus the odd heads'), dt, and the sums (dC and dB from dG and, for the state
+terms, one product whose K runs over (head, channel), items alternating
+between two sums that are added last); three TF32 passes.
 
 Nothing on the main path calls these emulations: they are the place to try
 an order before the card.  The kernels themselves run on a card in
@@ -32,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models.ssm import ssd_chunked
 from repro_torch.kernels import ref
@@ -310,48 +318,109 @@ def test_flash_bwd_walks_keep_each_key_tile_a_step_behind_the_last(
 
 
 # --------------------------------------------------------------- SSD scan
-SSD_GROUP = 8   # heads whose dG the pairs launch sums before B and C
+def _chunk_cum(dt, A, b, nc, chunk, h):
+    """The forward's f64 inclusive sums of dt * A (f32 products) a chunk."""
+    return torch.cumsum((dt.float() * A.float()).reshape(b, nc, chunk, h)
+                        .to(torch.float64), dim=2)
+
+
+def _exp(x):
+    """exp of an f64 difference, rounded to f32 first as the kernels do."""
+    return torch.exp(x.float())
+
+
+def emulate_ssd_fwd(x, dt, A, B, C, chunk, h0=None):
+    """The forward kernel's arithmetic.  Returns (y, final_state, (cum,
+    G, S_in)) with the kept scratch laid out as the kernel keeps it: cum (b,
+    s, h) f64, G (b, nc, Q, Q) and the states entering each chunk (b, nc,
+    h, n, p)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = s // chunk
+    f3 = _tf32x3
+    xs, dtf = x.float(), dt.float()
+    Bf, Cf = B.float(), C.float()
+    cum = _chunk_cum(dt, A, b, nc, chunk, h)                 # (b, nc, Q, h)
+    G = torch.zeros(b, nc, chunk, chunk)
+    S_c = torch.zeros(b, nc, h, n, p)
+    y = torch.zeros(b, s, h, p)
+    tiles = range(0, chunk, BQ)
+    # 1. the chunk launch: G a chunk, each head's chunk state
+    for row in range(b):
+        for c in range(nc):
+            t = slice(c * chunk, (c + 1) * chunk)
+            cm = cum[row, c]
+            G[row, c] = f3(Cf[row, t], Bf[row, t].T)
+            w = _exp(cm[-1][None] - cm) * dtf[row, t]           # (Q, h)
+            for hd in range(h):
+                S_c[row, c, hd] = f3((w[:, hd, None] * Bf[row, t]).T,
+                                     xs[row, t, hd])
+    # 2. the state pass
+    S_in = torch.zeros(b, nc, h, n, p)
+    final = torch.zeros(b, h, n, p)
+    for row in range(b):
+        state = torch.zeros(h, n, p) if h0 is None else h0[row].float()
+        for c in range(nc):
+            S_in[row, c] = state
+            state = _exp(cum[row, c, -1])[:, None, None] * state \
+                + S_c[row, c]
+        final[row] = state
+    # 3. the output: per row tile, C . S_in, then the tiles at or below it
+    for row in range(b):
+        for c in range(nc):
+            t0 = c * chunk
+            cm = cum[row, c]
+            d_t = dtf[row, t0:t0 + chunk]
+            for ti, i0 in enumerate(tiles):
+                ci = slice(i0, min(i0 + BQ, chunk))
+                rows = torch.arange(i0, ci.stop)
+                for hd in range(h):
+                    acc = f3(_exp(cm[ci, hd])[:, None] * Cf[row, t0 + i0:
+                                                        t0 + ci.stop],
+                             S_in[row, c, hd])
+                    if i0 > 0:
+                        ref_ = cm[i0 - 1, hd]
+                        u = _exp(cm[ci, hd] - ref_)
+                        w = _exp(ref_ - cm[:i0, hd]) * d_t[:i0, hd]
+                        acc = acc + f3(G[row, c, ci, :i0] * u[:, None]
+                                       * w[None], xs[row, t0:t0 + i0, hd])
+                    cols = torch.arange(i0, ci.stop)
+                    keep = cols[None] <= rows[:, None]
+                    diff = cm[ci, hd][:, None] - cm[ci, hd][None]
+                    m = torch.where(keep, G[row, c, ci, ci] * _exp(
+                        torch.where(keep, diff, torch.zeros(()))) *
+                        d_t[ci, hd][None], torch.zeros(()))
+                    acc = acc + f3(m, xs[row, t0 + i0:t0 + ci.stop, hd])
+                    y[row, t0 + i0:t0 + ci.stop, hd] = acc
+    return y, final, (cum.reshape(b, s, h), G, S_in)
 
 
 def emulate_ssd_bwd(x, dt, A, B, C, h0, grad_y, grad_final, chunk):
-    """The backward kernel's arithmetic per chunk: local states and the
-    reverse state pass as before; then, per tile pair (i >= j), dW once a
-    head, and dG summed over each group's heads in head order, then over
-    the groups in order, before its products with B and C.  Returns (dx,
-    ddt, dA, dB, dC, dh0) as ``ref.ssd_scan_bwd_ref``."""
+    """The backward kernel's arithmetic, from the forward's kept scratch.
+    Returns (dx, ddt, dA, dB, dC, dh0) as ``ref.ssd_scan_bwd_ref``."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc = s // chunk
     f64 = torch.float64
+    f3 = _tf32x3
     xs, dys = x.float(), grad_y.float()
     Bf, Cf, dtf, Af = B.float(), C.float(), dt.float(), A.float()
-    cum = torch.cumsum((dtf * Af).reshape(b, nc, chunk, h).to(f64), dim=2)
-    f3 = _tf32x3
+    _, _, (cum_flat, G, S_in) = emulate_ssd_fwd(x, dt, A, B, C, chunk, h0)
+    cum = cum_flat.reshape(b, nc, chunk, h)
+    tiles = list(range(0, chunk, BQ))
 
-    # the states entering each chunk and dS' of the one leaving it
-    states = torch.zeros(b, nc, h, n, p)
+    # 1-2. local states and the state pass backwards: dS' a chunk, dh0
     dS = torch.zeros(b, nc, h, n, p)
     dh0 = torch.zeros(b, h, n, p)
     for row in range(b):
-        state = (torch.zeros(h, n, p) if h0 is None else h0[row].float())
-        for c in range(nc):
-            t = slice(c * chunk, (c + 1) * chunk)
-            last = cum[row, c, -1]
-            states[row, c] = state
-            wgt = (torch.exp(last[None] - cum[row, c]).float()
-                   * dtf[row, t])                                  # (Q, h)
-            state = (state * torch.exp(last).float()[:, None, None]
-                     + torch.stack([f3(Bf[row, t].T, wgt[:, hd, None]
-                                       * xs[row, t, hd]) for hd in range(h)]))
         grad = grad_final[row].float()
         for c in reversed(range(nc)):
             t = slice(c * chunk, (c + 1) * chunk)
             dS[row, c] = grad
-            u = torch.exp(cum[row, c]).float()                     # (Q, h)
-            local = torch.stack([f3(Cf[row, t].T, u[:, hd, None]
-                                    * dys[row, t, hd]) for hd in range(h)])
-            grad = grad * torch.exp(cum[row, c, -1]).float()[:, None, None] \
-                + local
+            u = _exp(cum[row, c])                                 # (Q, h)
+            local = torch.stack([f3((u[:, hd, None] * Cf[row, t]).T,
+                                    dys[row, t, hd]) for hd in range(h)])
+            grad = _exp(cum[row, c, -1])[:, None, None] * grad + local
         dh0[row] = grad
 
     dx = torch.zeros(b, s, h, p)
@@ -359,82 +428,117 @@ def emulate_ssd_bwd(x, dt, A, B, C, h0, grad_y, grad_final, chunk):
     dC = torch.zeros(b, s, n)
     ddt = torch.zeros(b, s, h)
     dA_parts = []
-    tiles = range(0, chunk, BQ)
-    groups = [range(g0, min(g0 + SSD_GROUP, h)) for g0 in range(0, h, SSD_GROUP)]
     for row in range(b):
         for c in range(nc):
             t0 = c * chunk
-            cm = cum[row, c]                                        # (Q, h)
-            d_t = dtf[row, t0:t0 + chunk]                           # (Q, h)
+            cm = cum[row, c]                                       # (Q, h)
+            d_t = dtf[row, t0:t0 + chunk]
             Bc, Cc = Bf[row, t0:t0 + chunk], Cf[row, t0:t0 + chunk]
-            G = f3(Cc, Bc.T)                        # the forward's scores
             xc, dyc = xs[row, t0:t0 + chunk], dys[row, t0:t0 + chunk]
-            S, dSp = states[row, c], dS[row, c]
+            Gc, S, dSp = G[row, c], S_in[row, c], dS[row, c]
             last = cm[-1]
-            end = torch.exp(last[None] - cm).float()                # (Q, h)
-            # per (row tile i, column tile j): partial sums of R over j
-            r_parts = torch.zeros(len(tiles), chunk, h)
+            entering = torch.zeros(chunk, h)
             e_sum = torch.zeros(chunk, h)
-            dg_pairs = {}
-            dx_c = torch.zeros(chunk, h, p)
-            for jt, j0 in enumerate(tiles):
+            v_terms = torch.zeros(chunk, h)
+            r_parts = torch.zeros(len(tiles), chunk, h)
+            # 3. dx, a column tile j and head at a time
+            for j0 in tiles:
                 cj = slice(j0, min(j0 + BQ, chunk))
-                for it in range(jt, len(tiles)):
-                    i0 = tiles[it]
-                    ci = slice(i0, min(i0 + BQ, chunk))
-                    ii = torch.arange(i0, ci.stop)[:, None]
-                    jj = torch.arange(j0, cj.stop)[None]
-                    dg_groups = []
-                    for heads in groups:
-                        dg = torch.zeros(ii.numel(), jj.numel())
-                        for hd in heads:
-                            diff = cm[ci, hd][:, None] - cm[cj, hd][None]
-                            f = torch.where(jj <= ii, torch.exp(
-                                torch.minimum(diff, torch.zeros(()))).float(),
-                                torch.zeros(()))
-                            dw = f3(dyc[ci, hd], xc[cj, hd].T)  # once
-                            fd = f * d_t[cj, hd][None]
-                            e = dw * G[ci, cj] * f
-                            r_parts[jt, ci, hd] = (e * d_t[cj, hd][None]
-                                                   ).sum(1)
-                            e_sum[cj, hd] += e.sum(0)
-                            dx_c[cj, hd] += f3((G[ci, cj] * fd).T, dyc[ci, hd])
-                            dg = dg + dw * fd        # head order
-                        dg_groups.append(dg)
-                    total = dg_groups[0]
-                    for dg in dg_groups[1:]:         # group order
-                        total = total + dg
-                    dg_pairs[it, jt] = total
-            # dC_i = sum_j dG_ij B_j, dB_j = sum_i dG_ij^T C_i, once a chunk
+                past = j0 + BQ
+                for hd in range(h):
+                    side = f3(_exp(cm[cj, hd])[:, None] * Cc[cj], S[hd])
+                    entering[cj, hd] = (dyc[cj, hd] * side).sum(1)
+                    jj = torch.arange(j0, cj.stop)
+                    ii = torch.arange(j0, cj.stop)
+                    keep = ii[None] >= jj[:, None]                 # (j, i)
+                    diff = cm[cj, hd][None] - cm[cj, hd][:, None]
+                    a = torch.where(keep, Gc[cj, cj].T * _exp(torch.where(
+                        keep, diff, torch.zeros(()))), torch.zeros(()))
+                    z = f3(a, dyc[cj, hd])
+                    if past < chunk:
+                        ref_ = cm[past - 1, hd]
+                        wrow = _exp(ref_ - cm[cj, hd])
+                        u = _exp(cm[past:, hd] - ref_)
+                        z = z + f3(Gc[past:, cj].T * wrow[:, None] * u[None],
+                                   dyc[past:, hd])
+                    side = f3(_exp(last[hd] - cm[cj, hd])[:, None] * Bc[cj],
+                              dSp[hd])
+                    v_terms[cj, hd] = (xc[cj, hd] * side).sum(1)
+                    dx[row, t0 + j0:t0 + cj.stop, hd] = (
+                        d_t[cj, hd][:, None] * (z + side))
+            # 4. dG a tile pair, summed over the even heads, then the odd
+            dg_pairs = {}
             for it, i0 in enumerate(tiles):
                 ci = slice(i0, min(i0 + BQ, chunk))
                 for jt in range(it + 1):
-                    cj = slice(tiles[jt], min(tiles[jt] + BQ, chunk))
-                    dC[row, t0 + ci.start:t0 + ci.stop] += f3(
-                        dg_pairs[it, jt], Bc[cj])
-                    dB[row, t0 + cj.start:t0 + cj.stop] += f3(
-                        dg_pairs[it, jt].T, Cc[ci])
-            # the state terms, summed over each group's heads in order,
-            # then over the groups in order
-            ecum = torch.exp(cm).float()
-            w = end * d_t
-            entered = torch.zeros(chunk, h)
-            v_terms = torch.zeros(chunk, h)
-            for heads in groups:
-                c_state = torch.zeros(chunk, n)
-                b_state = torch.zeros(chunk, n)
-                for hd in heads:
-                    sdy = f3(ecum[:, hd, None] * dyc[:, hd], S[hd].T)  # (Q, n)
-                    dsx = f3(end[:, hd, None] * xc[:, hd], dSp[hd].T)  # (Q, n)
-                    c_state = c_state + sdy
-                    b_state = b_state + dsx * d_t[:, hd, None]
-                    entered[:, hd] = (sdy * Cc).sum(1)
-                    v_terms[:, hd] = (dsx * Bc).sum(1)
-                    dx_c[:, hd] += f3(w[:, hd, None] * Bc, dSp[hd])
-                dC[row, t0:t0 + chunk] += c_state
-                dB[row, t0:t0 + chunk] += b_state
-            dx[row, t0:t0 + chunk] = dx_c
-            # d.cum from the parts, R's partials summed in tile order
+                    j0 = tiles[jt]
+                    cj = slice(j0, min(j0 + BQ, chunk))
+                    sums = []
+                    for parity in (0, 1):
+                        dg = torch.zeros(ci.stop - i0, cj.stop - j0)
+                        for hd in range(parity, h, 2):
+                            dw = f3(dyc[ci, hd], xc[cj, hd].T)
+                            if it == jt:
+                                ii = torch.arange(i0, ci.stop)[:, None]
+                                jj = torch.arange(j0, cj.stop)[None]
+                                diff = (cm[ci, hd][:, None]
+                                        - cm[cj, hd][None])
+                                fe = torch.where(jj <= ii, _exp(torch.where(
+                                    jj <= ii, diff, torch.zeros(()))),
+                                    torch.zeros(()))
+                            else:
+                                ref_ = cm[j0 + BQ - 1, hd]
+                                fe = (_exp(cm[ci, hd] - ref_)[:, None]
+                                      * _exp(ref_ - cm[cj, hd])[None])
+                            # E, whose row sums (R) and column sums come
+                            # from the same values
+                            wf = dw * fe
+                            e = wf * Gc[ci, cj]
+                            r_parts[jt, ci, hd] = (e * d_t[cj, hd][None]
+                                                   ).sum(1)
+                            e_sum[cj, hd] += e.sum(0)
+                            dg = dg + wf * d_t[cj, hd][None]
+                        sums.append(dg)
+                    dg_pairs[it, jt] = sums[0] + sums[1]
+            # 6. the sums: items alternate between two sums, added last
+            ecum = _exp(cm)                                        # (Q, h)
+            wq = _exp(last[None] - cm) * d_t
+            for tt, r0 in enumerate(tiles):
+                cr = slice(r0, min(r0 + BQ, chunk))
+                for role in (0, 1):
+                    items = []
+                    if role == 0:
+                        for jt in range(tt + 1):
+                            j0 = tiles[jt]
+                            for k0 in range(j0, min(j0 + BQ, chunk), 32):
+                                k1 = min(k0 + 32, chunk)
+                                items.append((dg_pairs[tt, jt][:, k0 - j0:
+                                                               k1 - j0],
+                                              Bc[k0:k1]))
+                    else:
+                        for it in range(tt, len(tiles)):
+                            i0 = tiles[it]
+                            for k0 in range(i0, min(i0 + BQ, chunk), 32):
+                                k1 = min(k0 + 32, chunk)
+                                items.append((dg_pairs[it, tt][k0 - i0:
+                                                               k1 - i0].T,
+                                              Cc[k0:k1]))
+                    for hd in range(h):
+                        for p0 in range(0, p, 32):
+                            cp = slice(p0, min(p0 + 32, p))
+                            if role == 0:
+                                items.append((ecum[cr, hd][:, None]
+                                              * dyc[cr, hd, cp], S[hd][:, cp].T))
+                            else:
+                                items.append((wq[cr, hd][:, None]
+                                              * xc[cr, hd, cp],
+                                              dSp[hd][:, cp].T))
+                    acc = [torch.zeros(cr.stop - r0, n) for _ in range(2)]
+                    for k, (a, bm) in enumerate(items):
+                        acc[k & 1] = acc[k & 1] + f3(a, bm)
+                    out = dC if role == 0 else dB
+                    out[row, t0 + r0:t0 + cr.stop] = acc[0] + acc[1]
+            # 5. d.cum from the parts, R's partials summed in tile order
             r_sum = r_parts[0]
             for jt in range(1, len(tiles)):
                 r_sum = r_sum + r_parts[jt]
@@ -445,7 +549,7 @@ def emulate_ssd_bwd(x, dt, A, B, C, h0, grad_y, grad_final, chunk):
             for i in reversed(range(chunk)):
                 dd = d_t[i].double()
                 da = da + (r_sum[i].double() - dd * e_sum[i].double()
-                           + entered[i].double() - dd * v_terms[i].double())
+                           + entering[i].double() - dd * v_terms[i].double())
                 if i == chunk - 1:
                     da = da + tail
                 ddt[row, t0 + i] = (e_sum[i].double() + v_terms[i].double()
@@ -503,3 +607,41 @@ def test_ssd_bwd_emulation_matches_jax_vjp(label, b, s, h, p, n, chunk,
     assert (grads[5] is None) == (not with_h0)
     for actual, e in zip(grads, expected):
         _assert_scaled_close(actual, e, TOL[dtype])
+
+
+@pytest.mark.parametrize("label,b,s,h,p,n,chunk,with_h0,dtype", SSD_CASES,
+                         ids=[c[0] for c in SSD_CASES])
+def test_ssd_fwd_emulation_matches_jax(label, b, s, h, p, n, chunk, with_h0,
+                                       dtype):
+    """The forward's decomposition against the JAX package's Pallas kernel
+    in interpret mode (y, no initial state there) and its ``ssd_chunked``
+    (y and the final state, with h0), and its kept scratch against what the
+    scratch holds by definition."""
+    x, dt, A, B, C, h0, _, _ = _ssd_arrays(b, s, h, p, n, seed=s + h + 1)
+    cast = getattr(torch, dtype)
+    xt, Bt, Ct = (torch.as_tensor(a).to(cast) for a in (x, B, C))
+    h0t = torch.as_tensor(h0) if with_h0 else None
+    y, final, (cum, G, S_in) = emulate_ssd_fwd(
+        xt, torch.as_tensor(dt), torch.as_tensor(A), Bt, Ct, chunk, h0t)
+    x, B, C = (t.float().numpy() for t in (xt, Bt, Ct))
+    args = [jnp.asarray(a) for a in (x, dt, A, B, C)]
+    y_ref, final_ref = ssd_chunked(*args, chunk,
+                                   h0=jnp.asarray(h0) if with_h0 else None)
+    _assert_scaled_close(y, y_ref, TOL["float32"])
+    _assert_scaled_close(final, final_ref, TOL["float32"])
+    if not with_h0:
+        _assert_scaled_close(y, jax_ops.ssd_scan(*args, chunk=chunk,
+                                                 interpret=True),
+                             TOL["float32"])
+    nc = s // chunk
+    Cc = torch.as_tensor(C).reshape(b, nc, chunk, n)
+    Bc = torch.as_tensor(B).reshape(b, nc, chunk, n)
+    _assert_scaled_close(G, (Cc @ Bc.transpose(-1, -2)).numpy(),
+                         TOL["float32"])
+    cum_ref = np.cumsum((dt * A).reshape(b, nc, chunk, h).astype(np.float64),
+                        axis=2).reshape(b, s, h)
+    assert np.abs(cum.numpy() - cum_ref).max() <= 1e-9 * (
+        np.abs(cum_ref).max() + 1.0)
+    assert S_in.shape == (b, nc, h, n, p)
+    if with_h0:
+        _assert_scaled_close(S_in[:, 0], h0, 0.0)

@@ -1153,6 +1153,57 @@ def test_ssd_kernel_bfloat16_inputs(cuda_device):
     assert _scaled_err(final, final_ref) <= SSD_TOL
 
 
+# every shape class the kernels take: n 24 and 128, p 16, 32, 64 and 128,
+# chunk 32 and chunks that are no multiple of 64 (96, 100), one chunk and
+# several; (b, s, h, p, n, chunk)
+SSD_SHAPES = SSD_CASES + [(1, 384, 3, 128, 64, 96), (2, 192, 5, 32, 24, 96),
+                          (1, 512, 4, 128, 128, 128)]
+
+
+def _ssd_bwd_built(p, n):
+    """Whether the backward library holds an entry for (p, n), as
+    ``ssd_scan_bwd.cu::entry`` lists them."""
+    return p in ((16, 32, 64) if n <= 64 else (64, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,keep", [
+    shape + (keep,) for shape in SSD_SHAPES for keep in (False, True)
+    if not keep or _ssd_bwd_built(shape[3], shape[4])])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_kernel_bfloat16_and_kept_scratch(cuda_device, b, s, h, p, n,
+                                              chunk, keep, with_h0):
+    """The forward with x, B and C in bf16 (the plain version upcasts the
+    same values), and, with ``keep`` (where the backward is built), keeping
+    its scratch: the same y and final state, and the scratch the backward
+    reads (the f64 sums, G = C.B^T a chunk at and below the diagonal, the
+    entering states)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    inputs, h0 = _ssd_inputs(b, s, h, p, n, cuda_device,
+                             dtype=torch.bfloat16, seed=s + h + p,
+                             h0=with_h0)
+    out = ssd_scan(*inputs, chunk, h0, keep=keep)
+    y, final = out[:2]
+    y_ref, final_ref = ref.ssd_scan_ref(*inputs, chunk, h0=h0)
+    assert _scaled_err(y, y_ref) <= SSD_TOL
+    assert _scaled_err(final, final_ref) <= SSD_TOL
+    if keep:
+        cum, scores, states = out[2]
+        x, dt, A, B, C = inputs
+        nc = s // chunk
+        cum_ref = torch.cumsum((dt * A).reshape(b, nc, chunk, h).double(),
+                               dim=2).reshape(b, s, h)
+        assert float((cum - cum_ref).abs().max()) <= 1e-9 * (
+            float(cum_ref.abs().max()) + 1.0)
+        # G's tiles at or below the diagonal, which the backward reads
+        Bc, Cc = (t.float().reshape(b, nc, chunk, n) for t in (B, C))
+        g_ref = torch.tril(Cc @ Bc.transpose(-1, -2))
+        assert _scaled_err(torch.tril(scores), g_ref) <= SSD_TOL
+        assert states.shape == (b, nc, h, n, p)
+        if with_h0:
+            assert torch.equal(states[:, 0], h0)
+
+
 @pytest.mark.cuda
 def test_ssd_kernel_at_the_zamba2_scoring_shape(cuda_device):
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1528,11 +1579,13 @@ def test_flash_backward_rows_that_see_no_key(cuda_device):
     torch.testing.assert_close(dv, expected, atol=1e-5, rtol=1e-5)
 
 
-# (b, s, h, p, n, chunk); the last has 20 heads: groups of 8, 8 and 4,
-# whose dG the backward sums before its products with B and C
+# (b, s, h, p, n, chunk): chunk 32 at p 16, the ragged chunks 100 and 96,
+# n 24 and 128, p 128; the last has 20 heads: groups of 8, 8 and 4 in the
+# dx launch, and an odd head count's last head alone in dG's two sums
 SSD_BWD_CASES = [(1, 256, 2, 32, 16, 64), (2, 512, 4, 64, 64, 256),
                  (1, 300, 3, 16, 24, 100), (2, 512, 4, 64, 128, 256),
-                 (1, 512, 2, 128, 128, 128), (1, 512, 20, 64, 64, 256)]
+                 (1, 512, 2, 128, 128, 128), (1, 512, 20, 64, 64, 256),
+                 (2, 64, 4, 16, 16, 32), (2, 192, 5, 32, 24, 96)]
 
 
 @pytest.mark.cuda
@@ -1587,6 +1640,31 @@ def test_ssd_backward_kernel_matches_plain_version(cuda_device, b, s, h, p,
     for a, e in zip(grads, plain):
         if a is not None:
             assert _max_scaled([a], [e]) <= tol
+
+
+@pytest.mark.cuda
+def test_ssd_backward_kernel_at_the_zamba2_training_shape(cuda_device):
+    """At the training path's shape (Zamba2-1.2B, 4 x 1024 tokens, the
+    model's dt and A): the backward kernel within GRAD_TOL of the plain
+    backward's largest magnitude, the same bits on a repeat."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    b, s, h, p, n, chunk = 4, 1024, 64, 64, 64, 256
+    (x, dt, A, B, C), _ = _ssd_inputs(b, s, h, p, n, cuda_device, seed=3,
+                                      model_like=True)
+    gen = torch.Generator().manual_seed(4)
+    gy = torch.randn((b, s, h, p), generator=gen).to(cuda_device)
+    gf = torch.randn((b, h, n, p), generator=gen).to(cuda_device)
+    _, _, scratch = ssd_scan(x, dt, A, B, C, chunk, None, keep=True)
+    grads = ssd_scan_bwd(x, dt, A, B, C, None, scratch, gy, gf, chunk)
+    again = ssd_scan_bwd(x, dt, A, B, C, None, scratch, gy, gf, chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(grads, again)
+               if a is not None)
+    plain = ref.ssd_scan_bwd_ref(x, dt, A, B, C, None, gy, gf, chunk)
+    for a, e in zip(grads, plain):
+        if a is not None:
+            assert bool(torch.isfinite(a).all())
+            assert _max_scaled([a], [e]) <= GRAD_TOL
 
 
 @pytest.mark.cuda
